@@ -5,15 +5,20 @@ Run from the repository root with no arguments:
 
     python3 chip_smoke.py
 
-It builds the CUDA kernels from `hyperpose_torch/csrc/`, holds each against
-its plain PyTorch version at the flagship shapes and times both, decodes
-painted two-person maps on the card and on the CPU, then drives the serving
-path (`PoseEngine` on the flagship TinyVGG Lightweight-OpenPose weights at
-368x432, batch 8) and checks that it went through both kernels and finds the
-two people of the committed synthetic frame. Every phase prints one line;
-any failure exits non-zero before the result line. The last line is
-`{"ok": true, "device": {...}}`. It needs a CUDA device and exits non-zero
-without one; it imports no JAX.
+It builds the four CUDA kernels from `hyperpose_torch/csrc/`, holds each
+against its plain PyTorch version at the flagship shapes and times both,
+decodes painted two-person maps on the card and on the CPU (with the default
+peak front end and with `use_pallas_peaks`), then drives the serving path
+(`PoseEngine` on the flagship TinyVGG Lightweight-OpenPose weights at
+368x432, batch 8) in each of the three exact serving forms of the checkpoint
+(the plain VggTiny stem, the space-to-depth stem and the fused conv1+pool
+stem) in float32 and bf16, and finally streams 20 frames through
+`StreamProcessor` over the bf16 fused-stem engine. It checks that each path
+went through its kernels and that every engine finds the two people of the
+committed synthetic frame. Every phase prints one line; any failure exits
+non-zero before the result line. The last line is `{"ok": true, "device":
+{...}}`. It needs a CUDA device and exits non-zero without one; it imports
+no JAX.
 """
 from __future__ import annotations
 
@@ -30,8 +35,11 @@ sys.path.insert(0, REPO)
 
 H100_BYTES_PER_S = 3.35e12   # HBM3, H100 SXM data sheet
 H100_F32_OPS_PER_S = 67e12   # float32 outside the tensor cores
+H100_BF16_OPS_PER_S = 989e12  # bf16 tensor cores, dense
 FEAT_HW = (46, 54)           # 368x432 input / 8
 BATCH = 8
+INPUT_HW = (368, 432)
+FLAGSHIP_SCORES = (17.0187, 8.5840)   # the synthetic frame, f32, both packages
 
 
 def fail(msg: str) -> None:
@@ -265,13 +273,21 @@ def _peak_maps(rng, limbs):
     return {"painted": painted, "random": noise}
 
 
-def phase_peak_topk(rng, limbs) -> dict:
+def _decoder_view(maps):
+    """The first 18 channels of a [B, H, W, 19] map on the card, as the
+    decoder hands them over: a strided view."""
+    import torch
+
+    full = torch.from_numpy(np.concatenate([maps, maps[..., :1]], axis=-1)).cuda()
+    return full[..., :18]
+
+
+def phase_peak_topk(cases) -> dict:
     import torch
     from hyperpose_torch.ops.kernels.peak_topk import peak_topk, peak_topk_plain
 
     k, ksize, sigma, thresh = 16, 5, 0.75, 0.05
     err_xy = err_raw = 0.0
-    cases = _peak_maps(rng, limbs)
     for name, maps in cases.items():
         conf = torch.from_numpy(maps).cuda()
         for border in ("reflect", "zero"):
@@ -290,10 +306,7 @@ def phase_peak_topk(rng, limbs) -> dict:
 
     # Time the production (reflect) mode on a decoder-shaped input: the
     # first 18 channels of a [B, H, W, 19] map, as a strided view.
-    painted = cases["painted"]
-    full = torch.from_numpy(np.concatenate(
-        [painted, painted[..., :1]], axis=-1)).cuda()
-    conf = full[..., :18]
+    conf = _decoder_view(cases["painted"])
     b, h, w, p = conf.shape
     hw, r = h * w, ksize // 2
     nbytes = 4 * (b * h * w * p + b * p * k * 4)
@@ -322,16 +335,166 @@ def phase_peak_topk(rng, limbs) -> dict:
     return row
 
 
-def phase_decode(limbs) -> None:
+def phase_peak_candidates(cases) -> dict:
     import torch
+    from hyperpose_torch.ops.kernels.peak_topk import (
+        peak_candidates, peak_candidates_plain,
+    )
+
+    ksize, sigma, thresh, neg = 5, 0.75, 0.05, -1e30
+    for name, maps in cases.items():
+        conf = _decoder_view(maps)
+        got = peak_candidates(conf, ksize, sigma, thresh, neg)
+        want = peak_candidates_plain(conf, ksize, sigma, thresh, neg)
+        torch.cuda.synchronize()
+        mask = got[0] > neg / 2
+        check(bool(torch.equal(mask, want[0] > neg / 2)),
+              f"peak_candidates {name}: peak masks differ")
+        check(int(mask.sum()) > 0, f"peak_candidates {name}: no peaks")
+        check(bool(torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])),
+              f"peak_candidates {name}: values differ, ranked "
+              f"{float((got[0] - want[0]).abs().max())}, smoothed "
+              f"{float((got[1] - want[1]).abs().max())}")
+
+    conf = _decoder_view(cases["painted"])
+    b, h, w, p = conf.shape
+    r = ksize // 2
+    nbytes = 4 * 3 * b * h * w * p           # the map in, two planes out
+    ops = b * p * h * w * (2 * (4 * r + 1) + 16)
+    row = {
+        "name": "peak_candidates", "route": "cuda",
+        "source": "hyperpose_torch/csrc/peak_topk.cu",
+        "replaces": "hyperpose_tpu/ops/pallas/peak_kernel.py:203",
+        "max_abs_err": 0.0,
+        "ms": device_ms(lambda: peak_candidates(conf, ksize, sigma, thresh, neg)),
+        "plain_ms": device_ms(
+            lambda: peak_candidates_plain(conf, ksize, sigma, thresh, neg), reps=10),
+        "bound_ms": 1e3 * max(nbytes / H100_BYTES_PER_S, ops / H100_F32_OPS_PER_S),
+        "bound_by": "bytes" if nbytes / H100_BYTES_PER_S
+        >= ops / H100_F32_OPS_PER_S else "operations",
+        "library_ms": None,
+    }
+    emit("peak_candidates", shapes=f"conf [{b},{h},{w},{p}] f32 view -> "
+         f"2 x [{b},{p},{h},{w}]", bytes=nbytes, operations=ops,
+         masks_equal=True, values_equal=True, kernel_ms=row["ms"],
+         call_ms=call_ms(lambda: peak_candidates(conf, ksize, sigma, thresh, neg)),
+         **{k: row[k] for k in ("plain_ms", "library_ms", "bound_ms", "bound_by")})
+    return row
+
+
+def _stem_model(stem: str, dtype):
+    """(model, flax weights) of the flagship checkpoint in one serving form."""
+    from hyperpose_torch.models import backbones as B
+    from hyperpose_torch.models.openpose import LightWeightOpenPose
+
+    weights = os.path.join(REPO, "weights", "flagship_tinyvgg.npz")
+    backbone, remap = {
+        "plain": (B.VggTiny, None),
+        "s2d": (B.VggTinyS2DStem, B.remap_vggtiny_to_s2d),
+        "fused": (B.VggTinyFusedStem, B.remap_vggtiny_to_fused),
+    }[stem]
+    return (LightWeightOpenPose(backbone=backbone, dtype=dtype),
+            weights if remap is None else remap(weights))
+
+
+def _frames(rng) -> list:
+    """The synthetic frame and BATCH-1 random frames of the input size."""
+    frame = np.load(os.path.join(
+        REPO, "hyperpose_torch", "assets", "synth_000000001601.npz"))["rgb"]
+    return [frame] + [rng.integers(0, 256, (*INPUT_HW, 3), dtype=np.uint8)
+                      for _ in range(BATCH - 1)]
+
+
+def phase_conv1_pool(frames) -> dict:
+    """The fused stem's kernel on the real conv0p output of the remapped
+    flagship (channels-last, as the engine runs it), in f32 and bf16, against
+    its plain version and against what it replaces: the plain stem's block_1
+    and pool1 on cuDNN."""
+    import torch
+    import torch.nn.functional as F
+    from hyperpose_torch.ops.image import resize_bilinear
+    from hyperpose_torch.ops.kernels.conv1_pool import conv1_pool, conv1_pool_plain
+    from hyperpose_torch.utils.weights import load_flax_weights
+
+    batch = np.stack([resize_bilinear(f, INPUT_HW) for f in frames])
+    x_u8 = torch.from_numpy(batch).cuda()
+    b, (h, w) = BATCH, INPUT_HW
+    q = w // 2
+    ops = 2 * b * h * q * 384 * 128
+    out = {}
+    for name, dtype, tol in (("f32", torch.float32, 1e-4),
+                             ("bf16", torch.bfloat16, 1e-2)):
+        fused, fw = _stem_model("fused", dtype)
+        plain, pw = _stem_model("plain", dtype)
+        stems = [load_flax_weights(m, wt).backbone.cuda().eval().to(
+            memory_format=torch.channels_last) for m, wt in ((fused, fw), (plain, pw))]
+        fused, plain = stems
+        with torch.inference_mode():
+            x = (x_u8.to(dtype) / 255.0).permute(0, 3, 1, 2)
+            btp = fused.conv0_packed(x)
+            w1p, b1p = fused.w1p, fused.b1p
+            check(tuple(btp.shape) == (b, h, q, 128) and btp.stride(3) == 1,
+                  f"conv0p output {tuple(btp.shape)} strides {btp.stride()}")
+            got = conv1_pool(btp, w1p, b1p)
+            want = conv1_pool_plain(btp, w1p, b1p)
+            torch.cuda.synchronize()
+            g, wt = got.float(), want.float()
+            err = float((g - wt).abs().max())
+            ok = bool(torch.allclose(g, wt, atol=tol, rtol=tol))
+            check(ok, f"conv1_pool {name}: max |d| {err} beyond atol=rtol={tol}")
+            try:
+                conv1_pool(btp.contiguous().permute(0, 3, 1, 2).contiguous()
+                           .permute(0, 2, 3, 1), w1p, b1p)
+                fail(f"conv1_pool {name}: a non-channels-last input did not raise")
+            except ValueError:
+                pass
+            a0 = plain.block_0(x)
+            nbytes = btp.element_size() * (btp.numel() + got.numel())
+            bound_ops = ops / (H100_F32_OPS_PER_S if name == "f32"
+                               else H100_BF16_OPS_PER_S)
+            out[name] = {
+                "max_abs_err": err, "check": f"allclose(atol={tol}, rtol={tol})",
+                "ms": device_ms(lambda: conv1_pool(btp, w1p, b1p), reps=20),
+                "call_ms": call_ms(lambda: conv1_pool(btp, w1p, b1p), iters=20),
+                "plain_ms": device_ms(lambda: conv1_pool_plain(btp, w1p, b1p), reps=5),
+                "library_ms": device_ms(lambda: F.max_pool2d(
+                    plain.block_1(a0), 2, 2, ceil_mode=True), reps=10),
+                "bytes": nbytes, "operations": ops,
+                "bound_ms": 1e3 * max(nbytes / H100_BYTES_PER_S, bound_ops),
+                "bound_by": "bytes" if nbytes / H100_BYTES_PER_S >= bound_ops
+                else "operations",
+            }
+        del fused, plain, stems, btp, got, want, a0
+        torch.cuda.empty_cache()
+    emit("conv1_pool", shapes=f"btp [{b},{h},{q},128] channels-last view, w1p "
+         f"[3,128,128], b1p [128] f32 -> [{b},{h // 2},{q},64]", tf32=False,
+         library="unfused cuDNN block_1 (conv + BN + ReLU) then max_pool2d", **out)
+    bf = out["bf16"]
+    return {"name": "conv1_pool", "route": "cuda",
+            "source": "hyperpose_torch/csrc/conv1_pool.cu",
+            "replaces": "hyperpose_tpu/ops/pallas/stem_kernel.py:90",
+            **{k: bf[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
+                                  "bound_by", "library_ms")}}
+
+
+def phase_decode(limbs, **cfg) -> dict:
+    """Painted two-person maps decoded on the card and on the CPU; returns
+    the kernel launches of the card's decode."""
+    import torch
+    from hyperpose_torch.ops.kernels.line_gather import line_gather
+    from hyperpose_torch.ops.kernels.peak_topk import peak_candidates, peak_topk
     from hyperpose_torch.ops.paf_decode import PafDecoderConfig, paf_decode_batch
 
     conf, paf = make_synthetic_maps(TWO_PEOPLE, limbs)
     conf = np.repeat(conf[None], BATCH, axis=0)
     paf = np.repeat(paf[None], BATCH, axis=0)
-    cfg = PafDecoderConfig()
+    cfg = PafDecoderConfig(**cfg)
+    kernels = (line_gather, peak_topk, peak_candidates)
+    for k in kernels:
+        k.launches = 0
     gpu = paf_decode_batch(torch.from_numpy(conf).cuda(),
                            torch.from_numpy(paf).cuda(), cfg)
+    launches = {k.__name__: k.launches for k in kernels}
     cpu = paf_decode_batch(torch.from_numpy(conf), torch.from_numpy(paf), cfg)
     gpu = {k: v.cpu().numpy() for k, v in vars(gpu).items()}
     cpu = {k: v.numpy() for k, v in vars(cpu).items()}
@@ -344,86 +507,147 @@ def phase_decode(limbs) -> None:
     d_scores = float(np.abs(gpu["scores"] - cpu["scores"]).max())
     check(d_coords <= 1e-5 and d_scores <= 1e-3,
           f"decode vs CPU: |dcoords| {d_coords}, |dscores| {d_scores}")
-    emit("decode", humans=humans.tolist(), max_abs_dcoords=d_coords,
-         max_abs_dscores=d_scores, tolerance={"coords": 1e-5, "scores": 1e-3})
+    name = "decode_pallas_peaks" if cfg.use_pallas_peaks else "decode"
+    emit(name, humans=humans.tolist(), max_abs_dcoords=d_coords,
+         max_abs_dscores=d_scores, tolerance={"coords": 1e-5, "scores": 1e-3},
+         launches=launches)
+    return launches
 
 
-def phase_end_to_end(rng, card) -> dict:
-    import torch
-    from hyperpose_torch.models.openpose import LightWeightOpenPose
-    from hyperpose_torch.ops.image import resize_bilinear
+def _launch_counters():
+    from hyperpose_torch.ops.kernels.conv1_pool import conv1_pool
     from hyperpose_torch.ops.kernels.line_gather import line_gather
-    from hyperpose_torch.ops.kernels.peak_topk import peak_topk
+    from hyperpose_torch.ops.kernels.peak_topk import peak_candidates, peak_topk
+
+    return (line_gather, peak_topk, peak_candidates, conv1_pool)
+
+
+def drive(engine, frames) -> tuple[list, dict]:
+    """One `inference` call with every kernel count set to 0 just before it;
+    returns its results and the counts read just after."""
+    counters = _launch_counters()
+    for k in counters:
+        k.launches = 0
+    results = engine.inference(frames)
+    return results, {k.__name__: k.launches for k in counters}
+
+
+def phase_end_to_end(frames, card) -> dict:
+    """Each serving form of the flagship in f32 (TF32 off) and bf16: the
+    main path once with its kernel counts, then step / network / decode
+    timings. Returns the launch counts of each (stem, dtype) path."""
+    import torch
+    from hyperpose_torch.ops.image import resize_bilinear
     from hyperpose_torch.ops.paf_decode import paf_decode_batch
     from hyperpose_torch.runtime.engine import PoseEngine
 
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
-    weights = os.path.join(REPO, "weights", "flagship_tinyvgg.npz")
-    frame = np.load(os.path.join(
-        REPO, "hyperpose_torch", "assets", "synth_000000001601.npz"))["rgb"]
-    frames = [frame] + [
-        rng.integers(0, 256, (368, 432, 3), dtype=np.uint8)
-        for _ in range(BATCH - 1)
-    ]
-    engine = PoseEngine(LightWeightOpenPose(dtype=torch.float32), weights,
-                        max_batch_size=BATCH, device="cuda")
-    warm_s = engine.warmup()
+    batch = torch.from_numpy(
+        np.stack([resize_bilinear(f, INPUT_HW) for f in frames])).cuda()
+    paths, timing = {}, {}
+    for stem in ("plain", "s2d", "fused"):
+        for name, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+            model, weights = _stem_model(stem, dtype)
+            eng = PoseEngine(model, weights, max_batch_size=BATCH, device="cuda")
+            warm_s = eng.warmup()
+            results, launches = drive(eng, frames)
+            key = f"{stem}_{name}"
+            paths[key] = launches
+            check(launches["line_gather"] > 0 and launches["peak_topk"] > 0,
+                  f"{key}: the main path skipped a decoder kernel: {launches}")
+            check((launches["conv1_pool"] > 0) == (stem == "fused"),
+                  f"{key}: conv1_pool launches {launches['conv1_pool']}")
+            scores = [hm.score for hm in results[0]]
+            check(len(scores) == 2, f"{key}: synthetic frame: {len(scores)} humans")
+            for res in results:
+                for hm in res:
+                    xy = np.array([(p.x, p.y) for p in hm.parts.values()])
+                    check(bool(np.isfinite(xy).all() and np.isfinite(hm.score)),
+                          f"{key}: non-finite output")
+            if name == "f32":
+                d = float(np.abs(np.array(scores) - np.array(FLAGSHIP_SCORES)).max())
+                check(d <= 1e-3, f"{key}: scores {scores} vs {FLAGSHIP_SCORES}")
 
-    line_gather.launches = 0
-    peak_topk.launches = 0
-    results = engine.inference(frames)
-    launches = {"line_gather": line_gather.launches,
-                "peak_topk": peak_topk.launches}
-    check(all(n > 0 for n in launches.values()),
-          f"the main path skipped a kernel: {launches}")
-    scores = [h.score for h in results[0]]
-    check(len(scores) == 2, f"synthetic frame: {len(scores)} humans, not 2")
-    for res in results:
-        for hm in res:
-            xy = np.array([(p.x, p.y) for p in hm.parts.values()])
-            check(bool(np.isfinite(xy).all() and np.isfinite(hm.score)),
-                  "non-finite output")
-
-    # The same frame through the port on the CPU (plain versions, f32).
-    cpu = PoseEngine(LightWeightOpenPose(dtype=torch.float32), weights,
-                     max_batch_size=1, device="cpu")
-    cpu_scores = [h.score for h in cpu.inference([frame])[0]]
-    check(len(cpu_scores) == 2, f"CPU run: {len(cpu_scores)} humans")
-    d_score = float(np.abs(np.array(scores) - np.array(cpu_scores)).max())
-    check(d_score <= 1e-3, f"GPU vs CPU human scores differ by {d_score}")
-
-    batch = np.stack([resize_bilinear(f, (368, 432)) for f in frames])
-    timing = {}
-    for name, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16)):
-        eng = engine if dtype == torch.float32 else PoseEngine(
-            LightWeightOpenPose(dtype=dtype), weights, max_batch_size=BATCH,
-            device="cuda")
-        x = torch.from_numpy(batch).cuda()
-        with torch.inference_mode():
-            maps = eng.model(x.to(dtype) / 255.0)
-            conf = maps["conf_map"].float()
-            paf = maps["paf_map"].float()
-        stages = {
-            "step": lambda: eng.infer_batch_device(x),
-            "network": lambda: eng.model(x.to(dtype) / 255.0),
-            "decode": lambda: paf_decode_batch(conf, paf, eng.decoder),
-        }
-        row = {}
-        for stage, fn in stages.items():
             with torch.inference_mode():
-                row[f"{stage}_ms"], row[f"{stage}_p80_ms"] = wall_ms(fn)
-                busy, kernels = device_busy(fn)
-            row[f"{stage}_device_busy_ms"] = busy
-            row[f"{stage}_kernels"] = kernels
-        out = eng.infer_batch_device(x)
-        row.update(frames_per_s=1e3 * BATCH / row["step_ms"],
-                   device_idle_share=1.0 - row["step_device_busy_ms"] / row["step_ms"],
-                   humans_frame0=int(out.valid[0].sum()))
-        timing[name] = row
-    emit("end_to_end", card=card, input="368x432", batch=BATCH,
-         warmup_s=warm_s, tf32=False, wall_samples=50, scores=scores, cpu_scores=cpu_scores,
-         max_abs_dscore=d_score, launches=launches, **timing)
+                maps = eng.model(batch.to(dtype) / 255.0)
+                conf = maps["conf_map"].float()
+                paf = maps["paf_map"].float()
+            stages = {
+                "step": lambda: eng.infer_batch_device(batch),
+                "network": lambda: eng.model(batch.to(dtype) / 255.0),
+                "decode": lambda: paf_decode_batch(conf, paf, eng.decoder),
+            }
+            row = {"warmup_s": warm_s, "scores": scores, "launches": launches}
+            for stage, fn in stages.items():
+                with torch.inference_mode():
+                    row[f"{stage}_ms"], row[f"{stage}_p80_ms"] = wall_ms(fn)
+                    busy, kernels = device_busy(fn)
+                row[f"{stage}_device_busy_ms"] = busy
+                row[f"{stage}_kernels"] = kernels
+            row.update(frames_per_s=1e3 * BATCH / row["step_ms"],
+                       device_idle_share=1.0 - row["step_device_busy_ms"]
+                       / row["step_ms"])
+            timing[key] = row
+            del eng, model, maps, conf, paf
+            torch.cuda.empty_cache()
+
+    # The plain f32 form on the CPU (plain versions): the same two people.
+    model, weights = _stem_model("plain", torch.float32)
+    cpu = PoseEngine(model, weights, max_batch_size=1, device="cpu")
+    cpu_scores = [hm.score for hm in cpu.inference([frames[0]])[0]]
+    check(len(cpu_scores) == 2, f"CPU run: {len(cpu_scores)} humans")
+    d_score = float(np.abs(np.array(timing["plain_f32"]["scores"])
+                           - np.array(cpu_scores)).max())
+    check(d_score <= 1e-3, f"GPU vs CPU human scores differ by {d_score}")
+    emit("end_to_end", card=card, input="x".join(map(str, INPUT_HW)), batch=BATCH,
+         tf32=False, wall_samples=50, cpu_scores=cpu_scores,
+         max_abs_dscore_plain_f32_vs_cpu=d_score, **timing)
+    return paths
+
+
+def phase_stream(rng, card) -> dict:
+    """`StreamProcessor` over the bf16 fused-stem engine: 20 frames (the
+    synthetic one, then random camera-sized frames) come back in order, on
+    the native queues, and frame 0 has the humans `inference` finds."""
+    import torch
+    from hyperpose_torch.runtime import native
+    from hyperpose_torch.runtime.engine import PoseEngine
+    from hyperpose_torch.runtime.stream import StreamProcessor
+
+    model, weights = _stem_model("fused", torch.bfloat16)
+    eng = PoseEngine(model, weights, max_batch_size=BATCH, device="cuda")
+    eng.warmup()
+    frames = _frames(rng)[:1] + [rng.integers(0, 256, (480, 640, 3), dtype=np.uint8)
+                                 for _ in range(19)]
+    want = eng.inference(frames[:1])[0]
+    check(native.get_lib() is not None,
+          f"the native runtime did not build: {native.build_error}")
+    sp = StreamProcessor(eng)
+    check(sp.native, "the stream runs on the Python queues, not the native ones")
+    counters = _launch_counters()
+    for k in counters:
+        k.launches = 0
+    t0 = time.perf_counter()
+    out = list(sp.process(iter(frames)))
+    secs = time.perf_counter() - t0
+    launches = {k.__name__: k.launches for k in counters}
+    check([r.index for r in out] == list(range(20)),
+          f"stream order {[r.index for r in out]}")
+    check(all(r.frame is f for r, f in zip(out, frames)), "stream mixed up frames")
+    got = out[0].humans
+    check(len(got) == len(want) == 2, f"stream frame 0: {len(got)} humans, "
+          f"inference: {len(want)}")
+    d_score = max(abs(g.score - w.score) for g, w in zip(got, want))
+    d_xy = max(abs(g.parts[p].x - part.x) + abs(g.parts[p].y - part.y)
+               for g, w in zip(got, want) for p, part in w.parts.items())
+    check(all(sorted(g.parts) == sorted(w.parts) for g, w in zip(got, want))
+          and d_score <= 1e-3 and d_xy <= 1e-4,
+          f"stream frame 0 differs from inference: |dscore| {d_score}, |dxy| {d_xy}")
+    check(launches["conv1_pool"] > 0, f"stream skipped conv1_pool: {launches}")
+    emit("stream", card=card, engine="fused bf16", batch=BATCH, frames=len(out),
+         ordered=True, native_queue=sp.native,
+         native_library=str(native.library_path().relative_to(REPO)),
+         seconds=secs, frames_per_s=len(out) / secs, launches=launches,
+         frame0_scores=[g.score for g in got], max_abs_dscore_vs_inference=d_score)
     return launches
 
 
@@ -434,15 +658,35 @@ def main() -> None:
         fail("torch.cuda.is_available() is false: this smoke test needs a GPU")
     from hyperpose_torch.utils.topology import COCO_TOPOLOGY
 
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
     limbs = np.asarray(COCO_TOPOLOGY.limbs)
     rng = np.random.default_rng(0)
+    t0 = time.perf_counter()
     card = phase_card()
     phase_build()
-    rows = [phase_line_gather(rng), phase_peak_topk(rng, limbs)]
+    rows = [phase_line_gather(rng)]
+    cases = _peak_maps(rng, limbs)
+    rows.append(phase_peak_topk(cases))
+    rows.append(phase_peak_candidates(cases))
+    frames = _frames(rng)
+    rows.append(phase_conv1_pool(frames))
     phase_decode(limbs)
-    launches = phase_end_to_end(rng, card)
+    pallas_peaks = phase_decode(limbs, use_pallas_peaks=True)
+    check(pallas_peaks["peak_candidates"] > 0 and pallas_peaks["peak_topk"] == 0,
+          f"use_pallas_peaks decode launches: {pallas_peaks}")
+    paths = phase_end_to_end(frames, card)
+    phase_stream(rng, card)
+    # Each kernel's launches on its own path: the plain-stem f32 engine for
+    # the decoder kernels, the bf16 fused-stem engine for conv1_pool, the
+    # use_pallas_peaks decode for peak_candidates.
+    launches = {**paths["plain_f32"],
+                "conv1_pool": paths["fused_bf16"]["conv1_pool"],
+                "peak_candidates": pallas_peaks["peak_candidates"]}
     for row in rows:
         row["launches"] = launches[row["name"]]
+        check(row["launches"] > 0, f"{row['name']} was not launched on its path")
+    emit("total", seconds=time.perf_counter() - t0)
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

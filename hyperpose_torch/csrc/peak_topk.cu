@@ -1,13 +1,20 @@
-// Peak front end of the PAF decoder for Hopper (sm_90a): smooth, NMS,
-// plateau tie-break, top-K, sub-pixel fit and raw-score gather in one kernel.
+// Peak front end of the PAF decoder for Hopper (sm_90a), two kernels on one
+// shared smooth + NMS:
 //
-// Replaces the Pallas TPU kernel hyperpose_tpu/ops/pallas/peak_kernel.py
-// fused_peak_topk (border = zero) and reproduces the production XLA front end
-// hyperpose_tpu/ops/paf_decode.py find_peaks (border = reflect).
+//   * peak_topk_kernel: smooth, NMS, plateau tie-break, top-K, sub-pixel fit
+//     and raw-score gather in one kernel. Replaces the Pallas TPU kernel
+//     hyperpose_tpu/ops/pallas/peak_kernel.py fused_peak_topk (border = zero)
+//     and reproduces the production XLA front end
+//     hyperpose_tpu/ops/paf_decode.py find_peaks (border = reflect).
+//   * peak_candidates_kernel: smooth, NMS and tie-break only, writing the
+//     ranked plane (the smoothed value at surviving peaks, `neg` elsewhere)
+//     and the smoothed plane. Replaces the Pallas TPU kernel
+//     peak_kernel.py fused_peak_candidates (zero borders), the front end of
+//     the decoder's use_pallas_peaks mode.
 //
 // One block per (image, part) plane. The plane, its smoothed copy and one
 // scratch plane live in shared memory (3 * H * W floats, 30 KB at 46x54), so
-// the map is read from device memory once and only the K results go back.
+// the map is read from device memory once.
 //
 //   1. load the plane (strided: the decoder hands over an NHWC view);
 //   2. separable smooth, taps added centre first then the pairs at distance
@@ -16,6 +23,7 @@
 //   3. 3x3 same-max NMS with the threshold, then the plateau tie-break (a
 //      candidate survives only if no candidate in its window has a larger
 //      pixel index);
+//   then, in peak_topk_kernel only:
 //   4. K rounds of a block-wide argmax, ties to the lowest pixel index; the
 //      chosen pixel is masked with -2e30 (reflect, as find_peaks) or -1e30
 //      (zero, as the Pallas kernel);
@@ -26,10 +34,12 @@
 // index (at x = W-1 the "x+1" neighbour is x = 0 of the next row), as
 // find_peaks does. zero fills outside the plane with 0 everywhere.
 //
-// Bound: bytes. It reads each map value once and writes 4*K floats per
-// plane; the arithmetic (10 multiply-adds per pixel for the smooth, K scans
-// of the plane for the top-K) is far below the card's rate. The top-K scans
-// run out of shared memory, not device memory.
+// Bound: bytes. peak_topk reads each map value once and writes 4*K floats
+// per plane; the arithmetic (10 multiply-adds per pixel for the smooth, K
+// scans of the plane for the top-K) is far below the card's rate. The top-K
+// scans run out of shared memory, not device memory. peak_candidates reads
+// the map once and writes two planes of the same size (1.43 MB in, 2.86 MB
+// out at B=8, 46x54, 18 parts: 1.3 us at 3.35 TB/s).
 #include <cuda_runtime.h>
 
 #include <cfloat>
@@ -85,46 +95,33 @@ __device__ __forceinline__ bool better(float v, int i, float bv, int bi) {
   return v > bv || (v == bv && i < bi);
 }
 
-__global__ void __launch_bounds__(kThreads) peak_topk_kernel(
-    const float* __restrict__ conf, int H, int W, int P, int64_t sb,
-    int64_t sy, int64_t sx, int64_t sp, Taps taps, int ntaps, float thresh,
-    int K, int zero_border, float* __restrict__ out_xy,
-    float* __restrict__ out_raw, float* __restrict__ out_sval) {
-  extern __shared__ float smem[];
+// Steps 1-3 for the plane at `src`: on return (after a barrier) `sm` holds
+// the smoothed plane and `ranked` the smoothed value at surviving peaks and
+// `neg` elsewhere. `t` is scratch. Every thread of the block calls it.
+__device__ void smooth_nms(const float* __restrict__ src, int H, int W,
+                           int64_t sy, int64_t sx, const Taps& taps, int r,
+                           float thresh, bool zero, float neg, float* ranked,
+                           float* t, float* sm) {
   const int HW = H * W;
-  float* a = smem;            // raw plane, later the ranked plane
-  float* t = smem + HW;       // vertical pass, later plateau candidates
-  float* sm = smem + 2 * HW;  // smoothed plane
-  int* cand = reinterpret_cast<int*>(t);
-  __shared__ float warp_v[kThreads / 32];
-  __shared__ int warp_i[kThreads / 32];
-  __shared__ float sel_v[kMaxK];
-  __shared__ int sel_i[kMaxK];
-
-  const bool zero = zero_border != 0;
   const int tid = threadIdx.x;
-  const int bp = blockIdx.x;
-  const int b = bp / P;
-  const int p = bp % P;
-  const float* src = conf + b * sb + p * sp;
-  const int r = ntaps / 2;
-
-  for (int i = tid; i < HW; i += kThreads) {
+  int* cand = reinterpret_cast<int*>(t);
+  float* a = ranked;  // the raw plane until the tie-break overwrites it
+  for (int i = tid; i < HW; i += blockDim.x) {
     const int y = i / W, x = i % W;
     a[i] = src[y * sy + x * sx];
   }
   __syncthreads();
-  for (int i = tid; i < HW; i += kThreads) {
+  for (int i = tid; i < HW; i += blockDim.x) {
     t[i] = smooth_at(a, i, i / W, H, W, taps, r, zero);
   }
   __syncthreads();
-  for (int i = tid; i < HW; i += kThreads) {
+  for (int i = tid; i < HW; i += blockDim.x) {
     sm[i] = smooth_at(t, i, i % W, W, 1, taps, r, zero);
   }
   __syncthreads();
 
   // NMS + threshold: candidates hold their own pixel index, others -1.
-  for (int i = tid; i < HW; i += kThreads) {
+  for (int i = tid; i < HW; i += blockDim.x) {
     const int y = i / W, x = i % W;
     const float v = sm[i];
     bool pk = v > thresh;
@@ -143,7 +140,7 @@ __global__ void __launch_bounds__(kThreads) peak_topk_kernel(
   }
   __syncthreads();
   // Plateau tie-break; the survivors' smoothed values form the ranked plane.
-  for (int i = tid; i < HW; i += kThreads) {
+  for (int i = tid; i < HW; i += blockDim.x) {
     const int y = i / W, x = i % W;
     bool keep = cand[i] == i;
     for (int dy = -1; dy <= 1 && keep; ++dy) {
@@ -154,9 +151,33 @@ __global__ void __launch_bounds__(kThreads) peak_topk_kernel(
         }
       }
     }
-    a[i] = keep ? sm[i] : kNeg;
+    ranked[i] = keep ? sm[i] : neg;
   }
   __syncthreads();
+}
+
+__global__ void __launch_bounds__(kThreads) peak_topk_kernel(
+    const float* __restrict__ conf, int H, int W, int P, int64_t sb,
+    int64_t sy, int64_t sx, int64_t sp, Taps taps, int ntaps, float thresh,
+    int K, int zero_border, float* __restrict__ out_xy,
+    float* __restrict__ out_raw, float* __restrict__ out_sval) {
+  extern __shared__ float smem[];
+  const int HW = H * W;
+  float* a = smem;            // the ranked plane
+  float* t = smem + HW;       // scratch
+  float* sm = smem + 2 * HW;  // smoothed plane
+  __shared__ float warp_v[kThreads / 32];
+  __shared__ int warp_i[kThreads / 32];
+  __shared__ float sel_v[kMaxK];
+  __shared__ int sel_i[kMaxK];
+
+  const bool zero = zero_border != 0;
+  const int tid = threadIdx.x;
+  const int bp = blockIdx.x;
+  const int b = bp / P;
+  const int p = bp % P;
+  const float* src = conf + b * sb + p * sp;
+  smooth_nms(src, H, W, sy, sx, taps, ntaps / 2, thresh, zero, kNeg, a, t, sm);
 
   const float taken = zero ? kNeg : 2.f * kNeg;
   const int lane = tid & 31, warp = tid >> 5;
@@ -226,6 +247,44 @@ __global__ void __launch_bounds__(kThreads) peak_topk_kernel(
   }
 }
 
+__global__ void __launch_bounds__(kThreads) peak_candidates_kernel(
+    const float* __restrict__ conf, int H, int W, int P, int64_t sb,
+    int64_t sy, int64_t sx, int64_t sp, Taps taps, int ntaps, float thresh,
+    float neg, float* __restrict__ out_ranked, float* __restrict__ out_sm) {
+  extern __shared__ float smem[];
+  const int HW = H * W;
+  float* ranked = smem;
+  float* sm = smem + 2 * HW;
+  const int bp = blockIdx.x;
+  const float* src = conf + (bp / P) * sb + (bp % P) * sp;
+  smooth_nms(src, H, W, sy, sx, taps, ntaps / 2, thresh, true, neg, ranked,
+             smem + HW, sm);
+  const int64_t o = static_cast<int64_t>(bp) * HW;
+  for (int i = threadIdx.x; i < HW; i += blockDim.x) {
+    out_ranked[o + i] = ranked[i];
+    out_sm[o + i] = sm[i];
+  }
+}
+
+// Copies the taps and raises the kernel's dynamic shared memory limit when
+// the three planes need more than 48 KB. Returns a CUDA error code.
+template <typename Kernel>
+int prepare(Kernel kernel, const void* taps_host, int ntaps, int H, int W,
+            Taps* taps, size_t* smem) {
+  if (ntaps < 1 || ntaps > kMaxTaps || ntaps % 2 == 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const float* th = static_cast<const float*>(taps_host);
+  for (int i = 0; i < ntaps; ++i) taps->t[i] = th[i];
+  *smem = 3 * static_cast<size_t>(H) * W * sizeof(float);
+  if (*smem > 48 * 1024) {
+    return static_cast<int>(cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(*smem)));
+  }
+  return static_cast<int>(cudaSuccess);
+}
+
 }  // namespace
 
 // conf: float [B, H, W, P] with element strides (sb, sy, sx, sp); taps: host
@@ -237,25 +296,40 @@ extern "C" int hp_peak_topk(const void* conf, int B, int H, int W, int P,
                             const void* taps_host, int ntaps, float thresh,
                             int K, int zero_border, void* xy, void* raw,
                             void* sval, void* stream) {
-  if (ntaps < 1 || ntaps > kMaxTaps || ntaps % 2 == 0 || K < 1 || K > kMaxK ||
-      K > H * W) {
+  if (K < 1 || K > kMaxK || K > H * W) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   Taps taps{};
-  const float* th = static_cast<const float*>(taps_host);
-  for (int i = 0; i < ntaps; ++i) taps.t[i] = th[i];
-  const size_t smem = 3 * static_cast<size_t>(H) * W * sizeof(float);
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        peak_topk_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (e != cudaSuccess) return static_cast<int>(e);
-  }
+  size_t smem = 0;
+  const int e = prepare(peak_topk_kernel, taps_host, ntaps, H, W, &taps, &smem);
+  if (e != 0) return e;
   if (B * P == 0) return static_cast<int>(cudaGetLastError());
   peak_topk_kernel<<<B * P, kThreads, smem,
                      static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(conf), H, W, P, sb, sy, sx, sp, taps, ntaps,
       thresh, K, zero_border, static_cast<float*>(xy),
       static_cast<float*>(raw), static_cast<float*>(sval));
+  return static_cast<int>(cudaGetLastError());
+}
+
+// conf as for hp_peak_topk; zero borders; outputs contiguous float
+// [B, P, H, W]: ranked (the smoothed value at surviving peaks, `neg`
+// elsewhere) and smoothed. Returns cudaGetLastError() after the launch.
+extern "C" int hp_peak_candidates(const void* conf, int B, int H, int W,
+                                  int P, int64_t sb, int64_t sy, int64_t sx,
+                                  int64_t sp, const void* taps_host,
+                                  int ntaps, float thresh, float neg,
+                                  void* ranked, void* smoothed,
+                                  void* stream) {
+  Taps taps{};
+  size_t smem = 0;
+  const int e = prepare(peak_candidates_kernel, taps_host, ntaps, H, W, &taps,
+                        &smem);
+  if (e != 0) return e;
+  if (B * P * H * W == 0) return static_cast<int>(cudaGetLastError());
+  peak_candidates_kernel<<<B * P, kThreads, smem,
+                           static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(conf), H, W, P, sb, sy, sx, sp, taps, ntaps,
+      thresh, neg, static_cast<float*>(ranked), static_cast<float*>(smoothed));
   return static_cast<int>(cudaGetLastError());
 }

@@ -1,14 +1,24 @@
-"""Backbones in PyTorch: the flagship's TinyVGG.
+"""Backbones in PyTorch: the flagship's TinyVGG and its two exact serving
+forms.
 
-Counterpart of `hyperpose_tpu/models/backbones.py` `ConvBN` and `VggTiny`
-(reference: hyperpose/Model/backbones.py:343-391). Modules run NCHW; the
-submodule names follow the flax module names, so the flat weight layout maps
-one to one (`utils/weights.py`).
+Counterpart of `hyperpose_tpu/models/backbones.py` `ConvBN`, `VggTiny`,
+`VggTinyS2DStem` and `VggTinyFusedStem`, with the numpy remaps that turn a
+VggTiny checkpoint into either serving form (reference:
+hyperpose/Model/backbones.py:343-391). Modules run NCHW; the submodule names
+follow the flax module names, so the flat weight layout maps one to one
+(`utils/weights.py`).
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 from torch import nn
+
+from ..ops.kernels.conv1_pool import conv1_pool
+from ..utils.weights import read_flax_weights
+
+# VggTiny after its first pool: block_2 onwards, on 64 input channels.
+_TAIL = (128, 128, "pool", 200, 200, 200, "pool", 384, 384)
 
 
 class ConvBN(nn.Module):
@@ -28,33 +38,230 @@ class ConvBN(nn.Module):
         return torch.relu(self.bn(self.conv(x)))
 
 
+def _add_blocks(module: nn.Module, cfg, cin: int, first: int,
+                dtype: torch.dtype) -> list:
+    """Register `block_<first>...` ConvBNs on `module` for `cfg` (channel
+    counts and "pool"); returns the plan `_run_blocks` walks (a block name,
+    or None for a pool)."""
+    plan, i = [], first
+    for item in cfg:
+        if item == "pool":
+            plan.append(None)
+            continue
+        name = f"block_{i}"
+        module.add_module(name, ConvBN(cin, item, dtype=dtype))
+        plan.append(name)
+        cin, i = item, i + 1
+    return plan
+
+
+def _run_blocks(module: nn.Module, plan: list, x: torch.Tensor) -> torch.Tensor:
+    """flax `nn.max_pool((2,2), (2,2), padding="SAME")` pads at the end on
+    odd sizes, which is `ceil_mode=True`."""
+    for name in plan:
+        if name is None:
+            x = nn.functional.max_pool2d(x, 2, 2, ceil_mode=True)
+        else:
+            x = getattr(module, name)(x)
+    return x
+
+
 class VggTiny(nn.Module):
     """TinyVGG at scale 8: conv-BN stacks 32-64 / 128-128 / 200x3 / 384x2
-    with 3 pools, on RGB input.
-
-    flax `nn.max_pool((2,2), (2,2), padding="SAME")` pads at the end on odd
-    sizes, which is `ceil_mode=True`."""
+    with 3 pools, on RGB input."""
 
     out_channels = 384
-    _CFG = (32, 64, "pool", 128, 128, "pool", 200, 200, 200, "pool", 384, 384)
 
     def __init__(self, dtype: torch.dtype = torch.float32):
         super().__init__()
-        self._plan = []
-        c, i = 3, 0
-        for item in self._CFG:
-            if item == "pool":
-                self._plan.append(None)
-                continue
-            name = f"block_{i}"
-            self.add_module(name, ConvBN(c, item, dtype=dtype))
-            self._plan.append(name)
-            c, i = item, i + 1
+        self._plan = _add_blocks(self, (32, 64, "pool") + _TAIL, 3, 0, dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        for name in self._plan:
-            if name is None:
-                x = nn.functional.max_pool2d(x, 2, 2, ceil_mode=True)
-            else:
-                x = getattr(self, name)(x)
-        return x
+        return _run_blocks(self, self._plan, x)
+
+
+def _check_even(name: str, x: torch.Tensor) -> None:
+    h, w = x.shape[-2:]
+    if h % 2 or w % 2:
+        raise ValueError(
+            f"{name} needs even input height and width (its 2-pixel packing "
+            f"and 2x2 pool assume it); got {h}x{w}. Pad the input or use "
+            "VggTiny, which takes any size"
+        )
+
+
+class VggTinyS2DStem(nn.Module):
+    """The exact space-to-depth serving form of VggTiny.
+
+    The image is packed 2x2 into channels (H, W, 3) -> (H/2, W/2, 12), with
+    channel (py*2+px)*3 + c; `s2d_0` (12->128) and `s2d_1` (128->256) are
+    block_0 and block_1 computing all four output phases as channel groups
+    (phase*C + c), and pool1 becomes the max over the four phase groups.
+    Blocks 2.. are VggTiny's. Build its weights from a VggTiny checkpoint
+    with `remap_vggtiny_to_s2d`."""
+
+    out_channels = 384
+
+    def __init__(self, dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.s2d_0 = ConvBN(4 * 3, 4 * 32, dtype=dtype)
+        self.s2d_1 = ConvBN(4 * 32, 4 * 64, dtype=dtype)
+        self._plan = _add_blocks(self, _TAIL, 64, 2, dtype)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        _check_even("VggTinyS2DStem", x)
+        b, c, h, w = x.shape
+        x = x.reshape(b, c, h // 2, 2, w // 2, 2).permute(0, 3, 5, 1, 2, 4)
+        x = self.s2d_1(self.s2d_0(x.reshape(b, 4 * c, h // 2, w // 2)))
+        x = x.reshape(b, 4, 64, h // 2, w // 2).amax(dim=1)
+        return _run_blocks(self, self._plan, x)
+
+
+class VggTinyFusedStem(nn.Module):
+    """The exact serving form of VggTiny whose block_1 + pool1 run in one
+    kernel (`ops/kernels/conv1_pool.py`), so the full-resolution activation
+    of block_1 never reaches device memory. Inference only (BatchNorm is
+    folded); build its weights with `remap_vggtiny_to_fused`.
+
+    `conv0p` is block_0 on the pair-packed image (B, 6, H, W/2), channel
+    3*px + c, and emits block_0's 32 channels at x = 2q+off for off in
+    {-1, 0, 1, 2}: the x-direction im2col the kernel reads. `w1p`
+    [3, 128, 128] (the compute dtype) and `b1p` [128] (float32) are block_1
+    with BN folded, packed for that layout."""
+
+    out_channels = 384
+
+    def __init__(self, dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.conv0p = nn.Conv2d(6, 128, 3, padding=1, bias=True, dtype=dtype)
+        self.w1p = nn.Parameter(torch.zeros(3, 128, 128, dtype=dtype))
+        self.b1p = nn.Parameter(torch.zeros(128, dtype=torch.float32))
+        self._plan = _add_blocks(self, _TAIL, 64, 2, dtype)
+
+    def conv0_packed(self, x: torch.Tensor) -> torch.Tensor:
+        """NCHW images (B, 3, H, W) -> conv1_pool's input `btp`
+        (B, H, W/2, 128): relu(conv0p) on the pair-packed image. NHWC
+        (B, H, W, 3) -> (B, H, W/2, 6) is the pair packing; for the
+        channels-last input the engine feeds, every step here is a view, and
+        so is `btp` of the channels-last conv output."""
+        b, c, h, w = x.shape
+        xp = x.permute(0, 2, 3, 1).reshape(b, h, w // 2, 2 * c)
+        return torch.relu(self.conv0p(xp.permute(0, 3, 1, 2))).permute(0, 2, 3, 1)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.training:
+            raise NotImplementedError(
+                "VggTinyFusedStem is a serving-only transform; train VggTiny "
+                "and remap_vggtiny_to_fused the checkpoint (call .eval())"
+            )
+        _check_even("VggTinyFusedStem", x)
+        y = conv1_pool(self.conv0_packed(x), self.w1p, self.b1p)
+        return _run_blocks(self, self._plan, y.permute(0, 3, 1, 2))
+
+
+# -- checkpoint remaps (numpy, on the flat flax layout) ------------------------
+
+def _phase_pack_kernel(k: np.ndarray) -> np.ndarray:
+    """Phase-decompose a full-resolution 3x3 stride-1 SAME conv kernel
+    [3, 3, Cin, Cout] into the equivalent 3x3 conv on the 2x2-packed grid,
+    [3, 3, 4*Cin, 4*Cout], channel = (phase_y*2 + phase_x)*C + c.
+
+    Full-res output p = 2q + d reads in(2q + d + u) through tap u; with
+    d + u = 2s + e that is tap s+1 of the packed kernel on input phase e.
+    SAME padding on the packed grid zeroes exactly the taps full-res SAME
+    padding zeroes (even H and W)."""
+    kh, kw, cin, cout = k.shape
+    if (kh, kw) != (3, 3):
+        raise ValueError(f"expected a 3x3 kernel, got {kh}x{kw}")
+    out = np.zeros((3, 3, 4 * cin, 4 * cout), k.dtype)
+    for dy in (0, 1):
+        for dx in (0, 1):
+            for uy in (-1, 0, 1):
+                for ux in (-1, 0, 1):
+                    sy, ey = divmod(dy + uy, 2)
+                    sx, ex = divmod(dx + ux, 2)
+                    out[sy + 1, sx + 1,
+                        (ey * 2 + ex) * cin:(ey * 2 + ex + 1) * cin,
+                        (dy * 2 + dx) * cout:(dy * 2 + dx + 1) * cout] \
+                        += k[uy + 1, ux + 1]
+    return out
+
+
+def _tile_phases(v: np.ndarray) -> np.ndarray:
+    """Per-channel BN array [C] -> per-phase-packed [4*C]."""
+    return np.tile(np.asarray(v), 4)
+
+
+def _fold_bn(kernel, bn_scale, bn_bias, bn_mean, bn_var, eps=1e-5):
+    """Fold inference BatchNorm into conv kernel + bias."""
+    s = np.asarray(bn_scale) / np.sqrt(np.asarray(bn_var) + eps)
+    return (np.asarray(kernel, np.float32) * s,
+            np.asarray(bn_bias) - np.asarray(bn_mean) * s)
+
+
+def remap_vggtiny_to_s2d(src) -> dict[str, np.ndarray]:
+    """VggTiny weights -> `VggTinyS2DStem` weights computing the same
+    function: backbone/block_{0,1} become backbone/s2d_{0,1} (phase-packed
+    kernels, BN arrays tiled 4x); every other key passes through.
+
+    `src` is anything `read_flax_weights` takes (an npz path, a flat or
+    nested dict of a whole model); returns a new flat dict."""
+    flat = read_flax_weights(src)
+    for i in (0, 1):
+        pre, s2d = f"backbone/block_{i}", f"backbone/s2d_{i}"
+        flat[f"params/{s2d}/conv/kernel"] = _phase_pack_kernel(
+            np.asarray(flat.pop(f"params/{pre}/conv/kernel")))
+        for leaf in ("scale", "bias"):
+            flat[f"params/{s2d}/bn/{leaf}"] = _tile_phases(
+                flat.pop(f"params/{pre}/bn/{leaf}"))
+        for leaf in ("mean", "var"):
+            key = f"batch_stats/{pre}/bn/{leaf}"
+            if key in flat:
+                flat[f"batch_stats/{s2d}/bn/{leaf}"] = _tile_phases(flat.pop(key))
+    return flat
+
+
+def remap_vggtiny_to_fused(src) -> dict[str, np.ndarray]:
+    """VggTiny weights -> `VggTinyFusedStem` weights computing the same
+    function at inference.
+
+    block_0 (conv+BN) -> conv0p: W0p[dy, kq, 3*px+ci, 32*(off+1)+co] =
+    W0fold[dy, dx+1, ci, co] at dx = 2*(kq-1)+px-off when |dx| <= 1, else 0.
+    block_1 (conv+BN) -> (w1p, b1p): per dy the 128x128 matrix from the lane
+    layout [x=2q-1 | 2q | 2q+1 | 2q+2] x 32 to [x=2q | 2q+1] x 64, with
+    W1p[dy][32*(off+1)+ci, 64*p+co] = W1fold[dy, off-p+1, ci, co].
+    backbone/block_{0,1} leave both collections; every other key passes
+    through. `src` as in `remap_vggtiny_to_s2d`."""
+    flat = read_flax_weights(src)
+
+    def folded(i):
+        p, s = f"params/backbone/block_{i}", f"batch_stats/backbone/block_{i}"
+        return _fold_bn(flat.pop(f"{p}/conv/kernel"), flat.pop(f"{p}/bn/scale"),
+                        flat.pop(f"{p}/bn/bias"), flat.pop(f"{s}/bn/mean"),
+                        flat.pop(f"{s}/bn/var"))
+
+    w0f, b0f = folded(0)     # (3,3,3,32), (32,)
+    w1f, b1f = folded(1)     # (3,3,32,64), (64,)
+
+    w0p = np.zeros((3, 3, 6, 128), np.float32)
+    for kq in range(3):
+        for px in range(2):
+            for off in (-1, 0, 1, 2):
+                dx = 2 * (kq - 1) + px - off
+                if abs(dx) <= 1:
+                    lo = 32 * (off + 1)
+                    w0p[:, kq, 3 * px: 3 * px + 3, lo: lo + 32] = w0f[:, dx + 1]
+
+    w1p = np.zeros((3, 128, 128), np.float32)
+    for off in (-1, 0, 1, 2):
+        for p in range(2):
+            dx = off - p
+            if abs(dx) <= 1:
+                w1p[:, 32 * (off + 1): 32 * (off + 1) + 32,
+                    64 * p: 64 * p + 64] = w1f[:, dx + 1]
+
+    flat["params/backbone/conv0p/kernel"] = w0p
+    flat["params/backbone/conv0p/bias"] = np.tile(b0f, 4)
+    flat["params/backbone/w1p"] = w1p
+    flat["params/backbone/b1p"] = np.tile(b1f, 2)
+    return flat

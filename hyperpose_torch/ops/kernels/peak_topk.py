@@ -1,5 +1,5 @@
-"""Peak front end of the PAF decoder: the CUDA kernel, its wrapper and its
-plain PyTorch version.
+"""Peak front end of the PAF decoder: two CUDA kernels, their wrappers and
+their plain PyTorch versions.
 
 Replaces the Pallas TPU kernel `hyperpose_tpu/ops/pallas/peak_kernel.py`
 `fused_peak_topk`: per image and part, a separable Gaussian smooth, 3x3
@@ -22,6 +22,12 @@ keeps the plane, its smoothed copy and a scratch plane in shared memory
 results go back. It is bound by those bytes; the K block-wide argmax scans
 run out of shared memory. The plain version runs the same arithmetic as ~50
 small tensor ops.
+
+`peak_candidates` replaces the Pallas TPU kernel `fused_peak_candidates`
+(same file), the front end of the decoder's `use_pallas_peaks` mode: the
+zero-border smooth, NMS and tie-break alone, returning the ranked and the
+smoothed planes. In the CUDA source it shares the smooth and NMS with
+`peak_topk`; it is bound by the bytes of its two output planes.
 """
 from __future__ import annotations
 
@@ -41,6 +47,11 @@ _SIG = (
     [ctypes.c_void_p] + [ctypes.c_int] * 4 + [ctypes.c_int64] * 4
     + [ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_int,
        ctypes.c_int] + [ctypes.c_void_p] * 4
+)
+_CAND_SIG = (
+    [ctypes.c_void_p] + [ctypes.c_int] * 4 + [ctypes.c_int64] * 4
+    + [ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_float]
+    + [ctypes.c_void_p] * 3
 )
 
 
@@ -62,6 +73,62 @@ def _subpix(fp, fm, f0):
     return off.clamp(-0.5, 0.5)
 
 
+def _smooth_nms(x: torch.Tensor, taps, thresh: float, zero: bool):
+    """[B, P, H, W] float32 planes -> (smoothed, is_peak): the smooth, the
+    3x3 same-max NMS with the threshold, and the plateau tie-break, which
+    keeps the candidate with the largest pixel index in its 3x3 window
+    (pixel indices are exact in float32)."""
+    h, w = x.shape[-2:]
+    sm = smooth_planes(x, taps, "zero" if zero else "reflect")
+    if zero:
+        pooled = F.max_pool2d(F.pad(sm, (1, 1, 1, 1)), 3, 1)
+    else:
+        pooled = F.max_pool2d(sm, 3, 1, padding=1)          # pads -inf
+    is_peak = (sm >= pooled) & (sm > thresh)
+    pix = torch.arange(h * w, device=x.device, dtype=torch.float32).view(h, w)
+    cand = torch.where(is_peak, pix, -1.0)
+    return sm, is_peak & (pix == F.max_pool2d(cand, 3, 1, padding=1))
+
+
+def select_peaks(
+    ranked: torch.Tensor, smoothed: torch.Tensor, raw: torch.Tensor,
+    h: int, w: int, k: int, taken: float, zero: bool,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Top-K of ranked planes [B, P, H*W] by K argmax rounds (ties to the
+    lowest index; a chosen pixel is set to `taken`), then the quadratic
+    sub-pixel fit on `smoothed` and the gather of `raw` (both [B, P, H*W]).
+    zero=True reads neighbours outside the plane as 0, else at the clipped
+    flat index. Returns (xy [B, P, K, 2], raw [B, P, K], sval [B, P, K])."""
+    hw = h * w
+    iota = torch.arange(hw, device=ranked.device)
+    cur, vals, idxs = ranked, [], []
+    for _ in range(k):
+        v, i = cur.max(dim=-1)                 # ties: the lowest index
+        vals.append(v)
+        idxs.append(i)
+        cur = torch.where(iota == i[..., None], taken, cur)
+    sval = torch.stack(vals, dim=-1)
+    top = torch.stack(idxs, dim=-1)            # [B, P, K] int64
+    ys, xs = top // w, top % w
+
+    def g(flat, idx):
+        return flat.gather(-1, idx.clamp(0, hw - 1))
+
+    f0 = g(smoothed, top)
+    fxp, fxm = g(smoothed, top + 1), g(smoothed, top - 1)
+    fyp, fym = g(smoothed, top + w), g(smoothed, top - w)
+    if zero:
+        fxp = torch.where(xs + 1 < w, fxp, 0.0)
+        fxm = torch.where(xs >= 1, fxm, 0.0)
+        fyp = torch.where(ys + 1 < h, fyp, 0.0)
+        fym = torch.where(ys >= 1, fym, 0.0)
+    xy = torch.stack([
+        xs.to(torch.float32) + _subpix(fxp, fxm, f0),
+        ys.to(torch.float32) + _subpix(fyp, fym, f0),
+    ], dim=-1)
+    return xy, g(raw, top), sval
+
+
 def peak_topk_plain(
     conf: torch.Tensor, k: int = 16, ksize: int = 5, sigma: float = 0.75,
     thresh: float = 0.05, border: str = "reflect",
@@ -72,52 +139,11 @@ def peak_topk_plain(
     zero = _is_zero(border)
     taps = _taps(ksize, sigma)
     b, h, w, p = conf.shape
-    hw = h * w
     x = conf.permute(0, 3, 1, 2).to(torch.float32)          # [B, P, H, W]
-    sm = smooth_planes(x, taps, border)
-    if zero:
-        pooled = F.max_pool2d(F.pad(sm, (1, 1, 1, 1)), 3, 1)
-    else:
-        pooled = F.max_pool2d(sm, 3, 1, padding=1)          # pads -inf
-    is_peak = (sm >= pooled) & (sm > thresh)
-    # Plateau tie-break: keep the candidate with the largest pixel index in
-    # its 3x3 window (pixel indices are exact in float32).
-    pix = torch.arange(hw, device=conf.device, dtype=torch.float32).view(h, w)
-    cand = torch.where(is_peak, pix, -1.0)
-    is_peak = is_peak & (pix == F.max_pool2d(cand, 3, 1, padding=1))
-    cur = torch.where(is_peak, sm, _NEG).reshape(b, p, hw)
-
-    taken = _NEG if zero else 2.0 * _NEG
-    iota = torch.arange(hw, device=conf.device)
-    vals, idxs = [], []
-    for _ in range(k):
-        v, i = cur.max(dim=-1)                 # ties: the lowest index
-        vals.append(v)
-        idxs.append(i)
-        cur = torch.where(iota == i[..., None], taken, cur)
-    sval = torch.stack(vals, dim=-1)
-    top = torch.stack(idxs, dim=-1)            # [B, P, K] int64
-    ys, xs = top // w, top % w
-
-    smf = sm.reshape(b, p, hw)
-
-    def g(flat, idx):
-        return flat.gather(-1, idx.clamp(0, hw - 1))
-
-    f0 = g(smf, top)
-    fxp, fxm = g(smf, top + 1), g(smf, top - 1)
-    fyp, fym = g(smf, top + w), g(smf, top - w)
-    if zero:
-        fxp = torch.where(xs + 1 < w, fxp, 0.0)
-        fxm = torch.where(xs >= 1, fxm, 0.0)
-        fyp = torch.where(ys + 1 < h, fyp, 0.0)
-        fym = torch.where(ys >= 1, fym, 0.0)
-    xy = torch.stack([
-        xs.to(torch.float32) + _subpix(fxp, fxm, f0),
-        ys.to(torch.float32) + _subpix(fyp, fym, f0),
-    ], dim=-1)
-    raw = g(x.reshape(b, p, hw), top)
-    return xy, raw, sval
+    sm, is_peak = _smooth_nms(x, taps, thresh, zero)
+    cur = torch.where(is_peak, sm, _NEG).reshape(b, p, h * w)
+    return select_peaks(cur, sm.reshape(b, p, h * w), x.reshape(b, p, h * w),
+                        h, w, k, _NEG if zero else 2.0 * _NEG, zero)
 
 
 def peak_topk(
@@ -164,3 +190,57 @@ def peak_topk(
 
 
 peak_topk.launches = 0  # kernel launches since the count was last set to 0
+
+
+def peak_candidates_plain(
+    conf: torch.Tensor, ksize: int = 5, sigma: float = 0.75,
+    thresh: float = 0.05, neg: float = _NEG,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """conf [B, H, W, P] float32 -> (ranked [B, P, H, W], smoothed
+    [B, P, H, W]): the zero-border smooth, and the smoothed value at the
+    pixels that survive NMS, threshold and tie-break, `neg` elsewhere
+    (`fused_peak_candidates`' semantics)."""
+    x = conf.permute(0, 3, 1, 2).to(torch.float32)
+    sm, is_peak = _smooth_nms(x, _taps(ksize, sigma), thresh, zero=True)
+    return torch.where(is_peak, sm, neg), sm
+
+
+def peak_candidates(
+    conf: torch.Tensor, ksize: int = 5, sigma: float = 0.75,
+    thresh: float = 0.05, neg: float = _NEG,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """`peak_candidates_plain`'s contract. CPU tensors take the plain
+    version; CUDA tensors launch the kernel, which raises if it cannot run.
+    `conf` may be a strided view (the decoder passes conf[..., :P])."""
+    if conf.device.type == "cpu":
+        return peak_candidates_plain(conf, ksize, sigma, thresh, neg)
+    if conf.device.type != "cuda":
+        raise ValueError(f"peak_candidates: unsupported device {conf.device}")
+    taps = _taps(ksize, sigma)
+    if conf.ndim != 4 or conf.dtype != torch.float32:
+        raise TypeError(
+            f"peak_candidates: conf must be float32 [B,H,W,P], got "
+            f"{conf.dtype} {tuple(conf.shape)}"
+        )
+    b, h, w, p = conf.shape
+    ranked = torch.empty((b, p, h, w), dtype=torch.float32, device=conf.device)
+    smoothed = torch.empty_like(ranked)
+    taps_c = (ctypes.c_float * len(taps))(*taps)
+    lib = build.load("peak_topk")
+    fn = lib.hp_peak_candidates
+    fn.argtypes = _CAND_SIG
+    fn.restype = ctypes.c_int
+    with torch.cuda.device(conf.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = fn(
+            conf.data_ptr(), b, h, w, p, *conf.stride(),
+            ctypes.addressof(taps_c), len(taps), float(thresh), float(neg),
+            ranked.data_ptr(), smoothed.data_ptr(), stream,
+        )
+    if rc != 0:
+        raise RuntimeError(f"peak_candidates kernel failed: CUDA error {rc}")
+    peak_candidates.launches += 1
+    return ranked, smoothed
+
+
+peak_candidates.launches = 0  # kernel launches since the count was last set to 0

@@ -7,7 +7,9 @@ decoder's bounded shapes, so a batch decodes on the device with no host
 round trip:
 
   1. peaks: smooth + 3x3 NMS + plateau tie-break + top-K + sub-pixel fit
-     (`kernels/peak_topk.py`, a CUDA kernel on the card);
+     (`kernels/peak_topk.py`, a CUDA kernel on the card; with
+     `use_pallas_peaks` the smooth and NMS alone run in the
+     `peak_candidates` kernel and the top-K in PyTorch);
   2. line-integral score of every KxK peak pair per limb, S samples gathered
      from the PAF planes (`kernels/line_gather.py`, a CUDA kernel);
   3. greedy connection NMS per limb over the top-T sorted candidates;
@@ -32,7 +34,10 @@ import torch
 
 from ..utils.topology import COCO_TOPOLOGY, Topology
 from .kernels.line_gather import line_gather, line_gather_plain
-from .kernels.peak_topk import peak_topk, peak_topk_plain
+from .kernels.peak_topk import (
+    peak_candidates, peak_candidates_plain, peak_topk, peak_topk_plain,
+    select_peaks,
+)
 
 _NEG = -1e30  # sentinel for "invalid" in score arrays (avoid inf arithmetic)
 
@@ -63,7 +68,7 @@ class PafDecoderConfig:
     min_parts: int = 4
     min_human_score: float = 0.4
     label_prop_iters: int = 18
-    use_pallas_peaks: bool = False  # legacy smooth+NMS kernel: not ported
+    use_pallas_peaks: bool = False  # legacy smooth+NMS kernel (peak_candidates)
     peaks_backend: str = "auto"
     gather_bf16: bool = True   # round the sampled PAF values to bf16
     gather_backend: str = "auto"
@@ -96,20 +101,25 @@ def find_peaks(
     Returns (peak_xy [B,P,K,2] float32, peak_score [B,P,K], peak_valid
     [B,P,K]); the score is the unsmoothed map's value
     (reference: post_process.hpp:176-187)."""
-    if cfg.use_pallas_peaks:
-        raise NotImplementedError(
-            "use_pallas_peaks (fused_peak_candidates) is not ported yet: "
-            "ROADMAP Queue 2 #5"
-        )
     _check_backend("peaks_backend", cfg.peaks_backend)
     b, h, w, p = conf.shape
-    args = (min(cfg.max_peaks, h * w), cfg.smooth_ksize, cfg.smooth_sigma,
-            cfg.conf_thresh)
-    if cfg.peaks_backend == "xla":
-        xy, raw, sval = peak_topk_plain(conf, *args, border="reflect")
+    k = min(cfg.max_peaks, h * w)
+    args = (cfg.smooth_ksize, cfg.smooth_sigma, cfg.conf_thresh)
+    if cfg.peaks_backend == "pallas":
+        xy, raw, sval = peak_topk(conf, k, *args, border="zero")
+    elif cfg.use_pallas_peaks:
+        # The legacy front end: candidates from the zero-border kernel, then
+        # find_peaks' own argmax rounds and clipped-index sub-pixel fit.
+        cand = peak_candidates_plain if cfg.peaks_backend == "xla" else peak_candidates
+        ranked, smoothed = cand(conf, *args, _NEG)
+        raw_planes = conf.permute(0, 3, 1, 2).reshape(b, p, h * w)
+        xy, raw, sval = select_peaks(
+            ranked.reshape(b, p, h * w), smoothed.reshape(b, p, h * w),
+            raw_planes, h, w, k, 2.0 * _NEG, zero=False)
+    elif cfg.peaks_backend == "xla":
+        xy, raw, sval = peak_topk_plain(conf, k, *args, border="reflect")
     else:
-        border = "zero" if cfg.peaks_backend == "pallas" else "reflect"
-        xy, raw, sval = peak_topk(conf, *args, border=border)
+        xy, raw, sval = peak_topk(conf, k, *args, border="reflect")
     valid = sval > _NEG * 0.5
     return xy, torch.where(valid, raw, 0.0), valid
 

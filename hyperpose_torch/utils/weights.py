@@ -11,6 +11,8 @@ so a path maps to a `state_dict` key by renaming its last part:
     params/<p>/scale    -> <p>.weight         (BatchNorm)
     batch_stats/<p>/mean -> <p>.running_mean
     batch_stats/<p>/var  -> <p>.running_var
+    params/<p>/w1p, b1p -> <p>.w1p, <p>.b1p  (VggTinyFusedStem's bare
+                                               parameters, as they are)
 
 Both directions are exact, so each package reads the other's weights.
 """
@@ -25,6 +27,7 @@ from torch import nn
 
 _PARAM_LEAVES = {"kernel": "weight", "scale": "weight", "bias": "bias"}
 _STAT_LEAVES = {"mean": "running_mean", "var": "running_var"}
+_BARE_PARAMS = ("w1p", "b1p")
 
 
 def _flatten(tree: Mapping, prefix: str = "") -> dict[str, np.ndarray]:
@@ -53,6 +56,9 @@ def flax_to_state_dict(src) -> dict[str, torch.Tensor]:
     out = {}
     for name, arr in read_flax_weights(src).items():
         coll, *path, leaf = name.split("/")
+        if coll == "params" and leaf in _BARE_PARAMS:
+            out[".".join(path + [leaf])] = torch.from_numpy(np.ascontiguousarray(arr))
+            continue
         table = {"params": _PARAM_LEAVES, "batch_stats": _STAT_LEAVES}.get(coll)
         if table is None or leaf not in table or not path:
             raise KeyError(f"unexpected flax weight {name!r}")
@@ -98,7 +104,9 @@ def state_dict_to_flax(state_dict: Mapping[str, torch.Tensor]) -> dict[str, np.n
             continue
         arr = t.detach().to("cpu", torch.float32).numpy()
         p = "/".join(path)
-        if leaf == "weight" and arr.ndim == 4:
+        if leaf in _BARE_PARAMS:
+            out["/".join(["params", *path, leaf])] = arr
+        elif leaf == "weight" and arr.ndim == 4:
             out[f"params/{p}/kernel"] = np.ascontiguousarray(
                 arr.transpose(2, 3, 1, 0))
         elif leaf == "weight" and arr.ndim == 1:

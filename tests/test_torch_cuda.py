@@ -8,9 +8,12 @@ JAX it runs as
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py -q
 
 Tolerances: line_gather exact; peak_topk valid masks exact, xy atol 1e-4, raw
-exact (the kernel repeats the plain version's float32 operations in the same
-order); decode coords atol 1e-5 and human scores atol 1e-3; the engine's
-coords atol 1e-4 (cuDNN and the CPU sum the f32 convs in other orders).
+exact, and peak_candidates exact (the kernels repeat the plain versions'
+float32 operations in the same order); conv1_pool atol and rtol 1e-4 in f32
+(384-term sums in another order) and 1e-2 in bf16 (one bf16 ulp: a sum that
+lands near a rounding boundary may round the other way); decode coords atol
+1e-5 and human scores atol 1e-3; the engines' coords atol 1e-4 (cuDNN and the
+CPU sum the f32 convs in other orders).
 """
 import numpy as np
 import pytest
@@ -18,10 +21,14 @@ import torch
 
 from torch_parity import FLAGSHIP_NPZ, SYNTH_NPZ, tie_maps
 from chip_smoke import TWO_PEOPLE, make_synthetic_maps
+from hyperpose_torch.models.backbones import VggTinyFusedStem, remap_vggtiny_to_fused
 from hyperpose_torch.models.openpose import LightWeightOpenPose
 from hyperpose_torch.ops.image import resize_bilinear
+from hyperpose_torch.ops.kernels.conv1_pool import conv1_pool, conv1_pool_plain
 from hyperpose_torch.ops.kernels.line_gather import line_gather, line_gather_plain
-from hyperpose_torch.ops.kernels.peak_topk import peak_topk, peak_topk_plain
+from hyperpose_torch.ops.kernels.peak_topk import (
+    peak_candidates, peak_candidates_plain, peak_topk, peak_topk_plain,
+)
 from hyperpose_torch.ops.paf_decode import PafDecoderConfig, paf_decode_batch
 from hyperpose_torch.runtime.engine import PoseEngine
 from hyperpose_torch.utils.topology import COCO_TOPOLOGY
@@ -79,6 +86,61 @@ def test_peak_topk_matches_plain(cuda, border, maps):
     assert torch.equal(got[1], want[1])
 
 
+@pytest.mark.parametrize("maps", ["painted", "random", "ties"])
+def test_peak_candidates_match_plain(cuda, maps):
+    full = torch.from_numpy(_peak_maps(maps)).to(cuda)
+    conf = torch.cat([full, full[..., :1]], dim=-1)[..., :18]  # strided view
+    before = peak_candidates.launches
+    got = peak_candidates(conf, 5, 0.75, 0.05, -1e30)
+    want = peak_candidates_plain(conf, 5, 0.75, 0.05, -1e30)
+    torch.cuda.synchronize()
+    assert peak_candidates.launches == before + 1
+    assert torch.equal(got[0] > -5e29, want[0] > -5e29)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+def _btp(cuda, dtype, shape=(2, 24, 40, 128), seed=6):
+    """A conv0p-like output [B, H, Q, 128] read through channels-last
+    strides, with weights and bias."""
+    rng = np.random.default_rng(seed)
+    b, h, q, c = shape
+    nchw = torch.from_numpy(rng.normal(0, 1, (b, c, h, q)).astype(np.float32))
+    nchw = nchw.to(cuda, dtype).contiguous(memory_format=torch.channels_last)
+    w1p = torch.from_numpy(rng.normal(0, 0.1, (3, 128, 128)).astype(np.float32))
+    b1p = torch.from_numpy(rng.normal(0, 0.1, (128,)).astype(np.float32))
+    return nchw.permute(0, 2, 3, 1), w1p.to(cuda, dtype), b1p.to(cuda)
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 1e-2)])
+@pytest.mark.parametrize("shape", [(2, 24, 40, 128), (1, 2, 1, 128), (1, 6, 33, 128)])
+def test_conv1_pool_matches_plain(cuda, dtype, tol, shape):
+    """Edge tiles included: Q = 1 (both border masks on one pair) and a
+    Q that leaves a partial tile of pairs."""
+    btp, w1p, b1p = _btp(cuda, dtype, shape)
+    before = conv1_pool.launches
+    got = conv1_pool(btp, w1p, b1p)
+    want = conv1_pool_plain(btp, w1p, b1p)
+    torch.cuda.synchronize()
+    assert conv1_pool.launches == before + 1
+    assert got.dtype == dtype and got.shape == (shape[0], shape[1] // 2, shape[2], 64)
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+
+
+def test_conv1_pool_refuses_a_transposing_copy(cuda):
+    """A [B, H, Q, 128] view whose lanes are not contiguous (an NCHW-
+    contiguous conv output) raises instead of being copied."""
+    btp, w1p, b1p = _btp(cuda, torch.float32)
+    nchw = btp.permute(0, 3, 1, 2).contiguous()
+    with pytest.raises(ValueError, match="channels-last"):
+        conv1_pool(nchw.permute(0, 2, 3, 1), w1p, b1p)
+    with pytest.raises(TypeError):
+        conv1_pool(btp, w1p.bfloat16(), b1p)
+    with pytest.raises(TypeError):
+        conv1_pool(btp, w1p, b1p.double())
+    with pytest.raises(ValueError):
+        conv1_pool(btp[:, :3], w1p, b1p)
+
+
 def test_kernels_raise_on_what_they_do_not_take(cuda):
     conf = torch.zeros(1, 8, 8, 2, device=cuda)
     with pytest.raises(ValueError):
@@ -116,6 +178,26 @@ def test_engine_on_card_matches_cpu(cuda):
         eng = PoseEngine(LightWeightOpenPose(), FLAGSHIP_NPZ, input_hw=(184, 216),
                          max_batch_size=1, device=dev)
         d = eng.infer_batch_device(batch)
+        out[dev.type] = {f: getattr(d, f).cpu() for f in ("valid", "coords", "scores")}
+    assert torch.equal(out["cuda"]["valid"], out["cpu"]["valid"])
+    torch.testing.assert_close(out["cuda"]["coords"], out["cpu"]["coords"],
+                               rtol=0, atol=1e-4)
+    torch.testing.assert_close(out["cuda"]["scores"], out["cpu"]["scores"],
+                               rtol=0, atol=1e-3)
+
+
+def test_fused_stem_engine_on_card_matches_cpu(cuda):
+    """The fused serving stem runs conv1_pool on the card and decodes the
+    skeletons the port decodes on the CPU."""
+    batch = resize_bilinear(np.load(SYNTH_NPZ)["rgb"], (184, 216))[None]
+    weights = remap_vggtiny_to_fused(FLAGSHIP_NPZ)
+    out = {}
+    for dev in (cuda, torch.device("cpu")):
+        eng = PoseEngine(LightWeightOpenPose(backbone=VggTinyFusedStem), weights,
+                         input_hw=(184, 216), max_batch_size=1, device=dev)
+        before = conv1_pool.launches
+        d = eng.infer_batch_device(batch)
+        assert conv1_pool.launches == before + (dev.type == "cuda")
         out[dev.type] = {f: getattr(d, f).cpu() for f in ("valid", "coords", "scores")}
     assert torch.equal(out["cuda"]["valid"], out["cpu"]["valid"])
     torch.testing.assert_close(out["cuda"]["coords"], out["cpu"]["coords"],

@@ -38,8 +38,10 @@ def _parse(rel):
 
 
 def test_port_has_sources():
-    assert "hyperpose_torch/ops/paf_decode.py" in PORT_FILES
-    assert len(PORT_FILES) >= 15
+    for rel in ("ops/paf_decode.py", "ops/kernels/conv1_pool.py",
+                "runtime/stream.py", "runtime/native/__init__.py"):
+        assert f"hyperpose_torch/{rel}" in PORT_FILES
+    assert len(PORT_FILES) >= 18
 
 
 @pytest.mark.parametrize("rel", PORT_FILES)

@@ -1,4 +1,4 @@
-"""The port's two kernels: their plain PyTorch versions against the JAX
+"""The port's decoder kernels: their plain PyTorch versions against the JAX
 package (Pallas kernels run with interpret=True, as its own tests run them).
 The CUDA kernels themselves are held against these plain versions in
 tests/test_torch_cuda.py, on a card."""
@@ -13,10 +13,14 @@ import torch
 from torch_parity import tie_maps
 from hyperpose_tpu.ops import paf_decode as JD
 from hyperpose_tpu.ops.pallas.line_gather import fused_line_gather
-from hyperpose_tpu.ops.pallas.peak_kernel import fused_peak_topk
+from hyperpose_tpu.ops.pallas.peak_kernel import (
+    fused_peak_candidates, fused_peak_topk,
+)
 from hyperpose_torch.ops.kernels import build
 from hyperpose_torch.ops.kernels.line_gather import line_gather, line_gather_plain
-from hyperpose_torch.ops.kernels.peak_topk import peak_topk, peak_topk_plain
+from hyperpose_torch.ops.kernels.peak_topk import (
+    peak_candidates, peak_candidates_plain, peak_topk, peak_topk_plain,
+)
 from test_paf_decode import TWO_PEOPLE, make_synthetic_maps
 from test_paf_golden import random_scene
 
@@ -141,6 +145,47 @@ def test_peak_topk_rejects_bad_arguments():
         peak_topk(conf, ksize=4)
 
 
+# -- peak candidates (the use_pallas_peaks front end) ---------------------------
+
+@pytest.mark.parametrize("maps", ["painted", "random", "ties"])
+def test_peak_candidates_plain_matches_pallas(maps):
+    """Equal peak masks; smoothed and ranked values within 1e-6 (the taps are
+    summed in the same order, up to fused multiply-adds); `neg` elsewhere."""
+    conf = peak_inputs(maps)
+    w_ranked, w_sm = (np.asarray(t) for t in fused_peak_candidates(
+        jnp.asarray(conf), KSIZE, SIGMA, THRESH, -1e30, interpret=True))
+    ranked, sm = peak_candidates_plain(torch.from_numpy(conf), KSIZE, SIGMA,
+                                       THRESH, -1e30)
+    assert ranked.shape == sm.shape == (conf.shape[0], 18, 46, 54)
+    mask = w_ranked > -5e29
+    assert mask.any()
+    np.testing.assert_array_equal(ranked.numpy() > -5e29, mask)
+    np.testing.assert_allclose(sm.numpy(), w_sm, rtol=0, atol=1e-6)
+    np.testing.assert_allclose(ranked.numpy()[mask], w_ranked[mask], rtol=0,
+                               atol=1e-6)
+    assert (ranked.numpy()[~mask] == -1e30).all()
+
+
+def test_peak_candidates_share_peak_topk_zero_front_end():
+    """The candidates' top K by value are peak_topk(border="zero")'s peaks."""
+    conf = torch.from_numpy(peak_inputs("painted"))
+    ranked, _ = peak_candidates_plain(conf)
+    _, _, sval = peak_topk_plain(conf, K, border="zero")
+    top = ranked.reshape(*ranked.shape[:2], -1).topk(K, dim=-1).values
+    valid = sval > -5e29
+    assert torch.equal(top > -5e29, valid)
+    assert torch.equal(top[valid], sval[valid])
+
+
+def test_peak_candidates_take_the_decoders_strided_view():
+    full = torch.from_numpy(peak_inputs("random"))
+    view = torch.cat([full, full[..., :1]], dim=-1)[..., :18]
+    got = peak_candidates(view, neg=-7.0)
+    want = peak_candidates_plain(full, neg=-7.0)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    assert float(got[0].min()) == -7.0
+
+
 # -- dispatch: the plain version only for CPU tensors, never a fallback --------
 
 def test_cpu_tensors_take_the_plain_version():
@@ -163,6 +208,18 @@ def test_other_devices_raise():
         line_gather(torch.empty(1, 1, 2, 4, 4, device="meta"),
                     torch.empty(1, 1, 3, dtype=torch.int32, device="meta"),
                     torch.empty(1, 1, 3, dtype=torch.int32, device="meta"))
+
+
+def test_peak_candidates_dispatch():
+    conf = torch.from_numpy(peak_inputs("painted"))
+    before = peak_candidates.launches
+    assert all(torch.equal(a, b) for a, b in
+               zip(peak_candidates(conf), peak_candidates_plain(conf)))
+    assert peak_candidates.launches == before
+    with pytest.raises(ValueError, match="unsupported device"):
+        peak_candidates(torch.empty(1, 8, 8, 2, device="meta"))
+    with pytest.raises(ValueError):
+        peak_candidates(conf, ksize=4)
 
 
 def test_build_raises_without_nvcc(monkeypatch, tmp_path):

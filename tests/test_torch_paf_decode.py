@@ -6,11 +6,13 @@ Tolerances: valid and part_valid exact; coords atol 1e-5 in every slot
 (invalid human slots included, which holds only because both rank with a
 stable top-K); human scores atol 1e-3 (float32 sums taken in another order).
 """
+import functools
+
 import numpy as np
 import pytest
 import torch
 
-import torch_parity  # noqa: F401  (single-threaded torch)
+from torch_parity import tie_maps
 from golden_paf import golden_decode
 from hyperpose_tpu.ops import paf_decode as JD
 from hyperpose_torch.ops import paf_decode as TD
@@ -141,10 +143,46 @@ def test_empty_maps_decode_to_nobody():
     assert float(out.scores.abs().max()) == 0.0
 
 
+@pytest.fixture
+def jax_candidates_interpreted(monkeypatch):
+    """JAX's use_pallas_peaks branch calls the Pallas kernel without
+    `interpret`; run it in interpret mode in this test process only."""
+    from hyperpose_tpu.ops.pallas import peak_kernel
+
+    monkeypatch.setattr(peak_kernel, "fused_peak_candidates", functools.partial(
+        peak_kernel.fused_peak_candidates, interpret=True))
+
+
+@pytest.mark.parametrize("maps", ["painted", "ties"])
+def test_pallas_peaks_find_peaks_matches_jax(jax_candidates_interpreted, maps,
+                                             scenes):
+    """use_pallas_peaks: the candidates kernel, then find_peaks' own argmax
+    rounds and clipped-index sub-pixel fit. Valid exact, xy atol 1e-5, the
+    raw scores exact."""
+    import jax.numpy as jnp
+
+    conf = (tie_maps() if maps == "ties"
+            else _maps(scenes[:3])[0][..., :18])
+    cfg = dict(use_pallas_peaks=True)
+    wxy, wsc, wva = (np.asarray(t) for t in JD.find_peaks(
+        jnp.asarray(conf), JD.PafDecoderConfig(**cfg)))
+    xy, sc, va = (t.numpy() for t in TD.find_peaks(
+        torch.from_numpy(conf), TD.PafDecoderConfig(**cfg)))
+    np.testing.assert_array_equal(va, wva)
+    assert va.any()
+    np.testing.assert_allclose(xy[va], wxy[va], rtol=0, atol=1e-5)
+    np.testing.assert_array_equal(sc, wsc)
+
+
+def test_pallas_peaks_decode_matches_jax(jax_candidates_interpreted, scenes):
+    conf, paf = _maps(scenes[:3])
+    want, got = _decode_both(conf, paf, use_pallas_peaks=True)
+    _assert_same(want, got)
+    assert int(got["valid"][0].sum()) == 2
+
+
 def test_unported_options_raise():
     conf = torch.zeros(1, 46, 54, 19)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TD.find_peaks(conf[..., :18], TD.PafDecoderConfig(use_pallas_peaks=True))
     with pytest.raises(ValueError):
         TD.paf_decode_batch(conf, torch.zeros(1, 46, 54, 38),
                             TD.PafDecoderConfig(gather_backend="tpu"))
