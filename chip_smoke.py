@@ -5,20 +5,23 @@ Run from the repository root with no arguments:
 
     python3 chip_smoke.py
 
-It builds the four CUDA kernels from `hyperpose_torch/csrc/`, holds each
-against its plain PyTorch version at the flagship shapes and times both,
+It builds the five CUDA kernels from `hyperpose_torch/csrc/`, holds each
+against its plain PyTorch version at the serving shapes and times both,
 decodes painted two-person maps on the card and on the CPU (with the default
-peak front end and with `use_pallas_peaks`), then drives the serving path
-(`PoseEngine` on the flagship TinyVGG Lightweight-OpenPose weights at
+peak front end and with `use_pallas_peaks`), then drives the flagship serving
+path (`PoseEngine` on the flagship TinyVGG Lightweight-OpenPose weights at
 368x432, batch 8) in each of the three exact serving forms of the checkpoint
 (the plain VggTiny stem, the space-to-depth stem and the fused conv1+pool
-stem) in float32 and bf16, and finally streams 20 frames through
-`StreamProcessor` over the bf16 fused-stem engine. It checks that each path
-went through its kernels and that every engine finds the two people of the
-committed synthetic frame. Every phase prints one line; any failure exits
-non-zero before the result line. The last line is `{"ok": true, "device":
-{...}}`. It needs a CUDA device and exits non-zero without one; it imports
-no JAX.
+stem) in float32 and bf16, and streams 20 frames through `StreamProcessor`
+over the bf16 fused-stem engine. Then PifPaf: painted composite fields decode
+to the two people on the card and on the CPU, the ResNet50 PifPaf engine
+(seeded random weights: the repository has no trained PifPaf checkpoint)
+runs at 368x432, batch 8, in float32 and bf16 through `fused_decode`, and
+the growth kernel is held against its plain version on the tables of the
+painted fields and of that network's outputs. It checks that each path went
+through its kernels. Every phase prints one line; any failure exits non-zero
+before the result line. The last line is `{"ok": true, "device": {...}}`.
+It needs a CUDA device and exits non-zero without one; it imports no JAX.
 """
 from __future__ import annotations
 
@@ -179,6 +182,104 @@ TWO_PEOPLE = [
     {0: (40, 8), 1: (40, 14), 2: (36, 14), 3: (35, 20), 4: (35, 26),
      5: (44, 14), 6: (45, 20), 7: (45, 26), 8: (38, 26), 11: (42, 26)},
 ]
+
+
+# -- a numpy copy of tests/test_pifpaf.py:56-111 --------------------------------
+
+def _inv_softplus(y):
+    return np.log(np.expm1(np.maximum(y, 1e-4)))
+
+
+def synth_fields(people, h=46, w=54, stride=8):
+    """Raw PifPaf fields (pre-activation NHWC, batch 1) painting the given
+    people (dict part -> (x, y) in input pixels)."""
+    from hyperpose_torch.utils.topology import PIFPAF_BONES
+
+    p, l = 17, 19
+    pif_conf = np.full((h, w, p), -10.0, np.float32)
+    pif_vec = np.zeros((h, w, p, 2), np.float32)
+    pif_scale = np.full((h, w, p), _inv_softplus(2.0), np.float32)
+    paf_conf = np.full((h, w, l), -10.0, np.float32)
+    paf_src = np.zeros((h, w, l, 2), np.float32)
+    paf_dst = np.zeros((h, w, l, 2), np.float32)
+    paf_scale = np.full((h, w, l), _inv_softplus(2.0), np.float32)
+    for person in people:
+        for k, (x, y) in person.items():
+            gx, gy = x / stride, y / stride
+            for oy in range(-1, 2):
+                for ox in range(-1, 2):
+                    cy, cx = int(gy) + oy, int(gx) + ox
+                    if 0 <= cy < h and 0 <= cx < w:
+                        pif_conf[cy, cx, k] = 8.0
+                        pif_vec[cy, cx, k] = (gx - cx, gy - cy)
+        for li, (a, b) in enumerate(PIFPAF_BONES):
+            a, b = int(a), int(b)
+            if a not in person or b not in person:
+                continue
+            ax, ay = np.array(person[a]) / stride
+            bx, by = np.array(person[b]) / stride
+            for t in np.linspace(0.2, 0.8, 8):
+                cx = int(round(ax + t * (bx - ax)))
+                cy = int(round(ay + t * (by - ay)))
+                if 0 <= cy < h and 0 <= cx < w:
+                    paf_conf[cy, cx, li] = 8.0
+                    paf_src[cy, cx, li] = (ax - cx, ay - cy)
+                    paf_dst[cy, cx, li] = (bx - cx, by - cy)
+    return {
+        "pif_conf": pif_conf[None], "pif_vec": pif_vec[None],
+        "pif_bmin": np.zeros((1, h, w, p), np.float32),
+        "pif_scale": pif_scale[None],
+        "paf_conf": paf_conf[None], "paf_src_vec": paf_src[None],
+        "paf_dst_vec": paf_dst[None],
+        "paf_src_bmin": np.zeros((1, h, w, l), np.float32),
+        "paf_dst_bmin": np.zeros((1, h, w, l), np.float32),
+        "paf_src_scale": paf_scale[None], "paf_dst_scale": paf_scale[None].copy(),
+    }
+
+
+PIFPAF_TWO_PEOPLE = [
+    {i: (80 + 10 * (i % 5), 60 + 18 * (i // 3)) for i in range(17)},
+    {i: (280 + 10 * (i % 5), 120 + 18 * (i // 3)) for i in range(17)},
+]
+
+
+def painted_pifpaf_batch(batch=BATCH):
+    """[batch] painted two-person fields, frame i shifted by (6i, 3i) px."""
+    frames = [synth_fields([{k: (x + 6 * i, y + 3 * i) for k, (x, y) in person.items()}
+                            for person in PIFPAF_TWO_PEOPLE]) for i in range(batch)]
+    return {k: np.concatenate([f[k] for f in frames]) for k in frames[0]}
+
+
+def humans_of(d, i):
+    """The valid humans of image i of a decode (numpy fields) as (score,
+    part_valid, coords, part_scores), sorted by score and coordinates:
+    duplicate skeletons of equal score may sit in other slots on two
+    devices or in two packages."""
+    out = [(d["scores"][i, h], d["part_valid"][i, h], d["coords"][i, h],
+            d["part_scores"][i, h]) for h in np.nonzero(d["valid"][i])[0]]
+    return sorted(out, key=lambda t: (round(float(t[0]), 3),
+                                      tuple(np.round(t[2], 3).ravel())))
+
+
+def human_deltas(a, b) -> tuple[float, float]:
+    """(max |d coords|, max |d human or part score|) between the humans of
+    two decodes; raises ValueError unless every image has the same number
+    of humans with the same parts."""
+    d_xy = d_s = 0.0
+    for i in range(a["valid"].shape[0]):
+        ha, hb = humans_of(a, i), humans_of(b, i)
+        if len(ha) != len(hb):
+            raise ValueError(f"image {i}: {len(ha)} vs {len(hb)} humans")
+        for (sa, va, ca, pa), (sb, vb, cb, pb) in zip(ha, hb):
+            if not np.array_equal(va, vb):
+                raise ValueError(f"image {i}: part sets differ")
+            d_xy = max(d_xy, float(np.abs(ca - cb).max()))
+            d_s = max(d_s, abs(float(sa - sb)), float(np.abs(pa - pb).max()))
+    return d_xy, d_s
+
+
+def _numpy(d) -> dict:
+    return {k: v.cpu().numpy() for k, v in vars(d).items()}
 
 
 # -- phases ---------------------------------------------------------------------
@@ -516,10 +617,11 @@ def phase_decode(limbs, **cfg) -> dict:
 
 def _launch_counters():
     from hyperpose_torch.ops.kernels.conv1_pool import conv1_pool
+    from hyperpose_torch.ops.kernels.grow import fused_grow
     from hyperpose_torch.ops.kernels.line_gather import line_gather
     from hyperpose_torch.ops.kernels.peak_topk import peak_candidates, peak_topk
 
-    return (line_gather, peak_topk, peak_candidates, conv1_pool)
+    return (line_gather, peak_topk, peak_candidates, conv1_pool, fused_grow)
 
 
 def drive(engine, frames) -> tuple[list, dict]:
@@ -556,6 +658,7 @@ def phase_end_to_end(frames, card) -> dict:
                   f"{key}: the main path skipped a decoder kernel: {launches}")
             check((launches["conv1_pool"] > 0) == (stem == "fused"),
                   f"{key}: conv1_pool launches {launches['conv1_pool']}")
+            check(launches["fused_grow"] == 0, f"{key}: the PAF path launched grow")
             scores = [hm.score for hm in results[0]]
             check(len(scores) == 2, f"{key}: synthetic frame: {len(scores)} humans")
             for res in results:
@@ -650,6 +753,174 @@ def phase_stream(rng, card) -> dict:
          frame0_scores=[g.score for g in got], max_abs_dscore_vs_inference=d_score)
     return launches
 
+# -- PifPaf -----------------------------------------------------------------------
+
+PAF_PATH_KERNELS = (  # the flagship path's kernels: none may launch on PifPaf's
+    "line_gather", "peak_topk", "peak_candidates", "conv1_pool")
+
+
+def phase_pifpaf_decode(card) -> None:
+    """Painted two-person composite fields at batch 8 on the card: 2 humans
+    on every frame, the growth kernel launched once and no PAF-decoder
+    kernel, and the humans the port decodes on the CPU."""
+    import torch
+    from hyperpose_torch.ops.pifpaf_decode import pifpaf_decode_batch
+
+    fields = painted_pifpaf_batch()
+    counters = _launch_counters()
+    for k in counters:
+        k.launches = 0
+    gpu = pifpaf_decode_batch({k: torch.from_numpy(v).cuda() for k, v in fields.items()})
+    gpu = _numpy(gpu)
+    launches = {k.__name__: k.launches for k in counters}
+    cpu = _numpy(pifpaf_decode_batch(fields))
+    humans = gpu["valid"].sum(axis=1)
+    check(bool((humans == 2).all()), f"pifpaf decode found {humans.tolist()} humans, not 2")
+    check(launches["fused_grow"] == 1 and not any(launches[k] for k in PAF_PATH_KERNELS),
+          f"pifpaf decode launches {launches}")
+    d_xy, d_s = human_deltas(gpu, cpu)
+    check(d_xy <= 1e-5 and d_s <= 1e-5, f"pifpaf decode vs CPU: |dxy| {d_xy}, |dscore| {d_s}")
+    emit("pifpaf_decode", card=card, fields=f"painted, [{BATCH},46,54,17/19]",
+         humans=humans.tolist(), launches=launches, max_abs_dcoords_vs_cpu=d_xy,
+         max_abs_dscores_vs_cpu=d_s, tolerance={"coords": 1e-5, "scores": 1e-5})
+
+
+def _pifpaf_engine(weights, dtype, device="cuda", batch=BATCH):
+    from hyperpose_torch.models.pifpaf import Pifpaf, pifpaf_fused_decode
+    from hyperpose_torch.runtime.engine import PoseEngine
+    from hyperpose_torch.utils.topology import PIFPAF_TOPOLOGY
+
+    model = Pifpaf(dtype=dtype)
+    return PoseEngine(model, weights, max_batch_size=batch, device=device,
+                      topology=PIFPAF_TOPOLOGY, fused_decode=pifpaf_fused_decode(model))
+
+
+def phase_pifpaf_end_to_end(frames, card) -> tuple[dict, dict]:
+    """The ResNet50 PifPaf engine at 368x432, batch 8, in f32 (TF32 off) and
+    bf16 on seeded random weights: the main path once with its kernel
+    counts, then step / network / decode timings. Returns the launches of
+    the f32 path and the f32 network's raw fields (for the grow phase)."""
+    import dataclasses
+
+    import torch
+    from hyperpose_torch.models.pifpaf import Pifpaf
+    from hyperpose_torch.ops.image import resize_bilinear
+    from hyperpose_torch.ops.pifpaf_decode import PifPafDecoderConfig, pifpaf_decode_batch
+    from hyperpose_torch.utils.weights import load_flax_weights, random_flax_weights
+
+    weights = random_flax_weights(Pifpaf(), seed=0)
+    batch = torch.from_numpy(
+        np.stack([resize_bilinear(f, INPUT_HW) for f in frames])).cuda()
+    cfg = PifPafDecoderConfig()
+    timing, paths, fields32 = {}, {}, None
+    for name, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+        eng = _pifpaf_engine(weights, dtype)
+        warm_s = eng.warmup()
+        results, launches = drive(eng, frames)
+        paths[name] = launches
+        check(launches["fused_grow"] > 0 and not any(launches[k] for k in PAF_PATH_KERNELS),
+              f"pifpaf {name}: launches {launches}")
+        for res in results:
+            for hm in res:
+                xy = np.array([(p.x, p.y) for p in hm.parts.values()])
+                check(bool(np.isfinite(xy).all() and np.isfinite(hm.score)),
+                      f"pifpaf {name}: non-finite output")
+        with torch.inference_mode():
+            maps = eng.model(batch.to(dtype) / 255.0)
+            check(all(bool(torch.isfinite(v).all()) for v in maps.values()),
+                  f"pifpaf {name}: non-finite fields")
+            # The kernel's decode equals the plain growth's on the same maps.
+            got = _numpy(pifpaf_decode_batch(maps, cfg, 8, INPUT_HW))
+            want = _numpy(pifpaf_decode_batch(
+                maps, dataclasses.replace(cfg, grow_backend="xla"), 8, INPUT_HW))
+        check(all(np.array_equal(got[k], want[k]) for k in got),
+              f"pifpaf {name}: the decode with the grow kernel differs from grow_backend='xla'")
+        row = {"warmup_s": warm_s, "launches": launches,
+               "humans": [len(r) for r in results],
+               "decode_kernel_equals_plain": True}
+        if name == "f32":
+            fields32 = maps
+            cpu = load_flax_weights(Pifpaf(), weights).eval()
+            with torch.inference_mode():
+                ref = cpu(batch[:1].cpu().to(torch.float32) / 255.0)
+            rel = max(float((maps[k][:1].cpu() - ref[k]).abs().max())
+                      / float(ref[k].abs().max()) for k in ref)
+            check(rel <= 1e-3, f"pifpaf f32 fields vs CPU: max |d| / max |v| = {rel}")
+            row["fields_vs_cpu_max_rel"] = rel
+        stages = {
+            "step": lambda: eng.infer_batch_device(batch),
+            "network": lambda: eng.model(batch.to(dtype) / 255.0),
+            "decode": lambda: pifpaf_decode_batch(maps, cfg, 8, INPUT_HW),
+        }
+        for stage, fn in stages.items():
+            with torch.inference_mode():
+                row[f"{stage}_ms"], row[f"{stage}_p80_ms"] = wall_ms(fn)
+                busy, kernels = device_busy(fn)
+            row[f"{stage}_device_busy_ms"] = busy
+            row[f"{stage}_kernels"] = kernels
+        row.update(frames_per_s=1e3 * BATCH / row["step_ms"],
+                   device_idle_share=1.0 - row["step_device_busy_ms"] / row["step_ms"])
+        timing[name] = row
+        del eng, maps
+        torch.cuda.empty_cache()
+    emit("pifpaf_end_to_end", card=card, model="Pifpaf (Resnet50, stride 16), seeded "
+         "random weights", input="x".join(map(str, INPUT_HW)), batch=BATCH, tf32=False,
+         wall_samples=50, fields_tolerance="max |d| <= 1e-3 * max |v| per field",
+         **timing)
+    return paths["f32"], fields32
+
+
+def phase_grow(fields32) -> dict:
+    """The growth kernel against its plain version on the tables the decoder
+    prepares from painted two-person fields and from the full-size network's
+    f32 outputs, batch 8: zero mismatches. Timed on the network's tables."""
+    import torch
+    from hyperpose_torch.ops import pifpaf_decode as D
+    from hyperpose_torch.ops.kernels.grow import fused_grow, fused_grow_plain
+    from hyperpose_torch.utils.topology import PIFPAF_TOPOLOGY
+
+    cfg = D.PifPafDecoderConfig()
+
+    def inputs(fields):
+        with torch.inference_mode():
+            maps = D.restore_maps(fields, 8)
+            return D.grow_inputs(D._prepare(maps, cfg, PIFPAF_TOPOLOGY), cfg, PIFPAF_TOPOLOGY)
+
+    painted = {k: torch.from_numpy(v).cuda() for k, v in painted_pifpaf_batch().items()}
+    cases = {"painted": inputs(painted), "network": inputs(fields32)}
+    mismatches = {}
+    for name, args in cases.items():
+        got = fused_grow(*args)
+        want = fused_grow_plain(*args)
+        torch.cuda.synchronize()
+        mismatches[name] = sum(int((g != w).sum()) for g, w in zip(got, want))
+        check(mismatches[name] == 0, f"grow {name}: {mismatches[name]} values differ from plain")
+        check(float(got[0].max()) > 0, f"grow {name}: no annotation grew")
+    args = cases["network"]
+    b, mh = args[0].shape
+    e, k = args[2][0].shape[1:]
+    p, steps, rev = args[6], args[7], args[8]
+    evals = b * mh * steps * e * k * (2 if rev else 1)
+    ops = 21 * evals    # ~20 f32 operations and one expf per candidate evaluation
+    nbytes = 4 * (12 * b * e * k + 5 * b * mh + 4 * b * mh * p)
+    t_bytes, t_ops = nbytes / H100_BYTES_PER_S, ops / H100_F32_OPS_PER_S
+    row = {
+        "name": "grow", "route": "cuda", "source": "hyperpose_torch/csrc/grow.cu",
+        "replaces": "hyperpose_tpu/ops/pallas/grow_kernel.py:199",
+        "max_abs_err": 0.0,
+        "ms": device_ms(lambda: fused_grow(*args), reps=20),
+        "plain_ms": device_ms(lambda: fused_grow_plain(*args), reps=3, replays=3),
+        "bound_ms": 1e3 * max(t_bytes, t_ops),
+        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+        "library_ms": None,
+    }
+    emit("grow", shapes=f"seeds [{b},{mh}], 12 tables [{b},{e},{k}] f32, P={p}, "
+         f"{steps} rounds, reverse_match={rev} -> 4 x [{b},{mh},{p}]",
+         mismatches=mismatches, evaluations=evals, operations=ops, bytes=nbytes,
+         kernel_ms=row["ms"], call_ms=call_ms(lambda: fused_grow(*args), iters=20),
+         **{k_: row[k_] for k_ in ("plain_ms", "library_ms", "bound_ms", "bound_by")})
+    return row
+
 
 def main() -> None:
     import torch
@@ -677,15 +948,21 @@ def main() -> None:
           f"use_pallas_peaks decode launches: {pallas_peaks}")
     paths = phase_end_to_end(frames, card)
     phase_stream(rng, card)
+    phase_pifpaf_decode(card)
+    pifpaf, fields32 = phase_pifpaf_end_to_end(frames, card)
+    rows.append(phase_grow(fields32))
     # Each kernel's launches on its own path: the plain-stem f32 engine for
-    # the decoder kernels, the bf16 fused-stem engine for conv1_pool, the
-    # use_pallas_peaks decode for peak_candidates.
+    # the PAF decoder kernels, the bf16 fused-stem engine for conv1_pool, the
+    # use_pallas_peaks decode for peak_candidates, the f32 PifPaf engine for
+    # grow.
     launches = {**paths["plain_f32"],
                 "conv1_pool": paths["fused_bf16"]["conv1_pool"],
-                "peak_candidates": pallas_peaks["peak_candidates"]}
+                "peak_candidates": pallas_peaks["peak_candidates"],
+                "grow": pifpaf["fused_grow"]}
     for row in rows:
         row["launches"] = launches[row["name"]]
         check(row["launches"] > 0, f"{row['name']} was not launched on its path")
+    check(len(rows) == 5, f"{len(rows)} kernel rows")
     emit("total", seconds=time.perf_counter() - t0)
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,17 +1,18 @@
 """Backbones in PyTorch: the flagship's TinyVGG and its two exact serving
-forms.
+forms, and the ResNet50 trunk of PifPaf.
 
 Counterpart of `hyperpose_tpu/models/backbones.py` `ConvBN`, `VggTiny`,
-`VggTinyS2DStem` and `VggTinyFusedStem`, with the numpy remaps that turn a
-VggTiny checkpoint into either serving form (reference:
-hyperpose/Model/backbones.py:343-391). Modules run NCHW; the submodule names
-follow the flax module names, so the flat weight layout maps one to one
-(`utils/weights.py`).
+`VggTinyS2DStem`, `VggTinyFusedStem`, `Bottleneck` and `Resnet50`, with the
+numpy remaps that turn a VggTiny checkpoint into either serving form
+(reference: hyperpose/Model/backbones.py:343-391, 587-697). Modules run NCHW;
+the submodule names follow the flax module names, so the flat weight layout
+maps one to one (`utils/weights.py`).
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from ..ops.kernels.conv1_pool import conv1_pool
@@ -21,21 +22,42 @@ from ..utils.weights import read_flax_weights
 _TAIL = (128, 128, "pool", 200, 200, 200, "pool", 384, 384)
 
 
-class ConvBN(nn.Module):
-    """3x3 stride-1 Conv2d (no bias) + BatchNorm + ReLU.
+def same_pads(hw, kernel: int, stride: int) -> tuple[int, int, int, int]:
+    """XLA's `padding="SAME"` for one (H, W) input as `F.pad` widths (left,
+    right, top, bottom): per side total = max((ceil(n/s) - 1)*s + k - n, 0),
+    total // 2 before and the rest after. At stride 2 the two sides may
+    differ (a 7x7 conv on 368 pads 2 and 3; a 3x3 conv on an even size pads
+    0 and 1), which no symmetric `Conv2d(padding=...)` reproduces."""
+    out = []
+    for n in reversed(tuple(hw)):
+        total = max((-(-n // stride) - 1) * stride + kernel - n, 0)
+        out += [total // 2, total - total // 2]
+    return tuple(out)
 
-    flax `padding="SAME"` for this conv is `padding=1`; BN eps is the flax
-    module's 1e-5."""
+
+class ConvBN(nn.Module):
+    """Conv2d (no bias) + BatchNorm + optional ReLU, with flax's SAME
+    padding. BN eps is the flax module's 1e-5.
+
+    At stride 1 an odd kernel's SAME padding is `padding=kernel // 2` on
+    both sides; at a larger stride it depends on the input size
+    (`same_pads`), so the forward pads first."""
 
     def __init__(self, in_features: int, features: int,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, kernel: int = 3,
+                 stride: int = 1, act: bool = True):
         super().__init__()
-        self.conv = nn.Conv2d(in_features, features, 3, padding=1, bias=False,
-                              dtype=dtype)
+        self.kernel, self.stride, self.act = kernel, stride, act
+        self.conv = nn.Conv2d(in_features, features, kernel, stride=stride,
+                              padding=kernel // 2 if stride == 1 else 0,
+                              bias=False, dtype=dtype)
         self.bn = nn.BatchNorm2d(features, eps=1e-5, dtype=dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return torch.relu(self.bn(self.conv(x)))
+        if self.stride > 1:
+            x = F.pad(x, same_pads(x.shape[-2:], self.kernel, self.stride))
+        x = self.bn(self.conv(x))
+        return torch.relu(x) if self.act else x
 
 
 def _add_blocks(module: nn.Module, cfg, cin: int, first: int,
@@ -157,6 +179,62 @@ class VggTinyFusedStem(nn.Module):
         _check_even("VggTinyFusedStem", x)
         y = conv1_pool(self.conv0_packed(x), self.w1p, self.b1p)
         return _run_blocks(self, self._plan, y.permute(0, 3, 1, 2))
+
+
+class Bottleneck(nn.Module):
+    """ResNet50 bottleneck: 1x1 -> 3x3 (carrying the stride) -> 1x1 (x4, no
+    ReLU), plus the identity or, where the stride or width changes, the 1x1
+    projection `ds`; ReLU after the sum."""
+
+    def __init__(self, in_features: int, features: int, stride: int = 1,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        out = 4 * features
+        self.cb1 = ConvBN(in_features, features, dtype, kernel=1)
+        self.cb2 = ConvBN(features, features, dtype, kernel=3, stride=stride)
+        self.cb3 = ConvBN(features, out, dtype, kernel=1, act=False)
+        self.ds = (ConvBN(in_features, out, dtype, kernel=1, stride=stride,
+                          act=False)
+                   if stride != 1 or in_features != out else None)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = self.cb3(self.cb2(self.cb1(x)))
+        return torch.relu(y + (x if self.ds is None else self.ds(x)))
+
+
+class Resnet50(nn.Module):
+    """ResNet50 trunk: the 7x7 stride-2 stem, the optional 3x3 stride-2 max
+    pool, and bottleneck groups of 3, 4, 6 and 3 blocks (`b<g>_<i>`). With
+    `scale_size=32` groups 3 and 4 also stride 2; `use_pool=False` with it is
+    PifPaf's stride-16 trunk (368x432 -> 23x27). The pretraining head of the
+    flax module is not ported (it belongs to training)."""
+
+    out_channels = 2048
+
+    def __init__(self, scale_size: int = 8, use_pool: bool = True,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.use_pool = use_pool
+        s = 2 if scale_size == 32 else 1
+        self.stem = ConvBN(3, 64, dtype, kernel=7, stride=2)
+        self._blocks, cin = [], 64
+        for gi, (f, st, n) in enumerate(
+                [(64, 1, 3), (128, 2, 4), (256, s, 6), (512, s, 3)]):
+            for bi in range(n):
+                name = f"b{gi + 1}_{bi + 1}"
+                self.add_module(name, Bottleneck(cin, f, st if bi == 0 else 1,
+                                                 dtype))
+                self._blocks.append(name)
+                cin = 4 * f
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = self.stem(x)
+        if self.use_pool:
+            x = F.max_pool2d(F.pad(x, same_pads(x.shape[-2:], 3, 2),
+                                   value=float("-inf")), 3, 2)
+        for name in self._blocks:
+            x = getattr(self, name)(x)
+        return x
 
 
 # -- checkpoint remaps (numpy, on the flat flax layout) ------------------------

@@ -125,3 +125,26 @@ def state_dict_to_flax(state_dict: Mapping[str, torch.Tensor]) -> dict[str, np.n
 def save_flax_npz(model: nn.Module, path) -> None:
     """Write `model`'s weights as the JAX package's flat npz."""
     np.savez(path, **state_dict_to_flax(model.state_dict()))
+
+
+def random_flax_weights(shapes, seed: int) -> dict[str, np.ndarray]:
+    """Seeded random float32 weights in the flat flax layout, drawn with
+    numpy in the order of `shapes` (a mapping of flax key -> shape, or a
+    model, whose keys and shapes are taken): kernels normal with std
+    sqrt(1 / fan_in), BN scales and variances uniform in [0.5, 1.5], biases
+    and means 0.1 * normal. Both packages load the result, so it stands in
+    for a checkpoint where none is committed."""
+    if isinstance(shapes, nn.Module):
+        shapes = {k: v.shape for k, v in state_dict_to_flax(shapes.state_dict()).items()}
+    rng = np.random.default_rng(seed)
+    out = {}
+    for name, shape in shapes.items():
+        leaf = name.rsplit("/", 1)[1]
+        if leaf == "kernel":
+            arr = rng.standard_normal(shape) * np.sqrt(1.0 / np.prod(shape[:-1]))
+        elif leaf in ("scale", "var"):
+            arr = rng.uniform(0.5, 1.5, shape)
+        else:
+            arr = 0.1 * rng.standard_normal(shape)
+        out[name] = arr.astype(np.float32)
+    return out

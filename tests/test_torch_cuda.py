@@ -13,25 +13,35 @@ float32 operations in the same order); conv1_pool atol and rtol 1e-4 in f32
 (384-term sums in another order) and 1e-2 in bf16 (one bf16 ulp: a sum that
 lands near a rounding boundary may round the other way); decode coords atol
 1e-5 and human scores atol 1e-3; the engines' coords atol 1e-4 (cuDNN and the
-CPU sum the f32 convs in other orders).
+CPU sum the f32 convs in other orders). The grow kernel equals its plain
+version exactly (same float32 steps, no FMA contraction, accurate expf);
+PifPaf decodes are compared as sets of humans (duplicates of equal score
+may take other slots), coords and scores atol 1e-5 for painted fields and
+1e-4 behind the f32 network.
 """
 import numpy as np
 import pytest
 import torch
 
 from torch_parity import FLAGSHIP_NPZ, SYNTH_NPZ, tie_maps
-from chip_smoke import TWO_PEOPLE, make_synthetic_maps
+from chip_smoke import (
+    TWO_PEOPLE, _numpy, human_deltas, make_synthetic_maps, painted_pifpaf_batch,
+)
 from hyperpose_torch.models.backbones import VggTinyFusedStem, remap_vggtiny_to_fused
 from hyperpose_torch.models.openpose import LightWeightOpenPose
+from hyperpose_torch.models.pifpaf import Pifpaf, pifpaf_fused_decode
+from hyperpose_torch.ops import pifpaf_decode as PD
 from hyperpose_torch.ops.image import resize_bilinear
 from hyperpose_torch.ops.kernels.conv1_pool import conv1_pool, conv1_pool_plain
+from hyperpose_torch.ops.kernels.grow import fused_grow, fused_grow_plain
 from hyperpose_torch.ops.kernels.line_gather import line_gather, line_gather_plain
 from hyperpose_torch.ops.kernels.peak_topk import (
     peak_candidates, peak_candidates_plain, peak_topk, peak_topk_plain,
 )
 from hyperpose_torch.ops.paf_decode import PafDecoderConfig, paf_decode_batch
 from hyperpose_torch.runtime.engine import PoseEngine
-from hyperpose_torch.utils.topology import COCO_TOPOLOGY
+from hyperpose_torch.utils.topology import COCO_TOPOLOGY, PIFPAF_TOPOLOGY
+from hyperpose_torch.utils.weights import random_flax_weights
 
 pytestmark = pytest.mark.gpu
 LIMBS = np.asarray(COCO_TOPOLOGY.limbs)
@@ -204,3 +214,111 @@ def test_fused_stem_engine_on_card_matches_cpu(cuda):
                                rtol=0, atol=1e-4)
     torch.testing.assert_close(out["cuda"]["scores"], out["cpu"]["scores"],
                                rtol=0, atol=1e-3)
+
+
+# -- PifPaf: the grow kernel, the decoder and the engine ------------------------
+
+def _tie_tables(cuda, b=2, mh=8, k=128, seed=3):
+    """Growth inputs on a coarse integer grid: many candidates at exactly
+    equal distances and scores, so best and second best tie often."""
+    rng = np.random.default_rng(seed)
+    limbs = np.asarray(PIFPAF_TOPOLOGY.limbs)
+    e_src = tuple(int(v) for v in np.concatenate([limbs[:, 0], limbs[:, 1]]))
+    e_dst = tuple(int(v) for v in np.concatenate([limbs[:, 1], limbs[:, 0]]))
+    e = len(e_src)
+    grid = lambda *s: rng.integers(0, 12, s).astype(np.float32)  # noqa: E731
+    tables = [grid(b, e, k), grid(b, e, k),
+              rng.choice([0.0, 0.5, 1.0], (b, e, k)).astype(np.float32),
+              grid(b, e, k), grid(b, e, k),
+              rng.integers(2, 5, (b, e, k)).astype(np.float32)]
+    tables = [torch.from_numpy(t).to(cuda) for t in tables]
+    rev = torch.tensor((np.arange(e) + e // 2) % e, device=cuda)
+    seed_part = torch.from_numpy(rng.integers(0, 17, (b, mh)).astype(np.int32)).to(cuda)
+    vals = np.stack([grid(b, mh), grid(b, mh), rng.integers(2, 5, (b, mh)),
+                     np.full((b, mh), 0.5)], axis=-1).astype(np.float32)
+    return (seed_part, torch.from_numpy(vals).to(cuda), tuple(tables),
+            tuple(t[:, rev] for t in tables), e_src, e_dst, 17, 8, True)
+
+
+def _grow_args(cuda, case):
+    if case == "ties":
+        return _tie_tables(cuda)
+    if case == "painted":
+        fields = painted_pifpaf_batch(2)
+    else:
+        rng = np.random.default_rng(7)
+        shapes = {"pif_conf": (17,), "pif_vec": (17, 2), "pif_scale": (17,),
+                  "paf_conf": (19,), "paf_src_vec": (19, 2), "paf_dst_vec": (19, 2),
+                  "paf_src_scale": (19,), "paf_dst_scale": (19,)}
+        fields = {k: rng.normal(size=(2, 24, 28) + s).astype(np.float32)
+                  for k, s in shapes.items()}
+    cfg = PD.PifPafDecoderConfig()
+    maps = PD.restore_maps({k: torch.from_numpy(v).to(cuda) for k, v in fields.items()}, 8)
+    return PD.grow_inputs(PD._prepare(maps, cfg, PIFPAF_TOPOLOGY), cfg, PIFPAF_TOPOLOGY)
+
+
+@pytest.mark.parametrize("case", ["painted", "dense_random", "ties"])
+@pytest.mark.parametrize("reverse_match", [True, False])
+def test_grow_matches_plain(cuda, case, reverse_match):
+    args = _grow_args(cuda, case)[:8] + (reverse_match,)
+    before = fused_grow.launches
+    got = fused_grow(*args)
+    want = fused_grow_plain(*args)
+    torch.cuda.synchronize()
+    assert fused_grow.launches == before + 1
+    assert float(got[0].max()) > 0, "no annotation grew"
+    for g, w in zip(got, want):
+        assert g.shape == w.shape == (args[0].shape[0], args[0].shape[1], 17)
+        assert torch.equal(g, w)
+
+
+def test_grow_refuses_what_it_does_not_take(cuda):
+    args = list(_grow_args(cuda, "ties"))
+    bad = {
+        0: args[0].long(),                                    # seed_part int64
+        1: args[1][..., :3],                                  # seed_vals width
+        2: args[2][:5],                                       # 5 forward tables
+        3: tuple(t.double() for t in args[3]),                # float64 tables
+        4: args[4][:-1],                                      # edge count
+        5: (99,) + args[5][1:],                               # edge end >= P
+        6: 40,                                                # P > 32
+    }
+    for i, value in bad.items():
+        with pytest.raises((TypeError, ValueError)):
+            fused_grow(*(value if j == i else a for j, a in enumerate(args)))
+    wide = tuple(torch.zeros(2, 38, 300, device=cuda) for _ in range(6))
+    with pytest.raises(ValueError, match="K=300"):
+        fused_grow(args[0], args[1], wide, wide, *args[4:])
+
+
+def test_pifpaf_decode_on_card_matches_cpu(cuda):
+    fields = painted_pifpaf_batch(2)
+    before = fused_grow.launches
+    gpu = _numpy(PD.pifpaf_decode_batch(
+        {k: torch.from_numpy(v).to(cuda) for k, v in fields.items()}))
+    assert fused_grow.launches == before + 1
+    cpu = _numpy(PD.pifpaf_decode_batch(fields))
+    assert gpu["valid"].sum(axis=1).tolist() == [2, 2]
+    d_xy, d_s = human_deltas(gpu, cpu)
+    assert d_xy <= 1e-5 and d_s <= 1e-5
+
+
+def test_pifpaf_engine_on_card_matches_cpu(cuda):
+    """f32 with TF32 off, seeded random weights, 64x96: the card runs the
+    grow kernel and decodes the humans the port decodes on the CPU."""
+    weights = random_flax_weights(Pifpaf(), seed=11)
+    rng = np.random.default_rng(12)
+    batch = np.stack([resize_bilinear(np.load(SYNTH_NPZ)["rgb"], (64, 96)),
+                      rng.integers(0, 256, (64, 96, 3), dtype=np.uint8)])
+    out = {}
+    for dev in (cuda, torch.device("cpu")):
+        model = Pifpaf()
+        eng = PoseEngine(model, weights, input_hw=(64, 96), max_batch_size=2,
+                         device=dev, topology=PIFPAF_TOPOLOGY,
+                         fused_decode=pifpaf_fused_decode(model))
+        before = fused_grow.launches
+        out[dev.type] = _numpy(eng.infer_batch_device(batch))
+        assert fused_grow.launches == before + (dev.type == "cuda")
+    assert out["cpu"]["valid"].sum() > 0
+    d_xy, d_s = human_deltas(out["cuda"], out["cpu"])
+    assert d_xy <= 1e-4 and d_s <= 1e-4

@@ -1,8 +1,11 @@
-"""The port's PoseEngine (device="cpu") against the JAX PoseEngine on the
-trained flagship weights.
+"""The port's PoseEngine (device="cpu") against the JAX PoseEngine: on the
+trained flagship weights, and for PifPaf (`fused_decode`) on seeded random
+weights at a small input.
 
 Tolerances: valid and part_valid exact, coords atol 1e-5, human scores atol
-1e-3 (about 20 float32 conv layers and the decoder's sums, reassociated).
+1e-3 (about 20 float32 conv layers and the decoder's sums, reassociated);
+PifPaf coords and scores atol 1e-4 (53 float32 conv layers, then the
+decoder), compared as sets of humans (see test_torch_pifpaf_decode.py).
 """
 import inspect
 
@@ -11,14 +14,19 @@ import numpy as np
 import pytest
 import torch
 
-from torch_parity import FLAGSHIP_NPZ, synth_frame_rgb
+from test_torch_pifpaf_decode import assert_same_humans
+from torch_parity import FLAGSHIP_NPZ, nest, synth_frame_rgb
 from hyperpose_tpu.models.backbones import VggTiny as JaxVggTiny
 from hyperpose_tpu.models.openpose import LightWeightOpenPose as JaxLwOpenPose
 from hyperpose_tpu.runtime.engine import PoseEngine as JaxPoseEngine
 from hyperpose_tpu.train.checkpoint import load_npz_tree
 from hyperpose_torch.models.openpose import LightWeightOpenPose
+from hyperpose_torch.models.pifpaf import Pifpaf, pifpaf_fused_decode
 from hyperpose_torch.ops.image import resize_bilinear
+from hyperpose_torch.ops.kernels.grow import fused_grow
 from hyperpose_torch.runtime.engine import PoseEngine
+from hyperpose_torch.utils.topology import PIFPAF_TOPOLOGY
+from hyperpose_torch.utils.weights import random_flax_weights
 
 HW = (368, 432)
 FIELDS = ("coords", "part_scores", "part_valid", "scores", "valid")
@@ -158,11 +166,108 @@ def test_rejected_arguments():
         _port_engine((66, 72), input_format="yuv420")
     with pytest.raises(ValueError):
         _port_engine((64, 72)).inference([np.zeros((8, 8, 3), np.uint8)] * 2)
-    for kw in ({"fused_decode": lambda v, x: x}, {"quant_scales": {"a": 1.0}}):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            _port_engine((64, 72), **kw)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        _port_engine((64, 72), quant_scales={"a": 1.0})
     eng = _port_engine((64, 72))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         eng.save("x")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         PoseEngine.load_executable("x")
+
+
+# -- PifPaf through fused_decode -------------------------------------------------
+
+PIFPAF_HW = (64, 96)    # fields 8x12, stride 8
+
+
+@pytest.fixture(scope="module")
+def pifpaf_run():
+    """The JAX engine built by `_fused_decode_for` and the port's engine on
+    `pifpaf_fused_decode`, with the same random weights, on one batch of
+    two frames (packed step and inference)."""
+    from hyperpose_tpu import config as Config
+    from hyperpose_tpu import models as Model
+
+    flat = random_flax_weights(Pifpaf(), seed=11)
+    Config.reset()
+    try:
+        Config.set_model_type(Config.MODEL.Pifpaf)
+        Config.set_compute_dtype("float32")
+        Config.set_model_inout(hin=PIFPAF_HW[0], win=PIFPAF_HW[1],
+                               hout=PIFPAF_HW[0] // 8, wout=PIFPAF_HW[1] // 8)
+        cfg = Config.get_config(create_dirs=False)
+        jmodel = Model.get_model(cfg)
+        jeng = JaxPoseEngine(jmodel, nest(flat), input_hw=PIFPAF_HW,
+                             max_batch_size=2, topology=Model.get_topology(cfg),
+                             fused_decode=Model._fused_decode_for(cfg, jmodel))
+    finally:
+        Config.reset()
+    model = Pifpaf()
+    teng = PoseEngine(model, flat, input_hw=PIFPAF_HW, max_batch_size=2,
+                      topology=PIFPAF_TOPOLOGY, device="cpu",
+                      fused_decode=pifpaf_fused_decode(model))
+    rng = np.random.default_rng(12)
+    frames = [resize_bilinear(synth_frame_rgb(), PIFPAF_HW),
+              rng.integers(0, 256, (*PIFPAF_HW, 3), dtype=np.uint8)]
+    batch = np.stack(frames)
+    want = _Arrays(jeng.infer_batch_device(jnp.asarray(batch)))
+    return jeng, teng, frames, batch, want
+
+
+def test_pifpaf_engine_matches_jax(pifpaf_run):
+    _, teng, _, batch, want = pifpaf_run
+    before = fused_grow.launches
+    got = _Arrays(teng.infer_batch_device(batch))
+    assert fused_grow.launches == before          # the CPU runs the plain version
+    assert got.coords.shape == (2, 32, 17, 2)
+    assert int(got.valid.sum()) > 0, "degenerate decode"
+    assert_same_humans(vars(got), vars(want))
+
+
+def test_pifpaf_unpack_needs_warmup(pifpaf_run):
+    """The packed layout of a fused-decode engine is known only from its
+    step: before warmup() unpacking raises (the PAF sizes would mis-slice
+    17 parts); after it the port's and the JAX engine's unpacking agree."""
+    jeng, teng, _, batch, want = pifpaf_run
+    packed = teng._step_packed(torch.from_numpy(batch)).numpy()
+    assert packed.shape == (2, 32 * 17 * 4 + 2 * 32)
+    fresh = PoseEngine(Pifpaf(), None, input_hw=PIFPAF_HW, max_batch_size=2,
+                       device="cpu", fused_decode=lambda x: None)
+    with pytest.raises(RuntimeError, match="warmup"):
+        fresh.unpack_skeletons(packed)
+    assert teng.warmup() > 0
+    assert (teng._out_mh, teng._out_p) == (32, 17)
+    jeng.warmup()
+    got = teng.unpack_skeletons(packed)
+    via_jax = jeng.unpack_skeletons(packed)
+    for f in FIELDS:
+        np.testing.assert_array_equal(getattr(got, f), getattr(via_jax, f))
+    assert_same_humans(vars(_Arrays(got)), vars(want))
+
+
+def test_pifpaf_inference_matches_the_step(pifpaf_run):
+    _, teng, frames, batch, _ = pifpaf_run
+    humans = teng.inference(frames)
+    d = teng.infer_batch_device(batch)
+    for i, hs in enumerate(humans):
+        assert len(hs) == int(d.valid[i].sum())
+        assert all(h.n_parts >= 4 for h in hs)
+
+
+def test_pifpaf_yuv420_infeed():
+    """The I420 infeed reconstructs RGB, rounds it to uint8 and runs the
+    fused step on it, as the JAX engine does."""
+    flat = random_flax_weights(Pifpaf(), seed=13)
+    model = Pifpaf()
+    eng = PoseEngine(model, flat, input_hw=PIFPAF_HW, max_batch_size=1,
+                     device="cpu", input_format="yuv420",
+                     fused_decode=pifpaf_fused_decode(model))
+    frame = resize_bilinear(synth_frame_rgb(), PIFPAF_HW)
+    yuv = eng.encode_input(frame)[None]
+    from hyperpose_torch.ops.image import yuv420_to_rgb
+
+    rgb = (yuv420_to_rgb(torch.from_numpy(yuv)) + 0.5).to(torch.uint8)
+    want = pifpaf_fused_decode(model)(rgb)
+    got = eng.infer_batch_device(yuv)
+    for f in FIELDS:
+        assert torch.equal(getattr(got, f), getattr(want, f)), f

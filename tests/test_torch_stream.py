@@ -16,11 +16,14 @@ import pytest
 from torch_parity import FLAGSHIP_NPZ, SYNTH_NPZ, flagship_flat
 from hyperpose_torch.models.backbones import VggTinyFusedStem, remap_vggtiny_to_fused
 from hyperpose_torch.models.openpose import LightWeightOpenPose
+from hyperpose_torch.models.pifpaf import Pifpaf, pifpaf_fused_decode
 from hyperpose_torch.ops.image import letterbox_resize, resize_bilinear
 from hyperpose_torch.ops.kernels.build import BUILD_DIR
 from hyperpose_torch.runtime import native
 from hyperpose_torch.runtime.engine import PoseEngine
 from hyperpose_torch.runtime.stream import StreamProcessor, _PyQueue, _make_queue
+from hyperpose_torch.utils.topology import PIFPAF_TOPOLOGY
+from hyperpose_torch.utils.weights import random_flax_weights
 
 
 def _need_native():
@@ -331,3 +334,27 @@ def test_stream_shutdown_stops_its_threads():
     gen.close()
     assert all(not t.is_alive() for t in sp._threads)
     assert sp._pool is None
+
+
+def test_stream_serves_a_pifpaf_engine_in_order():
+    """A fused-decode engine (17 parts in the packed layout, learnt by
+    warmup) behind the stream: ordered results, each equal to `inference`
+    on that frame alone."""
+    model = Pifpaf()
+    engine = PoseEngine(model, random_flax_weights(model, seed=11),
+                        input_hw=(64, 96), max_batch_size=2, device="cpu",
+                        topology=PIFPAF_TOPOLOGY,
+                        fused_decode=pifpaf_fused_decode(model))
+    engine.warmup()
+    assert engine._out_p == 17
+    rng = np.random.default_rng(4)
+    frames = [np.load(SYNTH_NPZ)["rgb"]] + [
+        rng.integers(0, 256, (60, 80, 3), np.uint8) for _ in range(4)]
+    sp = StreamProcessor(engine, queue_capacity=8)
+    out = list(sp.process(iter(frames)))
+    assert [r.index for r in out] == list(range(5))
+    assert sum(len(r.humans) for r in out) > 0
+    for r, frame in zip(out, frames):
+        assert r.frame is frame
+        assert all(max(h.parts) < 17 for h in r.humans)
+        _assert_humans_equal(r.humans, engine.inference([frame])[0])

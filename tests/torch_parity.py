@@ -10,6 +10,8 @@ import os
 import numpy as np
 import torch
 
+from hyperpose_torch.utils.weights import random_flax_weights
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FLAGSHIP_NPZ = os.path.join(REPO, "weights", "flagship_tinyvgg.npz")
 SYNTH_NPZ = os.path.join(
@@ -43,19 +45,8 @@ def nest(flat: dict[str, np.ndarray]) -> dict:
 def random_flat(seed: int) -> dict[str, np.ndarray]:
     """Random weights with the flagship's keys and shapes: fan-in-scaled
     kernels, BN scales and variances near 1, small biases and means."""
-    rng = np.random.default_rng(seed)
-    out = {}
-    for name, ref in flagship_flat().items():
-        leaf = name.rsplit("/", 1)[1]
-        if leaf == "kernel":
-            fan_in = int(np.prod(ref.shape[:3]))
-            arr = rng.standard_normal(ref.shape) * np.sqrt(1.0 / fan_in)
-        elif leaf in ("scale", "var"):
-            arr = rng.uniform(0.5, 1.5, ref.shape)
-        else:
-            arr = 0.1 * rng.standard_normal(ref.shape)
-        out[name] = arr.astype(np.float32)
-    return out
+    return random_flax_weights(
+        {k: v.shape for k, v in flagship_flat().items()}, seed)
 
 
 def synth_frame_rgb() -> np.ndarray:
