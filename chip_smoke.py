@@ -5,8 +5,10 @@ Run from the repository root with no arguments:
 
     python3 chip_smoke.py
 
-It builds the five CUDA kernels from `hyperpose_torch/csrc/`, holds each
-against its plain PyTorch version at the serving shapes and times both,
+It builds the six CUDA kernels from `hyperpose_torch/csrc/` (counting the
+tensor-core instructions in their machine code), holds each against its
+plain PyTorch version at the serving shapes and times both (`stem_gemm`, the
+bf16 stem kernel's bare mainloop, at the TPU probe's strip shape),
 decodes painted two-person maps on the card and on the CPU (with the default
 peak front end and with `use_pallas_peaks`), then drives the flagship serving
 path (`PoseEngine` on the flagship TinyVGG Lightweight-OpenPose weights at
@@ -27,6 +29,8 @@ from __future__ import annotations
 
 import json
 import os
+import re
+import shutil
 import subprocess
 import sys
 import time
@@ -137,6 +141,47 @@ def device_busy(fn, iters: int = 5) -> tuple[float, float]:
                if e.device_type == torch.autograd.DeviceType.CUDA]
     total_us = sum(e.self_device_time_total for e in kernels)
     return total_us / 1e3 / iters, sum(e.count for e in kernels) / iters
+
+
+# Two float32 sums of the same 384 products, taken in any two orders, differ
+# by at most this times the sum of the products' magnitudes (2 * 384 * 2^-24).
+SUM_ORDER = 2 * 384 * 2.0 ** -24
+
+
+def _ulp_distance(a, b, slack=None):
+    """Elementwise distance between two bf16 tensors in units in the last
+    place: how many bf16 values apart they lie (+0 and -0 are 0 apart).
+    Elements whose difference is within `slack` (a number or a tensor)
+    count as 0."""
+    import torch
+
+    def ordered(t):
+        i = t.contiguous().view(torch.int16).to(torch.int32)
+        return torch.where(i < 0, -(i & 0x7FFF), i)
+
+    d = (ordered(a) - ordered(b)).abs()
+    if slack is not None:
+        d = torch.where((a.float() - b.float()).abs() <= slack, 0, d)
+    return d
+
+
+def bf16_ulps(a, b, slack=None) -> int:
+    """The largest `_ulp_distance` of two bf16 tensors. Near zero, float32
+    sums in another order move a bf16 result by more than one of its tiny
+    ulps: pass SUM_ORDER * (each output's sum of product magnitudes) as
+    `slack` to count only what the order of the sums does not explain."""
+    return int(_ulp_distance(a, b, slack).max())
+
+
+def bf16_agreement(got, want, scale) -> dict:
+    """A bf16 kernel's result against its plain version, both float32 sums
+    of 384 products rounded once: the largest distance in ulps, how many
+    outputs lie more than 1 ulp apart, and the largest distance beyond what
+    the order of the sums explains (`scale`: each output's sum of product
+    magnitudes)."""
+    d = _ulp_distance(got, want)
+    return {"max_ulps": int(d.max()), "outputs_beyond_1_ulp": int((d > 1).sum()),
+            "max_ulps_beyond_sum_order": bf16_ulps(got, want, SUM_ORDER * scale)}
 
 
 # -- a numpy copy of tests/test_paf_decode.py:11-56 ----------------------------
@@ -303,10 +348,22 @@ def phase_build() -> None:
     secs = time.perf_counter() - t0
     ptxas = {
         name: [ln.strip() for ln in log.splitlines()
-               if "registers" in ln or "bytes smem" in ln]
+               if "registers" in ln or "bytes smem" in ln or "entry function" in ln]
         for name, log in build.ptxas_log.items()
     }
-    emit("build", seconds=secs, built=built, arch="sm_90a", ptxas=ptxas)
+    # Tensor-core instructions in each library's machine code: mma.sync is
+    # HMMA, wgmma is HGMMA.
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    mma = {}
+    for name in build.KERNELS:
+        sass = subprocess.run(
+            [tool, "-sass", str(build.library_path(name))], capture_output=True,
+            text=True, timeout=300, check=True).stdout
+        mma[name] = {op: len(re.findall(rf"\b{op}\b", sass)) for op in ("HMMA", "HGMMA")}
+    check(sum(mma["conv1_pool"].values()) > 0,
+          f"conv1_pool's machine code has no tensor-core instruction: {mma}")
+    emit("build", seconds=secs, built=built, arch="sm_90a", ptxas=ptxas,
+         sass_mma=mma)
 
 
 def phase_line_gather(rng) -> dict:
@@ -543,6 +600,11 @@ def phase_conv1_pool(frames) -> dict:
             err = float((g - wt).abs().max())
             ok = bool(torch.allclose(g, wt, atol=tol, rtol=tol))
             check(ok, f"conv1_pool {name}: max |d| {err} beyond atol=rtol={tol}")
+            if name == "bf16":  # 1 ulp, beyond what the sums' order explains
+                scale = conv1_pool_plain(btp.abs(), w1p.abs(), torch.zeros_like(b1p))
+                agree = bf16_agreement(got, want, scale.float())
+                check(agree["max_ulps_beyond_sum_order"] <= 1,
+                      f"conv1_pool bf16 vs plain: {agree}")
             try:
                 conv1_pool(btp.contiguous().permute(0, 3, 1, 2).contiguous()
                            .permute(0, 2, 3, 1), w1p, b1p)
@@ -565,6 +627,11 @@ def phase_conv1_pool(frames) -> dict:
                 "bound_by": "bytes" if nbytes / H100_BYTES_PER_S >= bound_ops
                 else "operations",
             }
+            row = out[name]
+            row["tflop_per_s"] = ops / row["ms"] / 1e9
+            row["share_of_bound"] = row["bound_ms"] / row["ms"]
+            if name == "bf16":
+                row.update(agree)
         del fused, plain, stems, btp, got, want, a0
         torch.cuda.empty_cache()
     emit("conv1_pool", shapes=f"btp [{b},{h},{q},128] channels-last view, w1p "
@@ -576,6 +643,54 @@ def phase_conv1_pool(frames) -> dict:
             "replaces": "hyperpose_tpu/ops/pallas/stem_kernel.py:90",
             **{k: bf[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
                                   "bound_by", "library_ms")}}
+
+
+def phase_stem_gemm() -> tuple[dict, int]:
+    """The bf16 stem kernel's bare mainloop (`stem_gemm`, no masks, no pool)
+    at the TPU probe's strip shape, G = 64 strips of (9936, 384) @ (384, 128):
+    the serving batch's 635,904 rows. Held against its plain version, timed
+    against `torch.matmul` on the same bf16 operands. It is on no serving
+    path, so its launches are counted here. Returns its row and launches."""
+    import torch
+    from hyperpose_torch.ops.kernels.conv1_pool import stem_gemm, stem_gemm_plain
+
+    g, m, k, n = 64, 9936, 384, 128
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    a = torch.randn((g, m, k), device="cuda", generator=gen).to(torch.bfloat16)
+    w = (0.05 * torch.randn((k, n), device="cuda", generator=gen)).to(torch.bfloat16)
+    stem_gemm.launches = 0
+    got = stem_gemm(a, w)
+    launches = stem_gemm.launches
+    want = stem_gemm_plain(a, w)
+    library = torch.matmul(a, w)
+    torch.cuda.synchronize()
+    scale = torch.matmul(a.float().abs(), w.float().abs())
+    agree = bf16_agreement(got, want, scale)
+    err = float((got.float() - want.float()).abs().max())
+    check(agree["max_ulps_beyond_sum_order"] <= 1, f"stem_gemm vs plain: {agree}")
+    ops = 2 * g * m * k * n
+    nbytes = 2 * (a.numel() + w.numel() + got.numel())
+    t_bytes, t_ops = nbytes / H100_BYTES_PER_S, ops / H100_BF16_OPS_PER_S
+    row = {
+        "name": "stem_gemm", "route": "cuda",
+        "source": "hyperpose_torch/csrc/conv1_pool.cu",
+        "replaces": "scripts/probe_mosaic_matmul.py:27",
+        "max_abs_err": err,
+        "ms": device_ms(lambda: stem_gemm(a, w), reps=20),
+        "plain_ms": device_ms(lambda: stem_gemm_plain(a, w), reps=5),
+        "bound_ms": 1e3 * max(t_bytes, t_ops),
+        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+        "library_ms": device_ms(lambda: torch.matmul(a, w), reps=20),
+    }
+    emit("stem_gemm", shapes=f"a [{g},{m},{k}] bf16 @ w [{k},{n}] bf16 -> [{g},{m},{n}]",
+         launches=launches, **agree, library_vs_plain=bf16_agreement(library, want, scale),
+         bytes=nbytes, operations=ops, kernel_ms=row["ms"],
+         tflop_per_s=ops / row["ms"] / 1e9, library_tflop_per_s=ops / row["library_ms"] / 1e9,
+         share_of_bound=row["bound_ms"] / row["ms"],
+         call_ms=call_ms(lambda: stem_gemm(a, w), iters=20),
+         **{k_: row[k_] for k_ in ("max_abs_err", "plain_ms", "library_ms", "bound_ms",
+                                   "bound_by")})
+    return row, launches
 
 
 def phase_decode(limbs, **cfg) -> dict:
@@ -616,12 +731,12 @@ def phase_decode(limbs, **cfg) -> dict:
 
 
 def _launch_counters():
-    from hyperpose_torch.ops.kernels.conv1_pool import conv1_pool
+    from hyperpose_torch.ops.kernels.conv1_pool import conv1_pool, stem_gemm
     from hyperpose_torch.ops.kernels.grow import fused_grow
     from hyperpose_torch.ops.kernels.line_gather import line_gather
     from hyperpose_torch.ops.kernels.peak_topk import peak_candidates, peak_topk
 
-    return (line_gather, peak_topk, peak_candidates, conv1_pool, fused_grow)
+    return (line_gather, peak_topk, peak_candidates, conv1_pool, fused_grow, stem_gemm)
 
 
 def drive(engine, frames) -> tuple[list, dict]:
@@ -870,6 +985,31 @@ def phase_pifpaf_end_to_end(frames, card) -> tuple[dict, dict]:
     return paths["f32"], fields32
 
 
+def grow_needed_evaluations(args) -> int:
+    """The candidate evaluations that growth on these inputs needs: in each
+    round, K for every (seed slot, edge) whose source part has grown and
+    whose destination has not (no other edge can commit), and K more for its
+    reverse check where the forward merge score is > 0. The state at a
+    round's start is the plain growth run for that many rounds."""
+    import torch
+    from hyperpose_torch.ops.kernels.grow import find_connection, fused_grow_plain
+
+    seed_part, _, tables, _, e_src, e_dst, _, steps, rev = args
+    src, dst = (torch.tensor(v, device=seed_part.device) for v in (e_src, e_dst))
+    k = tables[0].shape[-1]
+    total = 0
+    for r in range(steps):
+        score, x, y, sc = fused_grow_plain(*args[:7], growth_steps=r, reverse_match=rev)
+        active = (score[..., src] > 0) & (score[..., dst] <= 0)
+        total += k * int(active.sum())
+        if rev:
+            fc = find_connection(*(t[:, None] for t in tables),
+                                 x[..., src], y[..., src], sc[..., src])[0]
+            merge = torch.sqrt(torch.clamp(fc * score[..., src], min=0.0))
+            total += k * int((active & (merge > 0)).sum())
+    return total
+
+
 def phase_grow(fields32) -> dict:
     """The growth kernel against its plain version on the tables the decoder
     prepares from painted two-person fields and from the full-size network's
@@ -900,7 +1040,8 @@ def phase_grow(fields32) -> dict:
     b, mh = args[0].shape
     e, k = args[2][0].shape[1:]
     p, steps, rev = args[6], args[7], args[8]
-    evals = b * mh * steps * e * k * (2 if rev else 1)
+    dense = b * mh * steps * e * k * (2 if rev else 1)  # every edge, every round
+    evals = grow_needed_evaluations(args)
     ops = 21 * evals    # ~20 f32 operations and one expf per candidate evaluation
     nbytes = 4 * (12 * b * e * k + 5 * b * mh + 4 * b * mh * p)
     t_bytes, t_ops = nbytes / H100_BYTES_PER_S, ops / H100_F32_OPS_PER_S
@@ -916,7 +1057,9 @@ def phase_grow(fields32) -> dict:
     }
     emit("grow", shapes=f"seeds [{b},{mh}], 12 tables [{b},{e},{k}] f32, P={p}, "
          f"{steps} rounds, reverse_match={rev} -> 4 x [{b},{mh},{p}]",
-         mismatches=mismatches, evaluations=evals, operations=ops, bytes=nbytes,
+         mismatches=mismatches, evaluations=evals, evaluations_dense=dense,
+         evaluations_per_s=evals / row["ms"] * 1e3,
+         dense_evaluations_per_s=dense / row["ms"] * 1e3, operations=ops, bytes=nbytes,
          kernel_ms=row["ms"], call_ms=call_ms(lambda: fused_grow(*args), iters=20),
          **{k_: row[k_] for k_ in ("plain_ms", "library_ms", "bound_ms", "bound_by")})
     return row
@@ -942,6 +1085,8 @@ def main() -> None:
     rows.append(phase_peak_candidates(cases))
     frames = _frames(rng)
     rows.append(phase_conv1_pool(frames))
+    gemm, gemm_launches = phase_stem_gemm()
+    rows.append(gemm)
     phase_decode(limbs)
     pallas_peaks = phase_decode(limbs, use_pallas_peaks=True)
     check(pallas_peaks["peak_candidates"] > 0 and pallas_peaks["peak_topk"] == 0,
@@ -954,15 +1099,15 @@ def main() -> None:
     # Each kernel's launches on its own path: the plain-stem f32 engine for
     # the PAF decoder kernels, the bf16 fused-stem engine for conv1_pool, the
     # use_pallas_peaks decode for peak_candidates, the f32 PifPaf engine for
-    # grow.
+    # grow; stem_gemm (on no path) in its own phase.
     launches = {**paths["plain_f32"],
                 "conv1_pool": paths["fused_bf16"]["conv1_pool"],
                 "peak_candidates": pallas_peaks["peak_candidates"],
-                "grow": pifpaf["fused_grow"]}
+                "grow": pifpaf["fused_grow"], "stem_gemm": gemm_launches}
     for row in rows:
         row["launches"] = launches[row["name"]]
         check(row["launches"] > 0, f"{row['name']} was not launched on its path")
-    check(len(rows) == 5, f"{len(rows)} kernel rows")
+    check(len(rows) == 6, f"{len(rows)} kernel rows")
     emit("total", seconds=time.perf_counter() - t0)
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {

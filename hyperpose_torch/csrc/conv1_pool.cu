@@ -11,31 +11,54 @@
 //
 // with btp's lanes 0-31 at q = 0, lanes 96-127 at q = Q-1 and the rows -1
 // and H read as zeros (block_1's SAME padding). The masks are applied while
-// the tile is loaded: the input is never copied.
+// the input is loaded: it is never copied. Sums are float32; a bf16 result is
+// rounded once, on the store.
 //
-// Design. One block of 256 threads owns the output pairs of one image row
-// pair (input rows 2*yo-1 .. 2*yo+2) and 32 consecutive q: a GEMM tile of
-// 64 rows (2 rows x 32 q) by 128 lanes, 384 deep (3 dy x 128 lanes). The
-// depth runs in chunks of 32: each chunk stages its A slice (masked, in
-// float32) and its [32, 128] slice of w1p through shared memory. A thread
-// keeps 2 q x 2 rows x 8 lanes in registers (lanes 4t..4t+3 and their pool
-// partners 64+4t..), so bias, ReLU and both maxes happen in registers
-// before one store per output: the full-resolution activation never
-// reaches device memory. Sums are float32 for both input types; bf16 is
-// read, widened and rounded back (round to nearest even) only on the store.
+// Bound. At B=8, 368x432 (Q = 216) this is a GEMM of M = B*H*Q = 635,904
+// rows, N = 128, K = 384 (3 dy x 128 lanes): 62.5 GFLOP. In bf16 that takes
+// 0.063 ms at the 989 TFLOP/s of the tensor cores, and the 204 MB it must
+// move (the input once, the pooled output once) take 0.061 ms at 3.35 TB/s:
+// operations and bytes are balanced.
 //
-// Bound: operations. At B=8, 368x432 (Q = 216): 635,904 rows x 384 x 128
-// multiply-adds = 62.5 GFLOP, 0.93 ms at the 67 TFLOP/s of float32 FMA;
-// the bytes (407 MB in f32, 204 MB in bf16) move in 0.12 / 0.06 ms. This
-// kernel uses plain FMA, not the tensor cores: for bf16 the bound is
-// 0.063 ms at 989 TFLOP/s, which needs wgmma (or mma.sync) with the tiles
-// fed by TMA or cp.async, left for a later change.
+// bf16 design (tensor cores). mma.sync.m16n8k16 with float32 accumulators.
+// A warp owns one unit: 8 consecutive pairs q at the two image rows of one
+// output row (MMA rows 0-7 at row 2*yo, 8-15 at 2*yo+1) by all 128 lanes n,
+// so each thread holds both rows of a pool pair (fragment rows lane/4 and
+// lane/4+8) and both lanes n and n+64 (n-tiles j and j+8): bias, ReLU and
+// the 2x2 max stay in registers. The three dy slices of A are one strip of
+// four input rows (2*yo-1 .. 2*yo+2) seen at three row offsets; the strip
+// is loaded once by cp.async 16-byte chunks whose source size is 0 where a
+// mask applies (zero fill covers rows -1 and H and the two border lane
+// blocks) into a ring of six rows per warp, XOR-swizzled so that ldmatrix
+// and the copies are free of bank conflicts. Warps are persistent: each
+// walks a contiguous range of units down one column (image, q group), so
+// consecutive units share two of their four rows and every input row is
+// loaded from device memory once (plus two halo rows where a range starts);
+// the next unit's two rows load while the current one multiplies. The
+// weights (96 KB) are staged once per block in shared memory, in the order
+// of the MMA's B fragments, so each thread fetches two n-tiles' fragments
+// with one 16-byte load. One block of kTcWarps warps per SM.
+//
+// The float32 path (the parity path, TF32 off) keeps float32 FMA: one block
+// of 256 threads owns 2 rows x 32 pairs, the 384-deep sum staged through
+// shared memory in chunks of 32; its bound is 0.93 ms of operations at the
+// 67 TFLOP/s of float32.
+//
+// hp_stem_gemm is the bare mainloop of the bf16 path, without masks or pool:
+// a [G, M, 384] @ w [384, 128] -> [G, M, 128] bf16 (float32 sums, rounded
+// once), the counterpart of scripts/probe_mosaic_matmul.py
+// pallas_batch_matmul. It separates the mainloop's rate from the masks and
+// the epilogue.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
 
 namespace {
+
+using bf16_t = __nv_bfloat16;
+
+// -- float32: FMA ----------------------------------------------------------------
 
 constexpr int kTQ = 32;           // output pairs q per block
 constexpr int kM = 2 * kTQ;       // GEMM rows per block: 2 image rows x kTQ
@@ -45,47 +68,10 @@ constexpr int kKC = 32;           // depth of one staged chunk
 constexpr int kThreads = 256;
 constexpr int kAStride = kM + 1;  // padding: the staging stores use 32 banks
 
-__device__ __forceinline__ void load8(const float* p, float v[8]) {
-  const float4 a = *reinterpret_cast<const float4*>(p);
-  const float4 b = *reinterpret_cast<const float4*>(p + 4);
-  v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w;
-  v[4] = b.x; v[5] = b.y; v[6] = b.z; v[7] = b.w;
-}
-
-__device__ __forceinline__ void load8(const __nv_bfloat16* p, float v[8]) {
-  const uint4 u = *reinterpret_cast<const uint4*>(p);
-  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float2 f = __bfloat1622float2(h[i]);
-    v[2 * i] = f.x;
-    v[2 * i + 1] = f.y;
-  }
-}
-
-__device__ __forceinline__ float4 load4(const float* p) {
-  return *reinterpret_cast<const float4*>(p);
-}
-
-__device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
-  const uint2 u = *reinterpret_cast<const uint2*>(p);
-  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
-  const float2 lo = __bfloat1622float2(h[0]);
-  const float2 hi = __bfloat1622float2(h[1]);
-  return make_float4(lo.x, lo.y, hi.x, hi.y);
-}
-
-__device__ __forceinline__ void store(float* p, float v) { *p = v; }
-
-__device__ __forceinline__ void store(__nv_bfloat16* p, float v) {
-  *p = __float2bfloat16_rn(v);
-}
-
-template <typename T>
-__global__ void __launch_bounds__(kThreads) conv1_pool_kernel(
-    const T* __restrict__ a, int H, int Q, int64_t sb, int64_t sh, int64_t sq,
-    const T* __restrict__ w, const float* __restrict__ bias,
-    T* __restrict__ out) {
+__global__ void __launch_bounds__(kThreads) conv1_pool_f32_kernel(
+    const float* __restrict__ a, int H, int Q, int64_t sb, int64_t sh,
+    int64_t sq, const float* __restrict__ w, const float* __restrict__ bias,
+    float* __restrict__ out) {
   __shared__ float As[kKC][kAStride];           // As[k][m], m = r * kTQ + qi
   __shared__ __align__(16) float Ws[kKC][kN];
 
@@ -95,7 +81,7 @@ __global__ void __launch_bounds__(kThreads) conv1_pool_kernel(
   const int q0 = blockIdx.x * kTQ;
   const int yo = blockIdx.y;
   const int b = blockIdx.z;
-  const T* ab = a + b * sb;
+  const float* ab = a + b * sb;
 
   // Staging role: tile row m (image row r of the pair, pair q), 8 lanes.
   const int st_m = tid >> 2;
@@ -121,7 +107,11 @@ __global__ void __launch_bounds__(kThreads) conv1_pool_kernel(
                       !(st_q == Q - 1 && c >= 96);
       float v[8];
       if (ok) {
-        load8(ab + y * sh + st_q * sq + c, v);
+        const float* p = ab + y * sh + st_q * sq + c;
+        const float4 lo = *reinterpret_cast<const float4*>(p);
+        const float4 hi = *reinterpret_cast<const float4*>(p + 4);
+        v[0] = lo.x; v[1] = lo.y; v[2] = lo.z; v[3] = lo.w;
+        v[4] = hi.x; v[5] = hi.y; v[6] = hi.z; v[7] = hi.w;
       } else {
 #pragma unroll
         for (int j = 0; j < 8; ++j) v[j] = 0.f;
@@ -132,7 +122,8 @@ __global__ void __launch_bounds__(kThreads) conv1_pool_kernel(
         const int k = i / (kN / 4);
         const int n = (i % (kN / 4)) * 4;
         *reinterpret_cast<float4*>(&Ws[k][n]) =
-            load4(w + static_cast<int64_t>(dy * kC + c0 + k) * kN + n);
+            *reinterpret_cast<const float4*>(
+                w + static_cast<int64_t>(dy * kC + c0 + k) * kN + n);
       }
       __syncthreads();
 #pragma unroll 4
@@ -163,45 +154,377 @@ __global__ void __launch_bounds__(kThreads) conv1_pool_kernel(
   for (int s = 0; s < 2; ++s) {
     const int q = q0 + ty + 16 * s;
     if (q >= Q) continue;
-    T* o = out + ((static_cast<int64_t>(b) * ho + yo) * Q + q) * 64 + 4 * tx;
+    float* o = out + ((static_cast<int64_t>(b) * ho + yo) * Q + q) * 64 + 4 * tx;
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
       const float b0 = bias[4 * tx + j];
       const float b1 = bias[64 + 4 * tx + j];
       const float m = fmaxf(fmaxf(acc[s][0][j] + b0, acc[s][0][4 + j] + b1),
                             fmaxf(acc[s][1][j] + b0, acc[s][1][4 + j] + b1));
-      store(o + j, fmaxf(m, 0.f));
+      o[j] = fmaxf(m, 0.f);
     }
   }
+}
+
+// -- bf16: tensor cores ------------------------------------------------------------
+
+constexpr int kTcWarps = 10;
+constexpr int kTcThreads = 32 * kTcWarps;
+constexpr int kK = 384;                        // 3 dy x 128 lanes
+constexpr int kRowBytes = 128 * 2;             // 128 bf16 lanes of one q / row
+constexpr int kTile = 8 * kRowBytes;           // 8 rows: one ldmatrix tile
+constexpr int kRing = 6;                       // ring slots per warp
+constexpr int kWarpRing = kRing * kTile;       // 12 KB
+constexpr int kWBytes = kK * 128 * 2;          // 96 KB of fragment-ordered w
+constexpr int kTcSmem = kWBytes + kTcWarps * kWarpRing;  // 221,184 B
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes from global memory to shared memory, or 16 zero bytes if !ok.
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
+                                           bool ok) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+               "l"(src), "r"(ok ? 16 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr));
+}
+
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// w [384, 128] (k rows, n contiguous) into shared memory in B-fragment
+// order: for k-step s (16 deep), n-tile j < 8 and lane l, 16 bytes hold the
+// fragments (b0, b1) of n-tile j and then of n-tile j + 8, where b0 holds
+// w[16s + 2(l%4) + {0,1}][8j + l/4] and b1 the same 8 rows further down.
+__device__ void stage_weights(bf16_t* f, const bf16_t* __restrict__ w) {
+  for (int c = threadIdx.x; c < kK * 16; c += blockDim.x) {
+    const int k = c >> 4, nt = c & 15;  // w[k][8nt .. 8nt+7]
+    const uint4 v = __ldg(reinterpret_cast<const uint4*>(w + k * 128 + nt * 8));
+    const bf16_t* e = reinterpret_cast<const bf16_t*>(&v);
+    const int kk = k & 15;
+    const int word = (((k >> 4) * 8 + (nt & 7)) * 32) * 4 + (nt >> 3) * 2 +
+                     (kk >> 3);
+    const int lq = (kk & 7) >> 1;
+#pragma unroll
+    for (int n = 0; n < 8; ++n) {
+      f[(word + (n * 4 + lq) * 4) * 2 + (kk & 1)] = e[n];
+    }
+  }
+}
+
+// The mainloop: one 128-deep slice (8 k-steps) of a warp's 16 x 128 tile.
+// A's rows 0-7 are the swizzled 8-row tile at shared address lo, rows 8-15
+// the one at hi (row r's 16-byte chunk c sits at chunk c ^ r); wf holds the
+// slice's B fragments.
+__device__ __forceinline__ void mma_k128(float (&acc)[16][4], uint32_t lo,
+                                         uint32_t hi,
+                                         const uint4* __restrict__ wf,
+                                         int lane) {
+  // ldmatrix.x4: lanes 8i..8i+7 address the rows of matrix i = (rows 0-7 |
+  // 8-15) x (k 0-7 | 8-15) of the 16 x 16 A fragment.
+  const int r = lane & 7;
+  const uint32_t row = ((lane & 8) ? hi : lo) + r * kRowBytes;
+  const int kh = lane >> 4;
+#pragma unroll
+  for (int st = 0; st < 8; ++st) {
+    uint32_t a[4];
+    ldmatrix_x4(a, row + ((((st << 1) | kh) ^ r) << 4));
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const uint4 b = wf[(st * 8 + j) * 32 + lane];
+      mma_bf16(acc[j], a, b.x, b.y);
+      mma_bf16(acc[j + 8], a, b.z, b.w);
+    }
+  }
+}
+
+__device__ __forceinline__ void zero(float (&acc)[16][4]) {
+#pragma unroll
+  for (int j = 0; j < 16; ++j)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) acc[j][i] = 0.f;
+}
+
+// This warp's contiguous share [u0, u1) of `units` units, the grid's warps
+// taking equal shares in order.
+__device__ __forceinline__ void warp_range(int64_t units, int64_t& u0,
+                                           int64_t& u1) {
+  const int64_t nw = static_cast<int64_t>(gridDim.x) * kTcWarps;
+  const int64_t gw =
+      static_cast<int64_t>(blockIdx.x) * kTcWarps + (threadIdx.x >> 5);
+  u0 = units * gw / nw;
+  u1 = units * (gw + 1) / nw;
+}
+
+// Input row y of the unit at pairs q0 .. q0+7 of one image (masked) into a
+// ring slot: 128 chunks of 16 bytes, pair qi's chunk ch at chunk ch ^ qi.
+__device__ __forceinline__ void stage_row(uint32_t slot,
+                                          const bf16_t* __restrict__ ab, int y,
+                                          int H, int q0, int Q, int64_t sh,
+                                          int64_t sq, int lane) {
+  const bool row_ok = y >= 0 && y < H;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int idx = lane + 32 * i;
+    const int qi = idx >> 4, ch = idx & 15;
+    const int q = q0 + qi;
+    const bool ok = row_ok && q < Q && !(q == 0 && ch < 4) &&
+                    !(q == Q - 1 && ch >= 12);
+    const bf16_t* src = ok ? ab + y * sh + q * sq + ch * 8 : ab;
+    cp_async16(slot + qi * kRowBytes + ((ch ^ qi) << 4), src, ok);
+  }
+}
+
+__global__ void __launch_bounds__(kTcThreads, 1) conv1_pool_bf16_kernel(
+    const bf16_t* __restrict__ a, int B, int H, int Q, int64_t sb, int64_t sh,
+    int64_t sq, const bf16_t* __restrict__ w, const float* __restrict__ bias,
+    bf16_t* __restrict__ out) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int lane = threadIdx.x & 31;
+  stage_weights(reinterpret_cast<bf16_t*>(smem), w);
+  __syncthreads();
+  const uint4* wf = reinterpret_cast<const uint4*>(smem);
+  const uint32_t ring =
+      smem_u32(smem + kWBytes + (threadIdx.x >> 5) * kWarpRing);
+
+  // This thread's output lanes: n = 8j + 2(lane%4) + {0, 1} and n + 64.
+  const int g = lane >> 2, t4 = lane & 3;
+  float2 b_lo[8], b_hi[8];
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    const int n = 8 * j + 2 * t4;
+    b_lo[j] = make_float2(__ldg(bias + n), __ldg(bias + n + 1));
+    b_hi[j] = make_float2(__ldg(bias + 64 + n), __ldg(bias + 65 + n));
+  }
+
+  const int ho = H / 2, nqg = (Q + 7) / 8;
+  int64_t u0, u1;
+  warp_range(static_cast<int64_t>(B) * nqg * ho, u0, u1);
+  for (int64_t u = u0; u < u1; ++u) {
+    const int yo = static_cast<int>(u % ho);
+    const int64_t col = u / ho;
+    const int q0 = static_cast<int>(col % nqg) * 8;
+    const int b = static_cast<int>(col / nqg);
+    const bf16_t* ab = a + b * sb;
+    // Input row 2yo-1+t lives in slot (2yo+t) % kRing.
+    if (u == u0 || yo == 0) {  // a new column: its first four rows
+#pragma unroll
+      for (int t = 0; t < 4; ++t) {
+        stage_row(ring + ((2 * yo + t) % kRing) * kTile, ab, 2 * yo - 1 + t,
+                  H, q0, Q, sh, sq, lane);
+      }
+      cp_commit();
+    }
+    if (u + 1 < u1 && yo + 1 < ho) {  // the next unit's two new rows
+#pragma unroll
+      for (int t = 4; t < 6; ++t) {
+        stage_row(ring + ((2 * yo + t) % kRing) * kTile, ab, 2 * yo - 1 + t,
+                  H, q0, Q, sh, sq, lane);
+      }
+    }
+    cp_commit();
+    cp_wait<1>();  // every group but the prefetch: this unit's rows
+    __syncwarp();
+
+    float acc[16][4];
+    zero(acc);
+#pragma unroll
+    for (int dy = 0; dy < 3; ++dy) {
+      mma_k128(acc, ring + ((2 * yo + dy) % kRing) * kTile,
+               ring + ((2 * yo + dy + 1) % kRing) * kTile, wf + dy * 8 * 8 * 32,
+               lane);
+    }
+
+    // Fragment rows g (image row 2yo) and g + 8 (2yo+1) of pair q0 + g;
+    // n-tile j + 8 holds the pool partner of n-tile j.
+    const int q = q0 + g;
+    if (q < Q) {
+      bf16_t* o = out + ((static_cast<int64_t>(b) * ho + yo) * Q + q) * 64 + 2 * t4;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const float v0 =
+            fmaxf(fmaxf(acc[j][0] + b_lo[j].x, acc[j + 8][0] + b_hi[j].x),
+                  fmaxf(acc[j][2] + b_lo[j].x, acc[j + 8][2] + b_hi[j].x));
+        const float v1 =
+            fmaxf(fmaxf(acc[j][1] + b_lo[j].y, acc[j + 8][1] + b_hi[j].y),
+                  fmaxf(acc[j][3] + b_lo[j].y, acc[j + 8][3] + b_hi[j].y));
+        *reinterpret_cast<__nv_bfloat162*>(o + 8 * j) =
+            __floats2bfloat162_rn(fmaxf(v0, 0.f), fmaxf(v1, 0.f));
+      }
+    }
+    __syncwarp();  // the ring's rows are read before the next unit refills
+  }
+}
+
+// The bare mainloop: rows of a [M, 384] into [M, 128]. A warp's unit is 16
+// rows; its three 128-deep slices (dy) stream through a ring of three
+// 16-row planes (rows 0-7 in the plane's first tile, 8-15 in its second),
+// two slices ahead of the MMAs.
+__device__ __forceinline__ void stage_plane(uint32_t plane,
+                                            const bf16_t* __restrict__ a,
+                                            int64_t m0, int64_t M, int dy,
+                                            int lane) {
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const int idx = lane + 32 * i;
+    const int row = idx >> 4, ch = idx & 15;
+    const int64_t m = m0 + row;
+    const bool ok = m < M;
+    const bf16_t* src = ok ? a + m * kK + dy * 128 + ch * 8 : a;
+    cp_async16(plane + row * kRowBytes + ((ch ^ (row & 7)) << 4), src, ok);
+  }
+}
+
+__global__ void __launch_bounds__(kTcThreads, 1) stem_gemm_kernel(
+    const bf16_t* __restrict__ a, int64_t M, const bf16_t* __restrict__ w,
+    bf16_t* __restrict__ out) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int lane = threadIdx.x & 31;
+  stage_weights(reinterpret_cast<bf16_t*>(smem), w);
+  __syncthreads();
+  const uint4* wf = reinterpret_cast<const uint4*>(smem);
+  const uint32_t ring =
+      smem_u32(smem + kWBytes + (threadIdx.x >> 5) * kWarpRing);
+  constexpr int kPlane = 2 * kTile;
+  const int g = lane >> 2, t4 = lane & 3;
+
+  int64_t u0, u1;
+  warp_range((M + 15) / 16, u0, u1);
+  const int64_t n = 3 * (u1 - u0);  // slices of this warp, in order
+  // Slice j is cp.async group j: two groups ahead, then one per iteration.
+  for (int64_t j = 0; j < 2; ++j) {
+    if (j < n) {
+      stage_plane(ring + static_cast<uint32_t>(j) * kPlane, a, 16 * (u0 + j / 3),
+                  M, static_cast<int>(j % 3), lane);
+    }
+    cp_commit();
+  }
+  float acc[16][4];
+  for (int64_t j = 0; j < n; ++j) {
+    if (j + 2 < n) {
+      stage_plane(ring + ((j + 2) % 3) * kPlane, a, 16 * (u0 + (j + 2) / 3), M,
+                  static_cast<int>((j + 2) % 3), lane);
+    }
+    cp_commit();
+    cp_wait<2>();  // groups j+1 and j+2 may still be in flight
+    __syncwarp();
+    const int dy = static_cast<int>(j % 3);
+    if (dy == 0) zero(acc);
+    const uint32_t plane = ring + (j % 3) * kPlane;
+    mma_k128(acc, plane, plane + kTile, wf + dy * 8 * 8 * 32, lane);
+    if (dy == 2) {
+      const int64_t m = 16 * (u0 + j / 3) + g;
+#pragma unroll
+      for (int t = 0; t < 16; ++t) {
+        if (m < M) {
+          *reinterpret_cast<__nv_bfloat162*>(out + m * 128 + 8 * t + 2 * t4) =
+              __floats2bfloat162_rn(acc[t][0], acc[t][1]);
+        }
+        if (m + 8 < M) {
+          *reinterpret_cast<__nv_bfloat162*>(out + (m + 8) * 128 + 8 * t +
+                                             2 * t4) =
+              __floats2bfloat162_rn(acc[t][2], acc[t][3]);
+        }
+      }
+    }
+    __syncwarp();  // the plane is read before it is refilled
+  }
+}
+
+// Persistent grid: at most one block per SM, none without work.
+int tc_blocks(int64_t units, int& blocks) {
+  int dev = 0, sms = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess) {
+    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  }
+  const int64_t need = (units + kTcWarps - 1) / kTcWarps;
+  blocks = static_cast<int>(need < sms ? need : sms);
+  return static_cast<int>(e);
 }
 
 }  // namespace
 
 // a: [B, H, Q, 128] with element strides (sb, sh, sq) and contiguous lanes,
-// 16-byte aligned rows; w: contiguous [3, 128, 128] of the same type; bias:
-// float [128]; out: contiguous [B, H/2, Q, 64]. bf16 != 0 selects
-// __nv_bfloat16 for a, w and out, else float. Returns cudaGetLastError()
-// after the launch.
+// 16-byte aligned rows; w: contiguous 16-byte aligned [3, 128, 128] of the
+// same type; bias: float [128]; out: contiguous
+// [B, H/2, Q, 64]. bf16 != 0 selects __nv_bfloat16 for a, w and out (tensor
+// cores), else float (FMA). Returns cudaGetLastError() after the launch.
 extern "C" int hp_conv1_pool(const void* a, int B, int H, int Q, int64_t sb,
                              int64_t sh, int64_t sq, const void* w,
                              const void* bias, void* out, int bf16,
                              void* stream) {
-  if (B < 0 || H < 0 || Q < 0 || H % 2 || B > 65535 || H / 2 > 65535) {
+  if (B < 0 || H < 0 || Q < 0 || H % 2) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (B == 0 || H == 0 || Q == 0) return static_cast<int>(cudaGetLastError());
-  const dim3 grid((Q + kTQ - 1) / kTQ, H / 2, B);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* bp = static_cast<const float*>(bias);
   if (bf16) {
-    conv1_pool_kernel<__nv_bfloat16><<<grid, kThreads, 0, s>>>(
-        static_cast<const __nv_bfloat16*>(a), H, Q, sb, sh, sq,
-        static_cast<const __nv_bfloat16*>(w), bp,
-        static_cast<__nv_bfloat16*>(out));
+    int blocks = 0;
+    const int64_t units = static_cast<int64_t>(B) * ((Q + 7) / 8) * (H / 2);
+    int rc = tc_blocks(units, blocks);
+    if (rc == 0) {
+      rc = static_cast<int>(cudaFuncSetAttribute(
+          conv1_pool_bf16_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+          kTcSmem));
+    }
+    if (rc != 0) return rc;
+    conv1_pool_bf16_kernel<<<blocks, kTcThreads, kTcSmem, s>>>(
+        static_cast<const bf16_t*>(a), B, H, Q, sb, sh, sq,
+        static_cast<const bf16_t*>(w), bp, static_cast<bf16_t*>(out));
   } else {
-    conv1_pool_kernel<float><<<grid, kThreads, 0, s>>>(
+    if (B > 65535 || H / 2 > 65535) {
+      return static_cast<int>(cudaErrorInvalidValue);
+    }
+    const dim3 grid((Q + kTQ - 1) / kTQ, H / 2, B);
+    conv1_pool_f32_kernel<<<grid, kThreads, 0, s>>>(
         static_cast<const float*>(a), H, Q, sb, sh, sq,
         static_cast<const float*>(w), bp, static_cast<float*>(out));
   }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// a: contiguous 16-byte aligned bf16 [M, 384] (a [G, M', 384] batch with
+// M = G * M'); w: contiguous 16-byte aligned bf16 [384, 128]; out:
+// contiguous bf16 [M, 128]. Returns cudaGetLastError() after the launch.
+extern "C" int hp_stem_gemm(const void* a, int64_t M, const void* w, void* out,
+                            void* stream) {
+  if (M < 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (M == 0) return static_cast<int>(cudaGetLastError());
+  int blocks = 0;
+  int rc = tc_blocks((M + 15) / 16, blocks);
+  if (rc == 0) {
+    rc = static_cast<int>(cudaFuncSetAttribute(
+        stem_gemm_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        kTcSmem));
+  }
+  if (rc != 0) return rc;
+  stem_gemm_kernel<<<blocks, kTcThreads, kTcSmem,
+                     static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const bf16_t*>(a), M, static_cast<const bf16_t*>(w),
+      static_cast<bf16_t*>(out));
   return static_cast<int>(cudaGetLastError());
 }

@@ -2,23 +2,43 @@
 // hyperpose_tpu/ops/pallas/grow_kernel.py fused_grow (semantics of
 // hyperpose_tpu/ops/pifpaf_decode.py _grow_xla).
 //
-// One block of 256 threads (8 warps) per (image, seed slot). The block keeps
-// the annotation (score, x, y, scale) of its P parts and the per-edge results
-// of the current round in shared memory and runs all `steps` rounds:
+// Every seed slot of every image grows one annotation (score, x, y, scale
+// of P parts) for `steps` Jacobi rounds. A round evaluates find_connection
+// on each directed edge e from the state at the round's start (masked
+// Gaussian weights over the edge's K candidates, best and second best with
+// ties to the lowest index, the 2-best blend), checks the reverse match on
+// the edge's reverse tables, and commits to each part its best incoming
+// edge (the lowest edge index on ties) where that merge score is > 0.
 //
-//   1. each warp takes directed edges e = warp, warp + 8, ...; it reads the
-//      state of the edge's source and destination parts (direct indexing by
-//      e_src[e] / e_dst[e]: the TPU kernel's one-hot [P, E] contractions are
-//      gathers), then evaluates find_connection over the K candidates of
-//      the edge, 32 lanes with up to 8 candidates each: masked Gaussian
-//      weight, best and second best by a warp-shuffle reduction over (value,
-//      index) pairs with the lower index winning ties, the 2-best blend.
-//      With reverse matching it evaluates edge e's reverse tables at the
-//      found point and checks |qx - rx| + |qy - ry| <= qs;
-//   2. after a barrier each part takes its best incoming edge (the lowest
-//      edge index on ties) and commits where that merge score is > 0.
+// Bound: latency. At the serving size (B=8, MH=32, 8 rounds, E=38, K=128,
+// reverse matching) the arithmetic is small (at most 19.9 M candidate
+// evaluations of about 20 float32 operations and one expf each) and the
+// tables are 1.9 MB, but every round is a chain of dependent steps: load
+// the candidates, two argmax reductions, gathers at the two winners, the
+// reverse check (the same again), then the commit.
 //
-// All reads of a round happen before the barrier and all writes after it, so
+// Design.
+//   - One block of 16 warps serves S seed slots of one image (S chosen so
+//     that the grid is about one block per SM: 128 blocks of 2 slots at the
+//     serving size), so the card is full in one wave.
+//   - The image's six match-side tables (m_x, m_y, m_s, forward and
+//     reverse; 117 KB at the serving size) are copied into shared memory
+//     once, by cp.async, before round 0; the rounds read them there. The
+//     output-side tables are read only at the two winners, from L1/L2.
+//   - A round evaluates only the edges that can commit: an edge whose source
+//     part has not grown (score <= 0) or whose destination has (score > 0)
+//     has merge score 0 in every case, so it is skipped; the remaining
+//     (slot, edge) pairs are compacted into a task list and spread over the
+//     warps, one edge per warp. The reverse check runs only where the
+//     forward merge score is > 0. A round with no task changes nothing, so
+//     the rounds stop there.
+//   - Best and second best: each lane keeps its own over its K/32
+//     candidates, then two redux.sync operations find the warp's largest
+//     value (as an order-preserving integer key) and the lowest index that
+//     holds it.
+//   - Each part's incoming edges are listed once (in edge order) so the
+//     commit reads only those.
+// Every read of a round happens before a barrier and every write after it:
 // the update is the Jacobi update of the JAX decoder.
 //
 // Arithmetic: every product, sum and quotient is rounded on its own
@@ -27,12 +47,6 @@
 // the accurate library functions, and the file is built without fast math,
 // so nothing is contracted into an FMA and the kernel equals the plain
 // version bit for bit.
-//
-// Bound: operations. At the serving size (B=8, MH=32, 8 rounds, E=38,
-// K=128, reverse matching) a call makes 19.9 M candidate evaluations of
-// about 20 float32 operations and one expf each (~0.4 GFLOP), while it reads
-// about 1 MB of tables (each image's 12 tables are re-read by its 32 blocks
-// out of L2) and writes 33 KB.
 #include <cuda_runtime.h>
 
 #include <climits>
@@ -41,12 +55,14 @@
 
 namespace {
 
-constexpr int kThreads = 256;
+constexpr int kThreads = 512;
 constexpr int kWarps = kThreads / 32;
 constexpr int kMaxP = 32;
 constexpr int kMaxE = 64;
 constexpr int kPerLane = 8;
 constexpr int kMaxK = 32 * kPerLane;
+constexpr int kMaxSeeds = 8;                 // seed slots per block
+constexpr int kStageBytes = 192 * 1024;      // shared memory for tables
 constexpr unsigned kFull = 0xffffffffu;
 
 // em_x, em_y, em_s, eo_x, eo_y, eo_s, then the same six reverse tables; each
@@ -55,9 +71,13 @@ struct Tables {
   const float* t[12];
 };
 
+// Edge ends, and each part's incoming edges in edge order: part p's are
+// in_edge[in_start[p] .. in_start[p+1]).
 struct Edges {
   int src[kMaxE];
   int dst[kMaxE];
+  int in_start[kMaxP + 1];
+  int in_edge[kMaxE];
 };
 
 struct Conn {
@@ -68,28 +88,33 @@ __device__ __forceinline__ bool better(float v, int i, float bv, int bi) {
   return v > bv || (v == bv && i < bi);
 }
 
-// Every lane ends with the warp's best (value, index): the largest value,
-// the lowest index among equal values.
+// An integer key in the order of the float values (for values that are not
+// NaN); -0 and +0 share the key of +0, as they compare equal.
+__device__ __forceinline__ int order_key(float v) {
+  const int b = __float_as_int(v == 0.f ? 0.f : v);
+  return b >= 0 ? b : b ^ 0x7fffffff;
+}
+
+__device__ __forceinline__ float key_value(int k) {
+  return __int_as_float(k >= 0 ? k : k ^ 0x7fffffff);
+}
+
+// Every lane ends with the warp's best (value, index) of the lanes' own:
+// the largest value, the lowest index among equal values.
 __device__ __forceinline__ void warp_best(float& v, int& i) {
-  for (int off = 16; off > 0; off >>= 1) {
-    const float ov = __shfl_xor_sync(kFull, v, off);
-    const int oi = __shfl_xor_sync(kFull, i, off);
-    if (better(ov, oi, v, i)) {
-      v = ov;
-      i = oi;
-    }
-  }
+  const int k = order_key(v);
+  const int kmax = __reduce_max_sync(kFull, k);
+  i = static_cast<int>(__reduce_min_sync(
+      kFull, k == kmax ? static_cast<unsigned>(i) : 0xffffffffu));
+  v = key_value(kmax);
 }
 
 // find_connection of the query (qx, qy, qs) against one edge's K candidates
-// (match side m_*, output side o_*). Called by all 32 lanes of a warp; every
-// lane returns the result.
-__device__ Conn find_connection(const float* __restrict__ m_x,
-                                const float* __restrict__ m_y,
-                                const float* __restrict__ m_s,
-                                const float* __restrict__ o_x,
-                                const float* __restrict__ o_y,
-                                const float* __restrict__ o_s, int K,
+// (match side m_*, in shared or global memory; output side o_*). Called by
+// all 32 lanes of a warp; every lane returns the result.
+__device__ Conn find_connection(const float* m_x, const float* m_y,
+                                const float* m_s, const float* o_x,
+                                const float* o_y, const float* o_s, int K,
                                 float qx, float qy, float qs, int lane) {
   const float sf = __fmul_rn(2.f, qs);
   const float sg = fmaxf(__fmul_rn(__fmul_rn(0.25f, qs), qs), 1e-6f);
@@ -153,84 +178,158 @@ __device__ Conn find_connection(const float* __restrict__ m_x,
   return out;
 }
 
+// Copies n floats of one table into shared memory (cp.async where 16-byte
+// chunks line up, else plain loads) and returns the copy.
+__device__ const float* stage_table(float* dst, const float* src, int n) {
+  if ((reinterpret_cast<uintptr_t>(src) & 15) == 0 && (n & 3) == 0) {
+    for (int i = threadIdx.x; i < n / 4; i += blockDim.x) {
+      asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
+                       static_cast<uint32_t>(__cvta_generic_to_shared(dst + 4 * i))),
+                   "l"(src + 4 * i)
+                   : "memory");
+    }
+  } else {
+    for (int i = threadIdx.x; i < n; i += blockDim.x) dst[i] = src[i];
+  }
+  return dst;
+}
+
 __global__ void __launch_bounds__(kThreads) grow_kernel(
     const int* __restrict__ seed_part, const float* __restrict__ seed_vals,
     Tables tb, Edges edges, int MH, int E, int K, int P, int steps,
-    int reverse_match, float* __restrict__ out_score,
+    int reverse_match, int S, int staged, float* __restrict__ out_score,
     float* __restrict__ out_x, float* __restrict__ out_y,
     float* __restrict__ out_sc) {
-  __shared__ float ann[4][kMaxP];  // score, x, y, scale
-  __shared__ float e_merge[kMaxE], e_x[kMaxE], e_y[kMaxE], e_s[kMaxE];
+  extern __shared__ __align__(16) float stage[];  // staged match tables
+  __shared__ float ann[kMaxSeeds][4][kMaxP];     // score, x, y, scale
+  __shared__ float e_merge[kMaxSeeds][kMaxE], e_x[kMaxSeeds][kMaxE],
+      e_y[kMaxSeeds][kMaxE], e_s[kMaxSeeds][kMaxE];
+  __shared__ int e_src[kMaxE], e_dst[kMaxE], in_edge[kMaxE];
+  __shared__ int in_start[kMaxP + 1];
+  __shared__ int task[kMaxSeeds * kMaxE];
+  __shared__ int n_task;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int bm = blockIdx.x;
-  const int b = bm / MH;
+  const int nsg = (MH + S - 1) / S;
+  const int b = blockIdx.x / nsg;
+  const int m0 = (blockIdx.x % nsg) * S;
+  const int ns = min(S, MH - m0);  // seed slots of this block
 
+  // This image's tables; the match sides of `staged` directions (forward,
+  // then reverse) are read from their copies in shared memory.
+  const int n = E * K;
+  const int64_t base = static_cast<int64_t>(b) * n;
+  const float *mf[3], *of[3], *mr[3], *orv[3];
+#pragma unroll
+  for (int i = 0; i < 3; ++i) {
+    mf[i] = tb.t[i] + base;
+    of[i] = tb.t[3 + i] + base;
+    mr[i] = tb.t[6 + i] + base;
+    orv[i] = tb.t[9 + i] + base;
+  }
+  if (staged >= 1) {
+#pragma unroll
+    for (int i = 0; i < 3; ++i) mf[i] = stage_table(stage + i * n, mf[i], n);
+  }
+  if (staged >= 2) {
+#pragma unroll
+    for (int i = 0; i < 3; ++i) {
+      mr[i] = stage_table(stage + (3 + i) * n, mr[i], n);
+    }
+  }
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+
+  for (int i = tid; i < E; i += kThreads) {
+    e_src[i] = edges.src[i];
+    e_dst[i] = edges.dst[i];
+    in_edge[i] = edges.in_edge[i];
+  }
+  for (int i = tid; i <= P; i += kThreads) in_start[i] = edges.in_start[i];
   // The seed's part holds (x, y, scale, score); the others hold 0 * value,
   // as the one-hot product of the plain version.
-  const int sp = seed_part[bm];
-  const float* sv = seed_vals + 4 * static_cast<int64_t>(bm);
-  for (int p = tid; p < P; p += kThreads) {
-    const float oh = p == sp ? 1.f : 0.f;
-    ann[0][p] = __fmul_rn(oh, sv[3]);
-    ann[1][p] = __fmul_rn(oh, sv[0]);
-    ann[2][p] = __fmul_rn(oh, sv[1]);
-    ann[3][p] = __fmul_rn(oh, sv[2]);
+  for (int i = tid; i < ns * P; i += kThreads) {
+    const int s = i / P, p = i % P;
+    const int64_t bm = static_cast<int64_t>(b) * MH + m0 + s;
+    const float oh = p == seed_part[bm] ? 1.f : 0.f;
+    const float* sv = seed_vals + 4 * bm;
+    ann[s][0][p] = __fmul_rn(oh, sv[3]);
+    ann[s][1][p] = __fmul_rn(oh, sv[0]);
+    ann[s][2][p] = __fmul_rn(oh, sv[1]);
+    ann[s][3][p] = __fmul_rn(oh, sv[2]);
   }
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
   __syncthreads();
 
-  const int64_t base = static_cast<int64_t>(b) * E * K;
   for (int step = 0; step < steps; ++step) {
-    for (int e = warp; e < E; e += kWarps) {
-      const int s = edges.src[e], d = edges.dst[e];
-      const float src_score = ann[0][s], dst_score = ann[0][d];
-      const float qx = ann[1][s], qy = ann[2][s], qs = ann[3][s];
-      const int64_t o = base + static_cast<int64_t>(e) * K;
-      const Conn f = find_connection(tb.t[0] + o, tb.t[1] + o, tb.t[2] + o,
-                                     tb.t[3] + o, tb.t[4] + o, tb.t[5] + o,
-                                     K, qx, qy, qs, lane);
+    // Tasks: the (slot, edge) pairs whose source has grown and whose
+    // destination has not; every other edge's merge score is 0.
+    if (tid == 0) n_task = 0;
+    __syncthreads();
+    for (int i = tid; i < ns * E; i += kThreads) {
+      const int s = i / E, e = i % E;
+      e_merge[s][e] = 0.f;
+      if (ann[s][0][e_src[e]] > 0.f && ann[s][0][e_dst[e]] <= 0.f) {
+        task[atomicAdd(&n_task, 1)] = i;
+      }
+    }
+    __syncthreads();
+    const int nt = n_task;
+    if (nt == 0) break;  // nothing can commit now or in any later round
+
+    for (int t = warp; t < nt; t += kWarps) {
+      const int s = task[t] / E, e = task[t] % E;
+      const int sp = e_src[e];
+      const float src_score = ann[s][0][sp];
+      const float qx = ann[s][1][sp], qy = ann[s][2][sp], qs = ann[s][3][sp];
+      const int o = e * K;
+      const Conn f = find_connection(mf[0] + o, mf[1] + o, mf[2] + o,
+                                     of[0] + o, of[1] + o, of[2] + o, K, qx,
+                                     qy, qs, lane);
       float merge = sqrtf(fmaxf(__fmul_rn(f.c, src_score), 0.f));
-      if (reverse_match) {
-        const Conn r = find_connection(tb.t[6] + o, tb.t[7] + o, tb.t[8] + o,
-                                       tb.t[9] + o, tb.t[10] + o, tb.t[11] + o,
-                                       K, f.x, f.y, f.s, lane);
+      if (reverse_match && merge > 0.f) {  // a merge score of 0 stays 0
+        const Conn r = find_connection(mr[0] + o, mr[1] + o, mr[2] + o,
+                                       orv[0] + o, orv[1] + o, orv[2] + o, K,
+                                       f.x, f.y, f.s, lane);
         const float dist = __fadd_rn(fabsf(__fsub_rn(qx, r.x)),
                                      fabsf(__fsub_rn(qy, r.y)));
         if (!(r.c > 0.f && dist <= qs)) merge = 0.f;
       }
-      if (!(src_score > 0.f && dst_score <= 0.f && f.c > 0.f)) merge = 0.f;
+      if (!(f.c > 0.f)) merge = 0.f;
       if (lane == 0) {
-        e_merge[e] = merge;
-        e_x[e] = f.x;
-        e_y[e] = f.y;
-        e_s[e] = f.s;
+        e_merge[s][e] = merge;
+        e_x[s][e] = f.x;
+        e_y[s][e] = f.y;
+        e_s[s][e] = f.s;
       }
     }
     __syncthreads();
-    for (int p = tid; p < P; p += kThreads) {
+    for (int i = tid; i < ns * P; i += kThreads) {
+      const int s = i / P, p = i % P;
       float best = 0.f;
       int ib = -1;
-      for (int e = 0; e < E; ++e) {
-        if (edges.dst[e] == p && e_merge[e] > best) {
-          best = e_merge[e];
+      for (int k = in_start[p]; k < in_start[p + 1]; ++k) {
+        const int e = in_edge[k];
+        if (e_merge[s][e] > best) {
+          best = e_merge[s][e];
           ib = e;
         }
       }
       if (ib >= 0) {
-        ann[0][p] = best;
-        ann[1][p] = e_x[ib];
-        ann[2][p] = e_y[ib];
-        ann[3][p] = e_s[ib];
+        ann[s][0][p] = best;
+        ann[s][1][p] = e_x[s][ib];
+        ann[s][2][p] = e_y[s][ib];
+        ann[s][3][p] = e_s[s][ib];
       }
     }
     __syncthreads();
   }
 
-  const int64_t o = static_cast<int64_t>(bm) * P;
-  for (int p = tid; p < P; p += kThreads) {
-    out_score[o + p] = ann[0][p];
-    out_x[o + p] = ann[1][p];
-    out_y[o + p] = ann[2][p];
-    out_sc[o + p] = ann[3][p];
+  for (int i = tid; i < ns * P; i += kThreads) {
+    const int s = i / P, p = i % P;
+    const int64_t o = (static_cast<int64_t>(b) * MH + m0 + s) * P + p;
+    out_score[o] = ann[s][0][p];
+    out_x[o] = ann[s][1][p];
+    out_y[o] = ann[s][2][p];
+    out_sc[o] = ann[s][3][p];
   }
 }
 
@@ -262,11 +361,34 @@ extern "C" int hp_fused_grow(const void* seed_part, const void* seed_vals,
     }
     edges.src[e] = src[e];
     edges.dst[e] = dst[e];
+    ++edges.in_start[dst[e] + 1];
+  }
+  for (int p = 0; p < P; ++p) edges.in_start[p + 1] += edges.in_start[p];
+  int fill[kMaxP] = {};
+  for (int e = 0; e < E; ++e) {
+    edges.in_edge[edges.in_start[dst[e]] + fill[dst[e]]++] = e;
   }
   if (B * MH == 0) return static_cast<int>(cudaGetLastError());
-  grow_kernel<<<B * MH, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+
+  int dev = 0, sms = 0;
+  cudaError_t rc = cudaGetDevice(&dev);
+  if (rc == cudaSuccess) {
+    rc = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  }
+  if (rc != cudaSuccess) return static_cast<int>(rc);
+  // About one block per SM: S slots each, at most kMaxSeeds.
+  int S = (B * MH + sms - 1) / sms;
+  S = S < 1 ? 1 : (S > kMaxSeeds ? kMaxSeeds : S);
+  const int blocks = B * ((MH + S - 1) / S);
+  const int64_t side = 3 * static_cast<int64_t>(E) * K * sizeof(float);
+  const int staged = static_cast<int>(kStageBytes / side > 2 ? 2 : kStageBytes / side);
+  const int smem = static_cast<int>(staged * side);
+  rc = cudaFuncSetAttribute(grow_kernel,
+                            cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (rc != cudaSuccess) return static_cast<int>(rc);
+  grow_kernel<<<blocks, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int*>(seed_part), static_cast<const float*>(seed_vals),
-      tb, edges, MH, E, K, P, steps, reverse_match,
+      tb, edges, MH, E, K, P, steps, reverse_match, S, staged,
       static_cast<float*>(score), static_cast<float*>(x),
       static_cast<float*>(y), static_cast<float*>(sc));
   return static_cast<int>(cudaGetLastError());

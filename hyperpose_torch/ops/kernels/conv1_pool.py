@@ -11,10 +11,15 @@ For each output pair q the 3x3 conv over x in 2q-1..2q+2 is, per dy, one
 the two 64-lane halves and over each pair of rows. The activation at full
 resolution (20.3 MB per frame in bf16) never reaches device memory.
 
-`csrc/conv1_pool.cu` computes one tile of output pairs per block and is
-bound by operations (see the source). Zero lanes 0-31 at q = 0 and 96-127 at
+`csrc/conv1_pool.cu` runs bf16 on the tensor cores (mma.sync, one warp per
+8 pairs x 2 rows, persistent warps walking down the rows) and float32 on
+FMA; see the source for the bounds. Zero lanes 0-31 at q = 0 and 96-127 at
 q = Q-1 (conv0p evaluated them outside the image) and the rows -1 and H are
 applied as masks on load, not as copies of the input.
+
+`stem_gemm` is the bf16 path's bare mainloop, without masks or pool: the
+counterpart of the TPU probe `scripts/probe_mosaic_matmul.py`
+`pallas_batch_matmul`, [G, M, 384] @ [384, 128] -> [G, M, 128].
 """
 from __future__ import annotations
 
@@ -114,3 +119,46 @@ def conv1_pool(btp: torch.Tensor, w1p: torch.Tensor,
 
 
 conv1_pool.launches = 0  # kernel launches since the count was last set to 0
+
+
+def stem_gemm_plain(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """a [G, M, 384] @ w [384, 128] -> [G, M, 128] in a's dtype: a float32
+    product (bf16 products are exact in float32), rounded once."""
+    return torch.matmul(a.to(torch.float32), w.to(torch.float32)).to(a.dtype)
+
+
+def stem_gemm(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """`stem_gemm_plain`'s contract. CPU tensors take the plain version;
+    CUDA tensors launch `hp_stem_gemm`, which takes contiguous, 16-byte
+    aligned bf16 operands and raises on anything else."""
+    if a.device.type == "cpu":
+        return stem_gemm_plain(a, w)
+    if a.device.type != "cuda":
+        raise ValueError(f"stem_gemm: unsupported device {a.device}")
+    if a.ndim != 3 or a.shape[2] != 384 or tuple(w.shape) != (384, 128):
+        raise ValueError(f"stem_gemm: a must be [G, M, 384] and w [384, 128], "
+                         f"got {tuple(a.shape)} and {tuple(w.shape)}")
+    if a.dtype != torch.bfloat16 or w.dtype != torch.bfloat16:
+        raise TypeError(f"stem_gemm: a and w must be bfloat16, got {a.dtype} "
+                        f"and {w.dtype}")
+    if w.device != a.device:
+        raise ValueError("stem_gemm: inputs on different devices")
+    if not (a.is_contiguous() and w.is_contiguous()) or a.data_ptr() % 16 \
+            or w.data_ptr() % 16:
+        raise ValueError("stem_gemm: a and w must be contiguous and 16-byte aligned")
+    g, m, _ = a.shape
+    out = torch.empty((g, m, 128), dtype=a.dtype, device=a.device)
+    lib = build.load("conv1_pool")
+    fn = lib.hp_stem_gemm
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_int64] + [ctypes.c_void_p] * 3
+    fn.restype = ctypes.c_int
+    with torch.cuda.device(a.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = fn(a.data_ptr(), g * m, w.data_ptr(), out.data_ptr(), stream)
+    if rc != 0:
+        raise RuntimeError(f"stem_gemm kernel failed: CUDA error {rc}")
+    stem_gemm.launches += 1
+    return out
+
+
+stem_gemm.launches = 0  # kernel launches since the count was last set to 0

@@ -13,16 +13,16 @@ checks the reverse match on edge rev(e)'s tables, and commits to each part
 its best incoming edge (the lowest edge index on ties).
 
 On the TPU the whole growth was one kernel so its ~60 small ops per round
-stay in VMEM. On the card (`csrc/grow.cu`) one block of 8 warps owns one
-(image, seed slot): the annotation state and the per-edge results live in
-shared memory, each warp takes edges in turn with 32 lanes over the K
-candidates, and all rounds run inside the kernel. The one-hot [P, E]
-contractions of the TPU kernel are gathers by `e_src[e]` / `e_dst[e]`. It is
-bound by operations (about 20 float32 operations and one `expf` per
-candidate evaluation); the 12 tables of an image (117 KB at E=38, K=128,
-B=1) are read by its MH blocks out of L2. The kernel repeats the plain
-version's float32 operations in the same order, without contraction into
-FMAs, so the two agree bit for bit.
+stay in VMEM. On the card (`csrc/grow.cu`) all rounds run inside one kernel
+that is bound by latency (each round is a chain of dependent loads,
+reductions and barriers). One block of 16 warps serves a few seed slots of
+one image, about one block per SM; the image's match-side tables are copied
+into shared memory once; each round evaluates only the edges that can
+commit (source grown, destination not), one edge per warp with 32 lanes
+over the K candidates and `redux.sync` for best and second best. The one-hot
+[P, E] contractions of the TPU kernel are gathers by `e_src[e]` /
+`e_dst[e]`. The kernel repeats the plain version's float32 operations in the
+same order, without contraction into FMAs, so the two agree bit for bit.
 """
 from __future__ import annotations
 

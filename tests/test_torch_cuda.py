@@ -10,8 +10,13 @@ JAX it runs as
 Tolerances: line_gather exact; peak_topk valid masks exact, xy atol 1e-4, raw
 exact, and peak_candidates exact (the kernels repeat the plain versions'
 float32 operations in the same order); conv1_pool atol and rtol 1e-4 in f32
-(384-term sums in another order) and 1e-2 in bf16 (one bf16 ulp: a sum that
-lands near a rounding boundary may round the other way); decode coords atol
+(384-term sums in another order) and 1e-2 in bf16; in bf16 conv1_pool and
+stem_gemm lie at most one bf16 ulp from their plain versions (the tensor
+cores sum the float32 products in another order, so a sum next to a
+rounding boundary may round the other way), except where the difference is
+within what two float32 sums of 384 products in any order can differ by
+(chip_smoke.SUM_ORDER times the sum of the products' magnitudes: near zero
+that is more than one of the result's tiny ulps); decode coords atol
 1e-5 and human scores atol 1e-3; the engines' coords atol 1e-4 (cuDNN and the
 CPU sum the f32 convs in other orders). The grow kernel equals its plain
 version exactly (same float32 steps, no FMA contraction, accurate expf);
@@ -25,14 +30,17 @@ import torch
 
 from torch_parity import FLAGSHIP_NPZ, SYNTH_NPZ, tie_maps
 from chip_smoke import (
-    TWO_PEOPLE, _numpy, human_deltas, make_synthetic_maps, painted_pifpaf_batch,
+    SUM_ORDER, TWO_PEOPLE, _numpy, bf16_ulps, human_deltas, make_synthetic_maps,
+    painted_pifpaf_batch,
 )
 from hyperpose_torch.models.backbones import VggTinyFusedStem, remap_vggtiny_to_fused
 from hyperpose_torch.models.openpose import LightWeightOpenPose
 from hyperpose_torch.models.pifpaf import Pifpaf, pifpaf_fused_decode
 from hyperpose_torch.ops import pifpaf_decode as PD
 from hyperpose_torch.ops.image import resize_bilinear
-from hyperpose_torch.ops.kernels.conv1_pool import conv1_pool, conv1_pool_plain
+from hyperpose_torch.ops.kernels.conv1_pool import (
+    conv1_pool, conv1_pool_plain, stem_gemm, stem_gemm_plain,
+)
 from hyperpose_torch.ops.kernels.grow import fused_grow, fused_grow_plain
 from hyperpose_torch.ops.kernels.line_gather import line_gather, line_gather_plain
 from hyperpose_torch.ops.kernels.peak_topk import (
@@ -109,24 +117,36 @@ def test_peak_candidates_match_plain(cuda, maps):
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
 
 
-def _btp(cuda, dtype, shape=(2, 24, 40, 128), seed=6):
+def _btp(cuda, dtype, shape=(2, 24, 40, 128), seed=6, batch_step=1):
     """A conv0p-like output [B, H, Q, 128] read through channels-last
-    strides, with weights and bias."""
+    strides (every `batch_step`-th image of a larger batch), with weights
+    and bias."""
     rng = np.random.default_rng(seed)
     b, h, q, c = shape
-    nchw = torch.from_numpy(rng.normal(0, 1, (b, c, h, q)).astype(np.float32))
+    nchw = torch.from_numpy(
+        rng.normal(0, 1, (b * batch_step, c, h, q)).astype(np.float32))
     nchw = nchw.to(cuda, dtype).contiguous(memory_format=torch.channels_last)
     w1p = torch.from_numpy(rng.normal(0, 0.1, (3, 128, 128)).astype(np.float32))
     b1p = torch.from_numpy(rng.normal(0, 0.1, (128,)).astype(np.float32))
-    return nchw.permute(0, 2, 3, 1), w1p.to(cuda, dtype), b1p.to(cuda)
+    return nchw[::batch_step].permute(0, 2, 3, 1), w1p.to(cuda, dtype), b1p.to(cuda)
 
 
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 1e-2)])
-@pytest.mark.parametrize("shape", [(2, 24, 40, 128), (1, 2, 1, 128), (1, 6, 33, 128)])
-def test_conv1_pool_matches_plain(cuda, dtype, tol, shape):
-    """Edge tiles included: Q = 1 (both border masks on one pair) and a
-    Q that leaves a partial tile of pairs."""
-    btp, w1p, b1p = _btp(cuda, dtype, shape)
+@pytest.mark.parametrize("shape,batch_step", [
+    ((2, 24, 40, 128), 1),
+    ((1, 2, 1, 128), 1),     # Q = 1: both border masks on one pair; H = 2
+    ((1, 6, 33, 128), 1),
+    ((1, 4, 7, 128), 1),     # Q one less than a warp's 8 pairs
+    ((2, 2, 9, 128), 1),     # Q one more; H = 2
+    ((3, 14, 17, 128), 1),   # B = 3; 7 row pairs; a ragged last q group
+    ((3, 90, 100, 128), 1),  # more units than warps: ranges start mid-column
+    ((2, 24, 40, 128), 2),   # a batch-strided view
+])
+def test_conv1_pool_matches_plain(cuda, dtype, tol, shape, batch_step):
+    """Every edge of the tiling: the fp32 FMA tiles (32 pairs x 2 rows) and
+    the bf16 warp units (8 pairs x 2 rows, persistent warps taking equal
+    contiguous ranges of units, each range starting with a full strip)."""
+    btp, w1p, b1p = _btp(cuda, dtype, shape, batch_step=batch_step)
     before = conv1_pool.launches
     got = conv1_pool(btp, w1p, b1p)
     want = conv1_pool_plain(btp, w1p, b1p)
@@ -134,6 +154,38 @@ def test_conv1_pool_matches_plain(cuda, dtype, tol, shape):
     assert conv1_pool.launches == before + 1
     assert got.dtype == dtype and got.shape == (shape[0], shape[1] // 2, shape[2], 64)
     torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+    if dtype == torch.bfloat16:
+        scale = conv1_pool_plain(btp.abs(), w1p.abs(), torch.zeros_like(b1p)).float()
+        assert bf16_ulps(got, want, SUM_ORDER * scale) <= 1
+
+
+@pytest.mark.parametrize("g,m", [(1, 16), (3, 37), (64, 321)])
+def test_stem_gemm_matches_plain(cuda, g, m):
+    """The bare mainloop, ragged last tile included (M not a multiple of
+    16), within one bf16 ulp of the float32 product."""
+    rng = np.random.default_rng(8)
+    a = torch.from_numpy(rng.normal(0, 1, (g, m, 384)).astype(np.float32))
+    w = torch.from_numpy(rng.normal(0, 0.05, (384, 128)).astype(np.float32))
+    a, w = a.to(cuda, torch.bfloat16), w.to(cuda, torch.bfloat16)
+    before = stem_gemm.launches
+    got = stem_gemm(a, w)
+    want = stem_gemm_plain(a, w)
+    torch.cuda.synchronize()
+    assert stem_gemm.launches == before + 1
+    assert got.shape == (g, m, 128) and got.dtype == torch.bfloat16
+    scale = torch.matmul(a.float().abs(), w.float().abs())
+    assert bf16_ulps(got, want, SUM_ORDER * scale) <= 1
+
+
+def test_stem_gemm_refuses_what_it_does_not_take(cuda):
+    a = torch.zeros(2, 32, 384, device=cuda, dtype=torch.bfloat16)
+    w = torch.zeros(384, 128, device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(TypeError):
+        stem_gemm(a.float(), w)
+    with pytest.raises(ValueError, match="contiguous"):
+        stem_gemm(a[:, ::2], w)
+    with pytest.raises(ValueError):
+        stem_gemm(a[..., :128], w)
 
 
 def test_conv1_pool_refuses_a_transposing_copy(cuda):
@@ -218,31 +270,59 @@ def test_fused_stem_engine_on_card_matches_cpu(cuda):
 
 # -- PifPaf: the grow kernel, the decoder and the engine ------------------------
 
-def _tie_tables(cuda, b=2, mh=8, k=128, seed=3):
+def _tie_tables(cuda, b=2, mh=8, k=128, seed=3, e=None, p=17, steps=8,
+                zero_slots=False):
     """Growth inputs on a coarse integer grid: many candidates at exactly
-    equal distances and scores, so best and second best tie often."""
+    equal distances and scores, so best and second best tie often. The
+    edges are PifPaf's 38 directed limbs, or `e` random edges over `p`
+    parts with a random reverse; with `zero_slots` every other seed slot has
+    score 0."""
     rng = np.random.default_rng(seed)
-    limbs = np.asarray(PIFPAF_TOPOLOGY.limbs)
-    e_src = tuple(int(v) for v in np.concatenate([limbs[:, 0], limbs[:, 1]]))
-    e_dst = tuple(int(v) for v in np.concatenate([limbs[:, 1], limbs[:, 0]]))
-    e = len(e_src)
+    if e is None:
+        limbs = np.asarray(PIFPAF_TOPOLOGY.limbs)
+        e_src = tuple(int(v) for v in np.concatenate([limbs[:, 0], limbs[:, 1]]))
+        e_dst = tuple(int(v) for v in np.concatenate([limbs[:, 1], limbs[:, 0]]))
+        e = len(e_src)
+        rev = (np.arange(e) + e // 2) % e
+    else:
+        e_src = tuple(int(v) for v in rng.integers(0, p, e))
+        e_dst = tuple(int(v) for v in rng.integers(0, p, e))
+        rev = rng.permutation(e)
     grid = lambda *s: rng.integers(0, 12, s).astype(np.float32)  # noqa: E731
     tables = [grid(b, e, k), grid(b, e, k),
               rng.choice([0.0, 0.5, 1.0], (b, e, k)).astype(np.float32),
               grid(b, e, k), grid(b, e, k),
               rng.integers(2, 5, (b, e, k)).astype(np.float32)]
     tables = [torch.from_numpy(t).to(cuda) for t in tables]
-    rev = torch.tensor((np.arange(e) + e // 2) % e, device=cuda)
-    seed_part = torch.from_numpy(rng.integers(0, 17, (b, mh)).astype(np.int32)).to(cuda)
-    vals = np.stack([grid(b, mh), grid(b, mh), rng.integers(2, 5, (b, mh)),
-                     np.full((b, mh), 0.5)], axis=-1).astype(np.float32)
+    rev = torch.tensor(rev, device=cuda)
+    seed_part = torch.from_numpy(rng.integers(0, p, (b, mh)).astype(np.int32)).to(cuda)
+    score = np.full((b, mh), 0.5)
+    if zero_slots:
+        score[:, 1::2] = 0.0
+    vals = np.stack([grid(b, mh), grid(b, mh), rng.integers(2, 5, (b, mh)), score],
+                    axis=-1).astype(np.float32)
     return (seed_part, torch.from_numpy(vals).to(cuda), tuple(tables),
-            tuple(t[:, rev] for t in tables), e_src, e_dst, 17, 8, True)
+            tuple(t[:, rev] for t in tables), e_src, e_dst, p, steps, True)
+
+
+# Synthetic growth inputs at the edges of the kernel's limits and layout.
+GROW_CASES = {
+    "k_below_32": dict(k=20),
+    "k200": dict(k=200),
+    "e1": dict(e=1, p=2),
+    "e64_p32": dict(e=64, p=32),
+    "p1": dict(e=3, p=1),
+    "steps0": dict(steps=0),
+    "zero_slots": dict(zero_slots=True),
+    "many_slots": dict(b=12, mh=96),   # several seed slots per block
+}
 
 
 def _grow_args(cuda, case):
     if case == "ties":
         return _tie_tables(cuda)
+    if case in GROW_CASES:
+        return _tie_tables(cuda, **GROW_CASES[case])
     if case == "painted":
         fields = painted_pifpaf_batch(2)
     else:
@@ -257,7 +337,7 @@ def _grow_args(cuda, case):
     return PD.grow_inputs(PD._prepare(maps, cfg, PIFPAF_TOPOLOGY), cfg, PIFPAF_TOPOLOGY)
 
 
-@pytest.mark.parametrize("case", ["painted", "dense_random", "ties"])
+@pytest.mark.parametrize("case", ["painted", "dense_random", "ties", *GROW_CASES])
 @pytest.mark.parametrize("reverse_match", [True, False])
 def test_grow_matches_plain(cuda, case, reverse_match):
     args = _grow_args(cuda, case)[:8] + (reverse_match,)
@@ -268,7 +348,7 @@ def test_grow_matches_plain(cuda, case, reverse_match):
     assert fused_grow.launches == before + 1
     assert float(got[0].max()) > 0, "no annotation grew"
     for g, w in zip(got, want):
-        assert g.shape == w.shape == (args[0].shape[0], args[0].shape[1], 17)
+        assert g.shape == w.shape == (args[0].shape[0], args[0].shape[1], args[6])
         assert torch.equal(g, w)
 
 
