@@ -19,8 +19,8 @@ over the bf16 fused-stem engine. Then PifPaf: painted composite fields decode
 to the two people on the card and on the CPU, the ResNet50 PifPaf engine
 (seeded random weights: the repository has no trained PifPaf checkpoint)
 runs at 368x432, batch 8, in float32 and bf16 through `fused_decode`, and
-the growth kernel is held against its plain version on the tables of the
-painted fields and of that network's outputs. It checks that each path went
+the growth kernel is held against its plain version, and timed, on the
+tables of the painted fields and of that network's outputs. It checks that each path went
 through its kernels. Every phase prints one line; any failure exits non-zero
 before the result line. The last line is `{"ok": true, "device": {...}}`.
 It needs a CUDA device and exits non-zero without one; it imports no JAX.
@@ -39,6 +39,7 @@ import numpy as np
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, REPO)
+sys.path.insert(0, os.path.join(REPO, "tests"))  # torch_measures
 
 H100_BYTES_PER_S = 3.35e12   # HBM3, H100 SXM data sheet
 H100_F32_OPS_PER_S = 67e12   # float32 outside the tensor cores
@@ -141,47 +142,6 @@ def device_busy(fn, iters: int = 5) -> tuple[float, float]:
                if e.device_type == torch.autograd.DeviceType.CUDA]
     total_us = sum(e.self_device_time_total for e in kernels)
     return total_us / 1e3 / iters, sum(e.count for e in kernels) / iters
-
-
-# Two float32 sums of the same 384 products, taken in any two orders, differ
-# by at most this times the sum of the products' magnitudes (2 * 384 * 2^-24).
-SUM_ORDER = 2 * 384 * 2.0 ** -24
-
-
-def _ulp_distance(a, b, slack=None):
-    """Elementwise distance between two bf16 tensors in units in the last
-    place: how many bf16 values apart they lie (+0 and -0 are 0 apart).
-    Elements whose difference is within `slack` (a number or a tensor)
-    count as 0."""
-    import torch
-
-    def ordered(t):
-        i = t.contiguous().view(torch.int16).to(torch.int32)
-        return torch.where(i < 0, -(i & 0x7FFF), i)
-
-    d = (ordered(a) - ordered(b)).abs()
-    if slack is not None:
-        d = torch.where((a.float() - b.float()).abs() <= slack, 0, d)
-    return d
-
-
-def bf16_ulps(a, b, slack=None) -> int:
-    """The largest `_ulp_distance` of two bf16 tensors. Near zero, float32
-    sums in another order move a bf16 result by more than one of its tiny
-    ulps: pass SUM_ORDER * (each output's sum of product magnitudes) as
-    `slack` to count only what the order of the sums does not explain."""
-    return int(_ulp_distance(a, b, slack).max())
-
-
-def bf16_agreement(got, want, scale) -> dict:
-    """A bf16 kernel's result against its plain version, both float32 sums
-    of 384 products rounded once: the largest distance in ulps, how many
-    outputs lie more than 1 ulp apart, and the largest distance beyond what
-    the order of the sums explains (`scale`: each output's sum of product
-    magnitudes)."""
-    d = _ulp_distance(got, want)
-    return {"max_ulps": int(d.max()), "outputs_beyond_1_ulp": int((d > 1).sum()),
-            "max_ulps_beyond_sum_order": bf16_ulps(got, want, SUM_ORDER * scale)}
 
 
 # -- a numpy copy of tests/test_paf_decode.py:11-56 ----------------------------
@@ -573,6 +533,7 @@ def phase_conv1_pool(frames) -> dict:
     from hyperpose_torch.ops.image import resize_bilinear
     from hyperpose_torch.ops.kernels.conv1_pool import conv1_pool, conv1_pool_plain
     from hyperpose_torch.utils.weights import load_flax_weights
+    from torch_measures import bf16_agreement
 
     batch = np.stack([resize_bilinear(f, INPUT_HW) for f in frames])
     x_u8 = torch.from_numpy(batch).cuda()
@@ -653,6 +614,7 @@ def phase_stem_gemm() -> tuple[dict, int]:
     path, so its launches are counted here. Returns its row and launches."""
     import torch
     from hyperpose_torch.ops.kernels.conv1_pool import stem_gemm, stem_gemm_plain
+    from torch_measures import bf16_agreement
 
     g, m, k, n = 64, 9936, 384, 128
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -985,39 +947,18 @@ def phase_pifpaf_end_to_end(frames, card) -> tuple[dict, dict]:
     return paths["f32"], fields32
 
 
-def grow_needed_evaluations(args) -> int:
-    """The candidate evaluations that growth on these inputs needs: in each
-    round, K for every (seed slot, edge) whose source part has grown and
-    whose destination has not (no other edge can commit), and K more for its
-    reverse check where the forward merge score is > 0. The state at a
-    round's start is the plain growth run for that many rounds."""
-    import torch
-    from hyperpose_torch.ops.kernels.grow import find_connection, fused_grow_plain
-
-    seed_part, _, tables, _, e_src, e_dst, _, steps, rev = args
-    src, dst = (torch.tensor(v, device=seed_part.device) for v in (e_src, e_dst))
-    k = tables[0].shape[-1]
-    total = 0
-    for r in range(steps):
-        score, x, y, sc = fused_grow_plain(*args[:7], growth_steps=r, reverse_match=rev)
-        active = (score[..., src] > 0) & (score[..., dst] <= 0)
-        total += k * int(active.sum())
-        if rev:
-            fc = find_connection(*(t[:, None] for t in tables),
-                                 x[..., src], y[..., src], sc[..., src])[0]
-            merge = torch.sqrt(torch.clamp(fc * score[..., src], min=0.0))
-            total += k * int((active & (merge > 0)).sum())
-    return total
-
-
 def phase_grow(fields32) -> dict:
     """The growth kernel against its plain version on the tables the decoder
-    prepares from painted two-person fields and from the full-size network's
-    f32 outputs, batch 8: zero mismatches. Timed on the network's tables."""
+    prepares from painted two-person fields (every seed slot live, so the
+    skeletons grow to full size) and from the full-size network's f32
+    outputs (the main path's inputs), batch 8: zero mismatches. Both are
+    timed, each beside the evaluations and bytes its data needs
+    (`torch_measures.grow_work`); the kernel row is the network's."""
     import torch
     from hyperpose_torch.ops import pifpaf_decode as D
     from hyperpose_torch.ops.kernels.grow import fused_grow, fused_grow_plain
     from hyperpose_torch.utils.topology import PIFPAF_TOPOLOGY
+    from torch_measures import grow_work
 
     cfg = D.PifPafDecoderConfig()
 
@@ -1028,7 +969,10 @@ def phase_grow(fields32) -> dict:
 
     painted = {k: torch.from_numpy(v).cuda() for k, v in painted_pifpaf_batch().items()}
     cases = {"painted": inputs(painted), "network": inputs(fields32)}
-    mismatches = {}
+    b, mh = cases["network"][0].shape
+    e, k = cases["network"][2][0].shape[1:]
+    p, steps, rev = cases["network"][6:9]
+    mismatches, timed = {}, {}
     for name, args in cases.items():
         got = fused_grow(*args)
         want = fused_grow_plain(*args)
@@ -1036,33 +980,31 @@ def phase_grow(fields32) -> dict:
         mismatches[name] = sum(int((g != w).sum()) for g, w in zip(got, want))
         check(mismatches[name] == 0, f"grow {name}: {mismatches[name]} values differ from plain")
         check(float(got[0].max()) > 0, f"grow {name}: no annotation grew")
-    args = cases["network"]
-    b, mh = args[0].shape
-    e, k = args[2][0].shape[1:]
-    p, steps, rev = args[6], args[7], args[8]
-    dense = b * mh * steps * e * k * (2 if rev else 1)  # every edge, every round
-    evals = grow_needed_evaluations(args)
-    ops = 21 * evals    # ~20 f32 operations and one expf per candidate evaluation
-    nbytes = 4 * (12 * b * e * k + 5 * b * mh + 4 * b * mh * p)
-    t_bytes, t_ops = nbytes / H100_BYTES_PER_S, ops / H100_F32_OPS_PER_S
-    row = {
-        "name": "grow", "route": "cuda", "source": "hyperpose_torch/csrc/grow.cu",
-        "replaces": "hyperpose_tpu/ops/pallas/grow_kernel.py:199",
-        "max_abs_err": 0.0,
-        "ms": device_ms(lambda: fused_grow(*args), reps=20),
-        "plain_ms": device_ms(lambda: fused_grow_plain(*args), reps=3, replays=3),
-        "bound_ms": 1e3 * max(t_bytes, t_ops),
-        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-        "library_ms": None,
-    }
+        work = grow_work(args)
+        ops = 21 * work["evaluations"]  # ~20 f32 operations and one expf each
+        t_bytes, t_ops = work["bytes"] / H100_BYTES_PER_S, ops / H100_F32_OPS_PER_S
+        ms = device_ms(lambda: fused_grow(*args), reps=20)
+        t = timed[name] = {
+            "live_seed_slots": int((args[1][..., 3] > 0).sum()),
+            "kernel_ms": ms, "call_ms": call_ms(lambda: fused_grow(*args), iters=20),
+            "plain_ms": device_ms(lambda: fused_grow_plain(*args), reps=3, replays=3),
+            "evaluations": work["evaluations"],
+            "evaluations_dense": b * mh * steps * e * k * (2 if rev else 1),
+            "operations": ops, "bytes": work["bytes"],
+            "bytes_all_tables": 4 * (12 * b * e * k + 5 * b * mh + 4 * b * mh * p),
+            "bound_ms": 1e3 * max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+        }
+        t.update(evaluations_per_s=t["evaluations"] / ms * 1e3,
+                 share_of_bound=t["bound_ms"] / ms)
     emit("grow", shapes=f"seeds [{b},{mh}], 12 tables [{b},{e},{k}] f32, P={p}, "
          f"{steps} rounds, reverse_match={rev} -> 4 x [{b},{mh},{p}]",
-         mismatches=mismatches, evaluations=evals, evaluations_dense=dense,
-         evaluations_per_s=evals / row["ms"] * 1e3,
-         dense_evaluations_per_s=dense / row["ms"] * 1e3, operations=ops, bytes=nbytes,
-         kernel_ms=row["ms"], call_ms=call_ms(lambda: fused_grow(*args), iters=20),
-         **{k_: row[k_] for k_ in ("plain_ms", "library_ms", "bound_ms", "bound_by")})
-    return row
+         mismatches=mismatches, library_ms=None, **timed)
+    net = timed["network"]
+    return {"name": "grow", "route": "cuda", "source": "hyperpose_torch/csrc/grow.cu",
+            "replaces": "hyperpose_tpu/ops/pallas/grow_kernel.py:199",
+            "max_abs_err": 0.0, "ms": net["kernel_ms"], "library_ms": None,
+            **{k_: net[k_] for k_ in ("plain_ms", "bound_ms", "bound_by")}}
 
 
 def main() -> None:

@@ -15,7 +15,7 @@ stem_gemm lie at most one bf16 ulp from their plain versions (the tensor
 cores sum the float32 products in another order, so a sum next to a
 rounding boundary may round the other way), except where the difference is
 within what two float32 sums of 384 products in any order can differ by
-(chip_smoke.SUM_ORDER times the sum of the products' magnitudes: near zero
+(torch_measures.SUM_ORDER times the sum of the products' magnitudes: near zero
 that is more than one of the result's tiny ulps); decode coords atol
 1e-5 and human scores atol 1e-3; the engines' coords atol 1e-4 (cuDNN and the
 CPU sum the f32 convs in other orders). The grow kernel equals its plain
@@ -29,8 +29,9 @@ import pytest
 import torch
 
 from torch_parity import FLAGSHIP_NPZ, SYNTH_NPZ, tie_maps
+from torch_measures import SUM_ORDER, bf16_ulps
 from chip_smoke import (
-    SUM_ORDER, TWO_PEOPLE, _numpy, bf16_ulps, human_deltas, make_synthetic_maps,
+    TWO_PEOPLE, _numpy, human_deltas, make_synthetic_maps,
     painted_pifpaf_batch,
 )
 from hyperpose_torch.models.backbones import VggTinyFusedStem, remap_vggtiny_to_fused
@@ -315,6 +316,8 @@ GROW_CASES = {
     "steps0": dict(steps=0),
     "zero_slots": dict(zero_slots=True),
     "many_slots": dict(b=12, mh=96),   # several seed slots per block
+    "e64_k256_p32": dict(e=64, p=32, k=256),  # reverse match tables not staged
+    "odd_table": dict(e=3, p=3, k=21),        # E*K not a multiple of 4: plain loads
 }
 
 

@@ -1,4 +1,5 @@
-"""The port of the TPU matmul probe and the measures chip_smoke.py reports.
+"""The port of the TPU matmul probe, and the measures chip_smoke.py reports
+(`tests/torch_measures.py`).
 
 `stem_gemm_plain` (the bf16 stem kernel's bare mainloop, `hp_stem_gemm` on
 the card) is held against the probe's own XLA formula
@@ -7,16 +8,16 @@ rounded to bf16), written out here: the script sets a JAX cache when it is
 imported. Tolerance: one bf16 ulp (the float32 sums are taken in another
 order, so a value next to a rounding boundary may round the other way),
 except where the difference is within what two float32 sums of the 384
-products can differ by (chip_smoke.SUM_ORDER)."""
+products can differ by (torch_measures.SUM_ORDER)."""
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
 import torch_parity  # noqa: F401  (one thread per test)
-from chip_smoke import SUM_ORDER, bf16_agreement, bf16_ulps, grow_needed_evaluations
 from hyperpose_torch.ops.kernels.conv1_pool import stem_gemm, stem_gemm_plain
 from hyperpose_torch.ops.kernels.grow import fused_grow_plain
+from torch_measures import SUM_ORDER, bf16_agreement, bf16_ulps, grow_work
 
 
 def _operands(g, m, seed=0):
@@ -93,15 +94,25 @@ def _grow_inputs(steps, reverse_match):
 @pytest.mark.parametrize("reverse_match", [True, False])
 def test_grow_needed_evaluations_counts_the_frontier(reverse_match):
     """Round 0 evaluates only the seeds' outgoing edge 0 -> 1 (one per live
-    slot, plus its reverse check where it matched); no round evaluates more
-    than the dense count; no rounds, no evaluations."""
-    k = 32
-    assert grow_needed_evaluations(_grow_inputs(0, reverse_match)) == 0
-    one = grow_needed_evaluations(_grow_inputs(1, reverse_match))
+    slot, plus its reverse check where it matched) and reads that edge's
+    match rows once per image however many slots use them; no round
+    evaluates more than the dense count, nor reads more than every table;
+    no rounds, no evaluations and only the seeds and outputs."""
+    b, mh, e, k, p = 2, 4, 4, 32, 3
+    sides = 2 if reverse_match else 1
+    seeds_and_outputs = 4 * (5 * b * mh + 4 * b * mh * p)
+    assert grow_work(_grow_inputs(0, reverse_match)) == {
+        "evaluations": 0, "bytes": seeds_and_outputs}
+    one = grow_work(_grow_inputs(1, reverse_match))
     live = 2 * 3
-    assert live * k <= one <= live * k * (2 if reverse_match else 1)
+    assert live * k <= one["evaluations"] <= live * k * sides
+    row = 3 * k * 4                     # x, y, score of one edge's candidates
+    winners = 3 * 4 * min(k, 2 * 3)     # at most 2 per slot on the row
+    assert (seeds_and_outputs + b * row
+            <= one["bytes"] <= seeds_and_outputs + sides * b * (row + winners))
     args = _grow_inputs(4, reverse_match)
-    total = grow_needed_evaluations(args)
-    assert one < total <= 2 * 4 * 4 * 4 * k * (2 if reverse_match else 1)
+    total = grow_work(args)
+    assert one["evaluations"] < total["evaluations"] <= b * mh * 4 * e * k * sides
+    assert one["bytes"] < total["bytes"] <= seeds_and_outputs + 4 * 12 * b * e * k
     grown = fused_grow_plain(*args)[0]
     assert int((grown[:, :3] > 0).sum()) > 2 * 3   # something grew past the seed

@@ -1,0 +1,143 @@
+"""Measures shared by the port's tests and chip_smoke.py: bf16 distances in
+units in the last place, and the work that PifPaf growth needs on given
+inputs (the evaluations and bytes behind the growth kernel's bound).
+
+It imports torch and the port only, and has no side effects at import, so
+chip_smoke.py can use it on the card as it is.
+"""
+from __future__ import annotations
+
+import torch
+
+from hyperpose_torch.ops.kernels.grow import find_connection, fused_grow_plain
+
+# Two float32 sums of the same 384 products, taken in any two orders, differ
+# by at most this times the sum of the products' magnitudes (2 * 384 * 2^-24).
+SUM_ORDER = 2 * 384 * 2.0 ** -24
+
+
+def _ulp_distance(a, b, slack=None):
+    """Elementwise distance between two bf16 tensors in units in the last
+    place: how many bf16 values apart they lie (+0 and -0 are 0 apart).
+    Elements whose difference is within `slack` (a number or a tensor)
+    count as 0."""
+    def ordered(t):
+        i = t.contiguous().view(torch.int16).to(torch.int32)
+        return torch.where(i < 0, -(i & 0x7FFF), i)
+
+    d = (ordered(a) - ordered(b)).abs()
+    if slack is not None:
+        d = torch.where((a.float() - b.float()).abs() <= slack, 0, d)
+    return d
+
+
+def bf16_ulps(a, b, slack=None) -> int:
+    """The largest `_ulp_distance` of two bf16 tensors. Near zero, float32
+    sums in another order move a bf16 result by more than one of its tiny
+    ulps: pass SUM_ORDER * (each output's sum of product magnitudes) as
+    `slack` to count only what the order of the sums does not explain."""
+    return int(_ulp_distance(a, b, slack).max())
+
+
+def bf16_agreement(got, want, scale) -> dict:
+    """A bf16 kernel's result against its plain version, both float32 sums
+    of 384 products rounded once: the largest distance in ulps, how many
+    outputs lie more than 1 ulp apart, and the largest distance beyond what
+    the order of the sums explains (`scale`: each output's sum of product
+    magnitudes)."""
+    d = _ulp_distance(got, want)
+    return {"max_ulps": int(d.max()), "outputs_beyond_1_ulp": int((d > 1).sum()),
+            "max_ulps_beyond_sum_order": bf16_ulps(got, want, SUM_ORDER * scale)}
+
+
+def _winners(mx, my, ms, qx, qy, qs):
+    """find_connection's best and second-best candidate indices (ties to the
+    lowest index), and whether the best one matched (weight > 0)."""
+    sf = 2.0 * qs
+    sg = torch.clamp(0.25 * qs * qs, min=1e-6)
+    dx = mx - qx[..., None]
+    dy = my - qy[..., None]
+    near = (dx.abs() <= sf[..., None]) & (dy.abs() <= sf[..., None])
+    w = torch.where(near, torch.exp(-0.5 * (dx * dx + dy * dy) / sg[..., None]) * ms, 0.0)
+    k = w.shape[-1]
+    iota = torch.arange(k, device=w.device)
+
+    def first_argmax(v):
+        s = v.amax(dim=-1)
+        return s, torch.where(v >= s[..., None], iota, k).amin(dim=-1)
+
+    s1, i1 = first_argmax(w)
+    _, i2 = first_argmax(w.scatter(-1, i1[..., None], 0.0))
+    return i1, i2, s1 > 0.0
+
+
+def grow_work(args) -> dict:
+    """The work that `fused_grow_plain(*args)` needs on these inputs, from
+    one pass over its rounds.
+
+    evaluations: in each round, K for every (seed slot, edge) whose source
+    part has grown and whose destination has not (no other edge can commit),
+    and K more for its reverse check where the forward merge score is > 0.
+    bytes: each value read once, each output written once: the match-side
+    rows (x, y, score) of every (image, edge) evaluated at least once in
+    either direction, the output-side (x, y, scale) values at the best and
+    second-best candidates of every evaluation that matched, the seeds, and
+    the four [B, MH, P] outputs."""
+    seed_part, seed_vals, tables, rev_tables, e_src, e_dst, n_parts, steps, rev = args
+    dev = seed_part.device
+    src = torch.tensor(e_src, device=dev)
+    dst = torch.tensor(e_dst, device=dev)
+    b, mh = seed_part.shape
+    e, k = tables[0].shape[1:]
+    piota = torch.arange(n_parts, device=dev)
+    seed_oh = (piota == seed_part[..., None]).to(torch.float32)
+    sv = seed_vals.to(torch.float32)
+    ann = [seed_oh * sv[..., i:i + 1] for i in (3, 0, 1, 2)]   # score, x, y, scale
+    fwd = [t[:, None] for t in tables]
+    bwd = [t[:, None] for t in rev_tables]
+    dst_oh = dst[:, None] == piota[None, :]
+    eiota = torch.arange(e, device=dev)[:, None]
+    bidx = torch.arange(b, device=dev)[:, None, None].expand(b, mh, e)
+    eidx = torch.arange(e, device=dev).expand(b, mh, e)
+    rows = torch.zeros((2, b, e), dtype=torch.bool, device=dev)
+    picked = torch.zeros((2, b, e, k), dtype=torch.bool, device=dev)
+    evaluations = 0
+
+    def record(side, mask, i1, i2, matched):
+        rows[side] |= mask.any(dim=1)
+        hit = mask & matched
+        for i in (i1, i2):
+            picked[side][bidx[hit], eidx[hit], i[hit]] = True
+
+    for _ in range(steps):
+        score, x, y, sc = ann
+        src_score, dst_score = score[..., src], score[..., dst]
+        qx, qy, qs = x[..., src], y[..., src], sc[..., src]
+        active = (src_score > 0.0) & (dst_score <= 0.0)
+        if not bool(active.any()):
+            break   # nothing can commit now or in any later round
+        evaluations += k * int(active.sum())
+        fc, fx, fy, fs = find_connection(*fwd, qx, qy, qs)
+        record(0, active, *_winners(*fwd[:3], qx, qy, qs))
+        merge = torch.sqrt(torch.clamp(fc * src_score, min=0.0))
+        if rev:
+            checked = active & (merge > 0.0)
+            evaluations += k * int(checked.sum())
+            record(1, checked, *_winners(*bwd[:3], fx, fy, fs))
+            rc, rx, ry, _ = find_connection(*bwd, fx, fy, fs)
+            merge = torch.where((rc > 0.0) & ((qx - rx).abs() + (qy - ry).abs() <= qs),
+                                merge, 0.0)
+        merge = torch.where(active & (fc > 0.0), merge, 0.0)
+        contrib = torch.where(dst_oh, merge[..., None], 0.0)
+        best = contrib.amax(dim=2)
+        ibest = torch.where(contrib >= best[:, :, None, :], eiota, e).amin(dim=2)
+        do = best > 0.0
+        ann = [torch.where(do, best, score)] + [
+            torch.where(do, torch.gather(v, -1, ibest), old)
+            for v, old in ((fx, x), (fy, y), (fs, sc))]
+    want = fused_grow_plain(*args)
+    assert all(torch.equal(g, w) for g, w in zip(ann, want)), \
+        "grow_work's rounds differ from fused_grow_plain's"
+    nbytes = 4 * (3 * k * int(rows.sum()) + 3 * int(picked.sum())
+                  + 5 * b * mh + 4 * b * mh * n_parts)
+    return {"evaluations": evaluations, "bytes": nbytes}
