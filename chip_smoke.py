@@ -5,7 +5,7 @@ Run from the repository root with no arguments:
 
     python3 chip_smoke.py
 
-It builds the six CUDA kernels from `hyperpose_torch/csrc/` (counting the
+It builds the seven CUDA kernels from `hyperpose_torch/csrc/` (counting the
 tensor-core instructions in their machine code), holds each against its
 plain PyTorch version at the serving shapes and times both (`stem_gemm`, the
 bf16 stem kernel's bare mainloop, at the TPU probe's strip shape),
@@ -20,13 +20,21 @@ to the two people on the card and on the CPU, the ResNet50 PifPaf engine
 (seeded random weights: the repository has no trained PifPaf checkpoint)
 runs at 368x432, batch 8, in float32 and bf16 through `fused_decode`, and
 the growth kernel is held against its plain version, and timed, on the
-tables of the painted fields and of that network's outputs. It checks that each path went
-through its kernels. Every phase prints one line; any failure exits non-zero
-before the result line. The last line is `{"ok": true, "device": {...}}`.
-It needs a CUDA device and exits non-zero without one; it imports no JAX.
+tables of the painted fields and of that network's outputs. Then int8
+serving: the int8 GEMM at the TPU int8 probe's shape in both its types
+against the library's, and `quantize_engine` (calibrated on the batch) on
+each flagship form in f32 and bf16 and on PifPaf in bf16, with every int8
+conv's quantize / im2col / GEMM / epilogue device time, every int8 conv of
+a step equal to a CPU copy of it on the same input, and the GEMM held
+against its plain version at every shape of the step. It checks that each
+path went through its kernels. Every phase prints one line; any failure
+exits non-zero before the result line. The last line is
+`{"ok": true, "device": {...}}`. It needs a CUDA device and exits non-zero
+without one; it imports no JAX.
 """
 from __future__ import annotations
 
+import copy
 import json
 import os
 import re
@@ -48,6 +56,18 @@ FEAT_HW = (46, 54)           # 368x432 input / 8
 BATCH = 8
 INPUT_HW = (368, 432)
 FLAGSHIP_SCORES = (17.0187, 8.5840)   # the synthetic frame, f32, both packages
+# int8 flagship on the synthetic frame. A last-place difference in the
+# float ops between the int8 convs (BatchNorm on another device) flips some
+# int8 roundings, and the flips grow through the network until two runs'
+# maps differ by about 4-8% of their range, as int8 differs from float: a
+# part near the threshold may come or go, and a third, weak human may
+# appear. So each person of the float engine must be found (at least half
+# its parts, at the same places within 0.01 of the image size), and the
+# card's int8 maps must lie within 0.15 of their range of the CPU's, the
+# JAX package's own bound between int8 and float (tests/test_quant.py:53).
+# That bound is a second check: each int8 conv alone is held exactly to a
+# CPU copy of it on the card's input (`_convs_card_vs_cpu`).
+INT8_TOL = {"xy": 0.01, "maps": 0.15}
 
 
 def fail(msg: str) -> None:
@@ -283,6 +303,28 @@ def human_deltas(a, b) -> tuple[float, float]:
     return d_xy, d_s
 
 
+def find_people(ref, got) -> float | None:
+    """Each human of `ref` matched to its own human of `got` that has at
+    least half of its parts: the largest |dx| + |dy| over the matched parts,
+    or None if some human finds no match. `got` may hold more humans."""
+    worst, free = 0.0, list(got)
+    for w in ref:
+        best = None
+        for g in free:
+            shared = set(w.parts) & set(g.parts)
+            if 2 * len(shared) < len(w.parts):
+                continue
+            d = max(abs(g.parts[p].x - w.parts[p].x) + abs(g.parts[p].y - w.parts[p].y)
+                    for p in shared)
+            if best is None or d < best[0]:
+                best = (d, g)
+        if best is None:
+            return None
+        worst = max(worst, best[0])
+        free.remove(best[1])
+    return worst
+
+
 def _numpy(d) -> dict:
     return {k: v.cpu().numpy() for k, v in vars(d).items()}
 
@@ -312,16 +354,19 @@ def phase_build() -> None:
         for name, log in build.ptxas_log.items()
     }
     # Tensor-core instructions in each library's machine code: mma.sync is
-    # HMMA, wgmma is HGMMA.
+    # HMMA (float types) or IMMA (integers), wgmma is HGMMA or IGMMA.
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     mma = {}
     for name in build.KERNELS:
         sass = subprocess.run(
             [tool, "-sass", str(build.library_path(name))], capture_output=True,
             text=True, timeout=300, check=True).stdout
-        mma[name] = {op: len(re.findall(rf"\b{op}\b", sass)) for op in ("HMMA", "HGMMA")}
+        mma[name] = {op: len(re.findall(rf"\b{op}\b", sass))
+                     for op in ("HMMA", "HGMMA", "IMMA", "IGMMA")}
     check(sum(mma["conv1_pool"].values()) > 0,
           f"conv1_pool's machine code has no tensor-core instruction: {mma}")
+    check(mma["int8_gemm"]["IMMA"] > 0 and mma["int8_gemm"]["HMMA"] > 0,
+          f"int8_gemm's machine code lacks IMMA or HMMA: {mma}")
     emit("build", seconds=secs, built=built, arch="sm_90a", ptxas=ptxas,
          sass_mma=mma)
 
@@ -695,10 +740,12 @@ def phase_decode(limbs, **cfg) -> dict:
 def _launch_counters():
     from hyperpose_torch.ops.kernels.conv1_pool import conv1_pool, stem_gemm
     from hyperpose_torch.ops.kernels.grow import fused_grow
+    from hyperpose_torch.ops.kernels.int8_gemm import int8_gemm
     from hyperpose_torch.ops.kernels.line_gather import line_gather
     from hyperpose_torch.ops.kernels.peak_topk import peak_candidates, peak_topk
 
-    return (line_gather, peak_topk, peak_candidates, conv1_pool, fused_grow, stem_gemm)
+    return (line_gather, peak_topk, peak_candidates, conv1_pool, fused_grow, stem_gemm,
+            int8_gemm)
 
 
 def drive(engine, frames) -> tuple[list, dict]:
@@ -1007,6 +1054,301 @@ def phase_grow(fields32) -> dict:
             **{k_: net[k_] for k_ in ("plain_ms", "bound_ms", "bound_by")}}
 
 
+# -- int8 serving -------------------------------------------------------------------
+
+H100_INT8_OPS_PER_S = 1979e12  # int8 tensor cores, dense
+PROBE_MKN = (4096, 1792, 256)  # scripts/probe_int8_pallas.py:30
+
+
+def _gemm_work(m: int, n: int, k: int, bf16: bool) -> tuple[int, int, float, str]:
+    """(bytes, operations, bound ms, what binds) of one [M, K] x [N, K]^T
+    product: each operand read once, the 4-byte result written once."""
+    nbytes = (2 if bf16 else 1) * (m * k + n * k) + 4 * m * n
+    ops = 2 * m * n * k
+    t_bytes = nbytes / H100_BYTES_PER_S
+    t_ops = ops / (H100_BF16_OPS_PER_S if bf16 else H100_INT8_OPS_PER_S)
+    return nbytes, ops, 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def _int_mm(a, bt):
+    """The library's s8 x s8 -> s32 product of the same operands:
+    `torch._int_mm` takes N only in multiples of 8, so Bt gets zero rows."""
+    import torch
+
+    n = bt.shape[0]
+    if n % 8:
+        bt = torch.cat([bt, bt.new_zeros((8 - n % 8, bt.shape[1]))])
+    return lambda: torch._int_mm(a, bt.T)[:, :n]
+
+
+def phase_int8_gemm() -> None:
+    """`int8_gemm` at the TPU probe's shape, (4096, 1792) @ (1792, 256), in
+    both its types: each against its plain version, each timed (CUDA-graph
+    replay) beside the library call -- `torch._int_mm` for s8,
+    `torch.mm(out_dtype=torch.float32)` for bf16 -- with TOP/s, the share of
+    the bound, and the s8/bf16 ratio the probe prints."""
+    import torch
+    from hyperpose_torch.ops.kernels.int8_gemm import int8_gemm, int8_gemm_plain
+    from torch_measures import sum_order
+
+    m, k, n = PROBE_MKN
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    ints = lambda *shape: torch.randint(  # noqa: E731
+        -127, 128, shape, device="cuda", generator=gen, dtype=torch.int16).to(torch.int8)
+    bf = lambda *shape: torch.randn(  # noqa: E731
+        shape, device="cuda", generator=gen).to(torch.bfloat16)
+    out = {}
+    for name, a, bt in (("s8", ints(m, k), ints(n, k)), ("bf16", bf(m, k), bf(n, k))):
+        got, want = int8_gemm(a, bt), int8_gemm_plain(a, bt)
+        if name == "s8":
+            library, lib_name = _int_mm(a, bt), "torch._int_mm"
+            check(bool(torch.equal(got, want)), "int8_gemm s8 differs from its plain version")
+            check(bool(torch.equal(library(), want)), "torch._int_mm differs from the plain version")
+        else:
+            library = lambda: torch.mm(a, bt.T, out_dtype=torch.float32)  # noqa: E731
+            lib_name = "torch.mm(out_dtype=float32)"
+            slack = sum_order(k) * torch.matmul(a.float().abs(), bt.float().abs().T)
+            check(bool(((got - want).abs() <= slack).all()),
+                  "int8_gemm bf16 beyond the float32 sum-order slack of its plain version")
+        torch.cuda.synchronize()
+        nbytes, ops, bound, by = _gemm_work(m, n, k, name == "bf16")
+        row = out[name] = {
+            "max_abs_err": float((got.double() - want.double()).abs().max()),
+            "kernel_ms": device_ms(lambda: int8_gemm(a, bt), reps=50),
+            "plain_ms": device_ms(lambda: int8_gemm_plain(a, bt), reps=10),
+            "library": lib_name, "library_ms": device_ms(library, reps=50),
+            "call_ms": call_ms(lambda: int8_gemm(a, bt)),
+            "bytes": nbytes, "operations": ops, "bound_ms": bound, "bound_by": by,
+        }
+        row.update(tera_ops_per_s=ops / row["kernel_ms"] / 1e9,
+                   library_tera_ops_per_s=ops / row["library_ms"] / 1e9,
+                   share_of_bound=bound / row["kernel_ms"])
+    ratio = {"kernel": out["s8"]["tera_ops_per_s"] / out["bf16"]["tera_ops_per_s"],
+             "library": out["s8"]["library_tera_ops_per_s"]
+             / out["bf16"]["library_tera_ops_per_s"]}
+    emit("int8_gemm", shapes=f"a [{m},{k}] @ bt [{n},{k}]^T -> [{m},{n}] (s8 -> s32, "
+         "bf16 -> f32)", s8_over_bf16=ratio, **out)
+
+
+def _record_int8_inputs(model, forward) -> list:
+    """(Int8Conv2d, its input) for every int8 conv of one `forward()`."""
+    from hyperpose_torch.quant import Int8Conv2d
+
+    seen = []
+    hooks = [m.register_forward_pre_hook(lambda mod, args: seen.append((mod, args[0])))
+             for m in model.modules() if isinstance(m, Int8Conv2d)]
+    try:
+        forward()
+    finally:
+        for h in hooks:
+            h.remove()
+    return seen
+
+
+def _convs_card_vs_cpu(seen, key: str) -> int:
+    """Every int8 conv of one step, run on the card, equals a CPU copy of
+    it on the same input: quantize, im2col, GEMM and the dequantize + bias
+    epilogue, exactly. The first image of the batch stands for the batch
+    (each output row depends on its own image only), to keep the CPU's
+    share short. Returns the number of convs compared."""
+    import torch
+
+    for i, (conv, x) in enumerate(seen):
+        want = copy.deepcopy(conv).cpu()(x[:1].cpu())
+        got = conv(x)[:1].cpu()
+        check(got.dtype == want.dtype and bool(torch.equal(got, want)),
+              f"int8 {key}: conv {i} ({tuple(x.shape)} -> {tuple(want.shape)}) differs "
+              f"on the card from the CPU by up to {float((got.float() - want.float()).abs().max())}")
+    return len(seen)
+
+
+def _int8_breakdown(seen) -> tuple[dict, list]:
+    """Device ms of the int8 convs' four stages over one step, each summed
+    over every conv (one CUDA graph per stage replays it for all of them),
+    and every conv's GEMM operands."""
+    from hyperpose_torch.ops.kernels.int8_gemm import int8_gemm
+
+    xps = [c.quantize(x) for c, x in seen]
+    cols = [c.im2col(xp) for (c, _), xp in zip(seen, xps)]
+    accs = [int8_gemm(a, c.w_q) for (c, _), a in zip(seen, cols)]
+    outs = [(x.shape[0], *c.out_hw(*x.shape[2:]), x.dtype) for c, x in seen]
+    stages = {
+        "quantize": lambda: [c.quantize(x) for c, x in seen],
+        "im2col": lambda: [c.im2col(xp) for (c, _), xp in zip(seen, xps)],
+        "gemm": lambda: [int8_gemm(a, c.w_q) for (c, _), a in zip(seen, cols)],
+        "epilogue": lambda: [c.dequantize(acc, *o) for (c, _), acc, o in zip(seen, accs, outs)],
+    }
+    ms = {f"{k}_device_ms": device_ms(fn, reps=2, replays=2) for k, fn in stages.items()}
+    return ms, [(a, c.w_q) for (c, _), a in zip(seen, cols)]
+
+
+def _main_path_gemms(operands) -> dict:
+    """`int8_gemm` at the shapes one step gives it: each against its plain
+    version (exact) and against `torch._int_mm`; the step's GEMMs timed
+    together (kernel, plain, library) beside the sum of their bounds."""
+    import torch
+    from hyperpose_torch.ops.kernels.int8_gemm import int8_gemm, int8_gemm_plain
+
+    libs = [_int_mm(a, bt) for a, bt in operands]
+    for (a, bt), lib in zip(operands, libs):
+        want = int8_gemm_plain(a, bt)
+        check(bool(torch.equal(int8_gemm(a, bt), want)),
+              f"int8_gemm differs from its plain version at {tuple(a.shape)} x {tuple(bt.shape)}")
+        check(bool(torch.equal(lib(), want)), "torch._int_mm differs from the plain version")
+    work = [_gemm_work(a.shape[0], bt.shape[0], a.shape[1], False) for a, bt in operands]
+    t_bytes = sum(w[0] for w in work) / H100_BYTES_PER_S
+    t_ops = sum(w[1] for w in work) / H100_INT8_OPS_PER_S
+    return {
+        "gemms": len(operands),
+        "shapes_mnk": [[a.shape[0], bt.shape[0], a.shape[1]] for a, bt in operands],
+        "max_abs_err": 0.0,
+        "ms": device_ms(lambda: [int8_gemm(a, bt) for a, bt in operands], reps=3, replays=3),
+        "plain_ms": device_ms(lambda: [int8_gemm_plain(a, bt) for a, bt in operands],
+                              reps=1, replays=2),
+        "library_ms": device_ms(lambda: [lib() for lib in libs], reps=3, replays=3),
+        "bytes": sum(w[0] for w in work), "operations": sum(w[1] for w in work),
+        "bound_ms": sum(w[2] for w in work),
+        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+    }
+
+
+def phase_int8_end_to_end(frames, card) -> tuple[dict, dict]:
+    """The int8 serving path: `quantize_engine` calibrated on the 8 frames,
+    for each flagship form in f32 (TF32 off) and bf16 and for PifPaf in
+    bf16; the main path once with its kernel counts (every conv launches
+    `int8_gemm`; the fused stem `conv1_pool`, PifPaf `fused_grow`), then step
+    / network / decode timings and the int8 convs' quantize / im2col / GEMM /
+    epilogue device times. Every int8 conv of a step equals a CPU copy of it
+    on the same input. The int8 f32 flagship finds the float engine's 2
+    people on the synthetic frame and agrees with the same int8 engine on
+    the CPU. Returns the kernel row of `int8_gemm` at the shapes of the
+    bf16 plain-stem flagship's step, and that path's launch counts."""
+    import torch
+    from torch import nn
+    from hyperpose_torch.models.pifpaf import Pifpaf
+    from hyperpose_torch.ops.image import resize_bilinear
+    from hyperpose_torch.ops.paf_decode import paf_decode_batch
+    from hyperpose_torch.ops.pifpaf_decode import PifPafDecoderConfig, pifpaf_decode_batch
+    from hyperpose_torch.quant import quantize_engine
+    from hyperpose_torch.runtime.engine import PoseEngine
+    from hyperpose_torch.utils.weights import random_flax_weights
+
+    batch = torch.from_numpy(
+        np.stack([resize_bilinear(f, INPUT_HW) for f in frames])).cuda()
+    cases = [(stem, name, dtype) for stem in ("plain", "s2d", "fused")
+             for name, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16))]
+    cases.append(("pifpaf", "bf16", torch.bfloat16))
+    timing, row = {}, None
+    for stem, name, dtype in cases:
+        key = f"{stem}_{name}"
+        if stem == "pifpaf":
+            eng = _pifpaf_engine(random_flax_weights(Pifpaf(), seed=0), dtype)
+        else:
+            model, weights = _stem_model(stem, dtype)
+            eng = PoseEngine(model, weights, max_batch_size=BATCH, device="cuda")
+        t0 = time.perf_counter()
+        qeng = quantize_engine(eng, [batch])
+        torch.cuda.synchronize()
+        quantize_s = time.perf_counter() - t0
+        float_humans = eng.inference(frames[:1])[0] if name == "f32" else None
+        del eng
+        torch.cuda.empty_cache()
+        warm_s = qeng.warmup()
+        results, launches = drive(qeng, frames)
+        n_convs = len(qeng.quant_scales)
+        check(n_convs == {"fused": 39, "pifpaf": 55}.get(stem, 40),
+              f"int8 {key}: {n_convs} calibrated convs")
+        check(not any(type(m) is nn.Conv2d for m in qeng.model.modules()),
+              f"int8 {key}: a float conv is left")
+        check(launches["int8_gemm"] == n_convs,
+              f"int8 {key}: int8_gemm launched {launches['int8_gemm']} times, not {n_convs}")
+        check(launches["conv1_pool"] == (stem == "fused"),
+              f"int8 {key}: conv1_pool launches {launches['conv1_pool']}")
+        check((launches["fused_grow"] > 0) == (stem == "pifpaf")
+              and (launches["line_gather"] > 0) == (stem != "pifpaf"),
+              f"int8 {key}: decoder launches {launches}")
+        for res in results:
+            for hm in res:
+                xy = np.array([(p.x, p.y) for p in hm.parts.values()])
+                check(bool(np.isfinite(xy).all() and np.isfinite(hm.score)),
+                      f"int8 {key}: non-finite output")
+        entry = {"quantize_engine_s": quantize_s, "warmup_s": warm_s, "launches": launches,
+                 "humans": [len(r) for r in results],
+                 "scores": [hm.score for hm in results[0]]}
+        if float_humans is not None:
+            found = find_people(float_humans, results[0])
+            check(found is not None and found <= INT8_TOL["xy"],
+                  f"int8 {key}: the float engine's people are not found: int8 parts "
+                  f"{[sorted(g.parts) for g in results[0]]}, float "
+                  f"{[sorted(w.parts) for w in float_humans]}")
+            entry.update(float_scores=[w.score for w in float_humans],
+                         max_abs_dxy_vs_float=found)
+        if key == "plain_f32":
+            # The same int8 engine (one scale table) on the CPU: it finds the
+            # float engine's people too, and its maps lie within the int8
+            # noise of the card's.
+            cpu = PoseEngine(*_stem_model("plain", torch.float32), max_batch_size=1,
+                             device="cpu", quant_scales=qeng.quant_scales)
+            want = cpu.inference(frames[:1])[0]
+            found = find_people(float_humans, want)
+            check(found is not None and found <= INT8_TOL["xy"],
+                  "int8 plain f32 on the CPU: the float engine's people are not found")
+            with torch.inference_mode():
+                x1 = batch[:1].to(dtype) / 255.0
+                m_cpu, m_card = cpu.model(x1.cpu()), qeng.model(x1)
+            rel = max(float((m_card[k].cpu() - m_cpu[k]).abs().max() / m_cpu[k].abs().max())
+                      for k in ("conf_map", "paf_map"))
+            check(rel <= INT8_TOL["maps"],
+                  f"int8 plain f32, card vs CPU maps: max |d| / max |v| = {rel}")
+            entry.update(cpu_scores=[w.score for w in want], cpu_max_abs_dxy_vs_float=found,
+                         maps_vs_cpu_max_rel=rel)
+            del cpu, m_cpu, m_card
+
+        def network():
+            return qeng.model(batch.to(dtype) / 255.0)
+
+        with torch.inference_mode():
+            maps = network()
+            if stem == "pifpaf":
+                cfg = PifPafDecoderConfig()
+                decode = lambda: pifpaf_decode_batch(maps, cfg, 8, INPUT_HW)  # noqa: E731
+            else:
+                conf = maps["conf_map"].float()
+                paf = maps["paf_map"].float()
+                decode = lambda: paf_decode_batch(conf, paf, qeng.decoder)  # noqa: E731
+            stages = {"step": lambda: qeng.infer_batch_device(batch),
+                      "network": network, "decode": decode}
+            for stage, fn in stages.items():
+                entry[f"{stage}_ms"], entry[f"{stage}_p80_ms"] = wall_ms(fn, iters=10)
+                busy, kernels = device_busy(fn, iters=3)
+                entry[f"{stage}_device_busy_ms"] = busy
+                entry[f"{stage}_kernels"] = kernels
+            seen = _record_int8_inputs(qeng.model, network)
+            entry["convs_equal_to_cpu"] = _convs_card_vs_cpu(seen, key)
+            check(entry["convs_equal_to_cpu"] == n_convs,
+                  f"int8 {key}: {entry['convs_equal_to_cpu']} convs ran in one step, not {n_convs}")
+            breakdown, operands = _int8_breakdown(seen)
+            del seen
+            entry.update(breakdown)
+            if key == "plain_bf16":
+                row = _main_path_gemms(operands)
+            del operands
+        entry.update(frames_per_s=1e3 * BATCH / entry["step_ms"],
+                     device_idle_share=1.0 - entry["step_device_busy_ms"] / entry["step_ms"])
+        timing[key] = entry
+        del qeng, maps, results
+        torch.cuda.empty_cache()
+    emit("int8_end_to_end", card=card, input="x".join(map(str, INPUT_HW)), batch=BATCH,
+         tf32=False, wall_samples=10, calibration="the 8 frames of the batch",
+         tolerance=INT8_TOL,
+         main_path_gemms={k: v for k, v in row.items() if k != "shapes_mnk"},
+         main_path_gemm_shapes_mnk=row["shapes_mnk"], **timing)
+    return {"name": "int8_gemm", "route": "cuda", "source": "hyperpose_torch/csrc/int8_gemm.cu",
+            "replaces": "scripts/probe_int8_pallas.py:40",
+            **{k: row[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                                   "library_ms")}}, timing["plain_bf16"]["launches"]
+
+
 def main() -> None:
     import torch
 
@@ -1038,19 +1380,26 @@ def main() -> None:
     phase_pifpaf_decode(card)
     pifpaf, fields32 = phase_pifpaf_end_to_end(frames, card)
     rows.append(phase_grow(fields32))
+    t_int8 = time.perf_counter()
+    phase_int8_gemm()
+    int8_row, int8_path = phase_int8_end_to_end(frames, card)
+    rows.append(int8_row)
+    t_int8 = time.perf_counter() - t_int8
     # Each kernel's launches on its own path: the plain-stem f32 engine for
     # the PAF decoder kernels, the bf16 fused-stem engine for conv1_pool, the
     # use_pallas_peaks decode for peak_candidates, the f32 PifPaf engine for
-    # grow; stem_gemm (on no path) in its own phase.
+    # grow, the int8 bf16 plain-stem engine for int8_gemm; stem_gemm (on no
+    # path) in its own phase.
     launches = {**paths["plain_f32"],
                 "conv1_pool": paths["fused_bf16"]["conv1_pool"],
                 "peak_candidates": pallas_peaks["peak_candidates"],
-                "grow": pifpaf["fused_grow"], "stem_gemm": gemm_launches}
+                "grow": pifpaf["fused_grow"], "stem_gemm": gemm_launches,
+                "int8_gemm": int8_path["int8_gemm"]}
     for row in rows:
         row["launches"] = launches[row["name"]]
         check(row["launches"] > 0, f"{row['name']} was not launched on its path")
-    check(len(rows) == 6, f"{len(rows)} kernel rows")
-    emit("total", seconds=time.perf_counter() - t0)
+    check(len(rows) == 7, f"{len(rows)} kernel rows")
+    emit("total", seconds=time.perf_counter() - t0, int8_phases_seconds=t_int8)
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -97,7 +97,9 @@ def pifpaf_fused_decode(
     `stride` defaults to input height // field height and `in_hw` to the
     input size, as the JAX package derives them from its config
     (`get_postprocessor`: stride = hin // hout). Puts `model` in eval mode:
-    the step is inference (BatchNorm on its running statistics)."""
+    the step is inference (BatchNorm on its running statistics). The step's
+    `rebuild(other_model)` makes the same step on another model object (the
+    int8 clone `quant.quantize_engine` makes)."""
     model.eval()
 
     @torch.inference_mode()
@@ -107,4 +109,5 @@ def pifpaf_fused_decode(
         s = stride or hw[0] // out["pif_conf"].shape[1]
         return pifpaf_decode_batch(out, cfg, s, hw, topology)
 
+    fused.rebuild = lambda other: pifpaf_fused_decode(other, cfg, stride, in_hw, topology)
     return fused

@@ -20,7 +20,7 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parents[2] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "hyperpose_torch"
-KERNELS = ("line_gather", "peak_topk", "conv1_pool", "grow")
+KERNELS = ("line_gather", "peak_topk", "conv1_pool", "grow", "int8_gemm")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",

@@ -1,0 +1,326 @@
+"""Post-training int8 quantization for serving on the GPU.
+
+Counterpart of `hyperpose_tpu/quant.py` (reference: export_tflite.py:29-41,
+int8 TFLite calibrated on a representative dataset): symmetric int8 with a
+per-tensor activation scale and a per-output-channel weight scale, every
+calibrated convolution run as s8 x s8 -> s32. PyTorch has no int8
+convolution on CUDA, so `Int8Conv2d` runs each one as an int8 im2col and the
+hand-written GEMM `ops/kernels/int8_gemm.py`, then dequantizes and adds the
+bias in float32.
+
+Scale tables are keyed by the flax module path of each conv, which is the
+port's module name with "." -> "/" (the weight bridge relies on the names
+matching), so a table calibrated by either package serves both, and the
+int8 artifact (`export_quantized`) has the JAX package's npz format.
+
+Usage::
+
+    qeng = quantize_engine(engine, [frames_u8])   # a new, int8 engine
+    # or: PoseEngine(model, weights, quant_scales=scales)
+"""
+from __future__ import annotations
+
+import copy
+import json
+from typing import Callable, Iterable
+
+import numpy as np
+import torch
+from torch import nn
+
+from .ops.kernels.int8_gemm import int8_gemm
+from .utils.weights import read_flax_weights, state_dict_to_flax
+
+Skip = Callable[[str], bool]
+
+
+def _pair(v) -> tuple[int, int]:
+    return (v, v) if isinstance(v, int) else tuple(v)
+
+
+def weight_scales(kernel) -> tuple[np.ndarray, np.ndarray]:
+    """A float32 HWIO kernel [kh, kw, cin, cout] -> (w_q int8 HWIO, s_w
+    float32 [cout]): s_w = max(max |k| over H, W, I, 1e-8) / 127 and
+    w_q = clip(round(k / s_w), -127, 127), in float32 with ties to even, as
+    the JAX package quantizes (`quant.py:133-137`, `:227-230`)."""
+    k = np.asarray(kernel, np.float32)
+    s_w = np.maximum(np.abs(k).max(axis=(0, 1, 2)), np.float32(1e-8)) / np.float32(127.0)
+    w_q = np.clip(np.round(k / s_w), -127, 127).astype(np.int8)
+    return w_q, s_w.astype(np.float32)
+
+
+class Int8Conv2d(nn.Module):
+    """A calibrated `nn.Conv2d` in int8: the counterpart of JAX
+    `_quantized_conv` (`quant.py:127-157`).
+
+    Holds w_q as the GEMM's Bt [cout, K] int8 with K = (dy, dx, cin) in HWIO
+    order, zero-padded to a multiple of 32; the float32 per-channel scale
+    s_w; the float32 bias; the conv's stride, padding and dilation. The
+    forward runs four stages, each a method, so a caller can time them:
+
+    1. `quantize`: x * float32(1 / s_in), rounded half to even, clipped to
+       +-127, written as int8 into a zero-padded channels-last buffer;
+    2. `im2col`: one copy of a strided view of that buffer into [M, K]
+       (rows (b, y, x)); a 1x1 stride-1 conv without padding uses the
+       buffer itself;
+    3. `int8_gemm`: s8 x s8 -> s32 [M, cout];
+    4. `dequantize`: y * (s_w * float32(s_in)) + bias in float32, cast to the
+       input's dtype, returned as the NCHW view of [M, cout] (channels-last
+       memory, no transposing copy).
+
+    On a CUDA tensor the GEMM runs the kernel or raises: there is no float
+    fallback."""
+
+    def __init__(self, w_q: np.ndarray, s_w: np.ndarray, bias, s_in: float,
+                 stride=1, padding=0, dilation=1):
+        super().__init__()
+        kh, kw, cin, cout = w_q.shape
+        self.kernel_size, self.in_channels, self.out_channels = (kh, kw), cin, cout
+        self.stride, self.padding = _pair(stride), _pair(padding)
+        self.dilation = _pair(dilation)
+        self.s_in = float(s_in)
+        self.inv_s = float(np.float32(1.0 / self.s_in))
+        k = kh * kw * cin
+        wt = np.zeros((cout, -(-k // 32) * 32), np.int8)
+        wt[:, :k] = np.asarray(w_q, np.int8).transpose(3, 0, 1, 2).reshape(cout, k)
+        s_w = np.asarray(s_w, np.float32)
+        self.register_buffer("w_q", torch.from_numpy(wt))
+        self.register_buffer("s_w", torch.from_numpy(s_w.copy()))
+        self.register_buffer("dq", torch.from_numpy(s_w * np.float32(self.s_in)))
+        self.register_buffer("bias", None if bias is None else
+                             torch.from_numpy(np.array(bias, np.float32)))
+        self.direct = (kh, kw) == (1, 1) and self.stride == (1, 1) \
+            and self.padding == (0, 0)
+
+    @classmethod
+    def from_conv(cls, conv: nn.Conv2d, kernel, bias, s_abs: float) -> "Int8Conv2d":
+        """Replace `conv`, whose float32 weights are `kernel` (flax HWIO)
+        and `bias` (or None), calibrated to input abs-max `s_abs`."""
+        if conv.groups != 1:
+            raise NotImplementedError(
+                "grouped and depthwise int8 convolutions are not ported yet; "
+                "they come with the MobileNet backbones: ROADMAP Queue 1 #7")
+        if isinstance(conv.padding, str) or conv.padding_mode != "zeros":
+            raise NotImplementedError(
+                f"Int8Conv2d takes explicit zero padding, not {conv.padding!r} "
+                f"({conv.padding_mode})")
+        kernel = np.asarray(kernel, np.float32)
+        if kernel.shape != tuple(conv.weight.shape[i] for i in (2, 3, 1, 0)):
+            raise ValueError(f"kernel {kernel.shape} does not fit the conv's "
+                             f"weight {tuple(conv.weight.shape)}")
+        w_q, s_w = weight_scales(kernel)
+        q = cls(w_q, s_w, bias, s_abs / 127.0, conv.stride, conv.padding,
+                conv.dilation)
+        return q.to(conv.weight.device)
+
+    def out_hw(self, h: int, w: int) -> tuple[int, int]:
+        return tuple(
+            (n + 2 * p - d * (k - 1) - 1) // s + 1 for n, p, d, k, s in zip(
+                (h, w), self.padding, self.dilation, self.kernel_size, self.stride))
+
+    def quantize(self, x: torch.Tensor) -> torch.Tensor:
+        """NCHW x -> int8 [B, H + 2ph, W + 2pw, C'] with zero borders; C' is
+        C, or on the direct path the GEMM's padded K."""
+        b, c, h, w = x.shape
+        if c != self.in_channels:
+            raise ValueError(f"Int8Conv2d: {c} input channels, expected {self.in_channels}")
+        ph, pw = self.padding
+        cb = self.w_q.shape[1] if self.direct else c
+        shape = (b, h + 2 * ph, w + 2 * pw, cb)
+        pad = ph or pw or cb > c
+        xp = (torch.zeros if pad else torch.empty)(shape, dtype=torch.int8, device=x.device)
+        q = x.to(torch.float32, copy=True).mul_(self.inv_s).round_().clamp_(-127, 127)
+        xp[:, ph:ph + h, pw:pw + w, :c] = q.permute(0, 2, 3, 1)
+        return xp
+
+    def im2col(self, xp: torch.Tensor) -> torch.Tensor:
+        """The quantized buffer -> the GEMM's A [B*Ho*Wo, K] int8, columns
+        (dy, dx, c) zero-padded to the width of w_q."""
+        b, hp, wp, c = xp.shape
+        if self.direct:
+            return xp.view(b * hp * wp, c)
+        (kh, kw), (sh, sw), (dh, dw) = self.kernel_size, self.stride, self.dilation
+        ho, wo = self.out_hw(hp - 2 * self.padding[0], wp - 2 * self.padding[1])
+        k, kp = kh * kw * c, self.w_q.shape[1]
+        s = xp.stride()
+        windows = xp.as_strided((b, ho, wo, kh, kw, c),
+                                (s[0], sh * s[1], sw * s[2], dh * s[1], dw * s[2], 1))
+        a = torch.empty((b * ho * wo, kp), dtype=torch.int8, device=xp.device)
+        if kp > k:
+            a[:, k:] = 0
+        a[:, :k].view(b, ho, wo, kh, kw, c).copy_(windows)
+        return a
+
+    def dequantize(self, acc: torch.Tensor, b: int, ho: int, wo: int,
+                   dtype: torch.dtype) -> torch.Tensor:
+        """s32 [M, cout] -> the NCHW view [B, cout, Ho, Wo] in `dtype`."""
+        y = acc.to(torch.float32).mul_(self.dq)
+        if self.bias is not None:
+            y.add_(self.bias)
+        return y.to(dtype).view(b, ho, wo, -1).permute(0, 3, 1, 2)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        b, _, h, w = x.shape
+        ho, wo = self.out_hw(h, w)
+        acc = int8_gemm(self.im2col(self.quantize(x)), self.w_q)
+        return self.dequantize(acc, b, ho, wo, x.dtype)
+
+
+# -- calibration ------------------------------------------------------------------
+
+def _conv_path(name: str) -> str:
+    return name.replace(".", "/")
+
+
+def calibrate(model: nn.Module, batches: Iterable, forward: Callable | None = None
+              ) -> dict[str, float]:
+    """Run `forward(batch)` (default `model(batch)`) on each batch,
+    recording the abs-max (in float32) of every `nn.Conv2d` input by forward
+    pre-hooks. Returns {flax module path: absmax}, the activation scale table
+    (JAX `calibrate`, `quant.py:67-83`)."""
+    stats: dict[str, torch.Tensor] = {}
+
+    def observer(path):
+        def hook(_module, args):
+            amax = args[0].detach().to(torch.float32).abs().amax()
+            stats[path] = amax if path not in stats else torch.maximum(stats[path], amax)
+        return hook
+
+    hooks = [m.register_forward_pre_hook(observer(_conv_path(name)))
+             for name, m in model.named_modules() if isinstance(m, nn.Conv2d)]
+    try:
+        with torch.inference_mode():
+            for batch in batches:
+                (forward or model)(batch)
+    finally:
+        for h in hooks:
+            h.remove()
+    return {k: float(v) for k, v in stats.items()}
+
+
+def calibrate_engine(engine, batches_u8: Iterable) -> dict[str, float]:
+    """Calibrate through a `PoseEngine`'s own forward: uint8 [B, H, W, 3]
+    batches, /255 in the model dtype for the PAF family, the engine's
+    `fused_decode` for PifPaf (JAX `calibrate_engine`, `quant.py:86-102`)."""
+
+    def forward(b):
+        x = torch.as_tensor(b).to(engine.device)
+        if engine.fused_decode is not None:
+            engine.fused_decode(x)
+        else:
+            engine.model(x.to(engine.dtype) / 255.0)
+
+    return calibrate(engine.model, batches_u8, forward)
+
+
+# -- quantized model and engine -----------------------------------------------------
+
+def quantize_model(model: nn.Module, scales: dict[str, float],
+                   skip: Skip | None = None, weights=None) -> nn.Module:
+    """Swap, in place, every `nn.Conv2d` of `model` whose path has a nonzero
+    scale and is not skipped for an `Int8Conv2d` (JAX `make_interceptor` /
+    `quantized_apply`, `quant.py:160-199`); returns `model`.
+
+    The weights are quantized from float32 values, as JAX quantizes its
+    float32 parameters: `weights` (flax layout, anything `read_flax_weights`
+    takes), or the model's own when every conv weight is float32. A bf16
+    model without `weights` raises instead of quantizing rounded weights."""
+    convs = [(name, m) for name, m in model.named_modules() if isinstance(m, nn.Conv2d)
+             and scales.get(_conv_path(name)) and not (skip and skip(_conv_path(name)))]
+    if not convs:
+        return model
+    if weights is not None:
+        flat = read_flax_weights(weights)
+    elif all(m.weight.dtype == torch.float32 for _, m in convs):
+        flat = state_dict_to_flax(model.state_dict())
+    else:
+        raise ValueError(
+            "quantizing a model whose weights are not float32 needs its float32 "
+            "flax-layout weights (give the engine `variables`): the JAX package "
+            "quantizes the float32 checkpoint, not rounded weights")
+    for name, conv in convs:
+        path = _conv_path(name)
+        kernel = flat[f"params/{path}/kernel"]
+        bias = None if conv.bias is None else flat[f"params/{path}/bias"]
+        parent_name, _, attr = name.rpartition(".")
+        parent = model.get_submodule(parent_name) if parent_name else model
+        setattr(parent, attr, Int8Conv2d.from_conv(conv, kernel, bias, scales[path]))
+    return model
+
+
+def quantize_engine(engine, batches_u8: Iterable, skip: Skip | None = None):
+    """Calibrate on representative uint8 batches and return an int8 clone of
+    the engine (JAX `quantize_engine`, `quant.py:105-120`): the same
+    weights, decoder and options on a deep copy of the model, every
+    calibrated conv in int8. The original engine is untouched.
+
+    A `fused_decode` closes over its model, so it must carry a
+    `rebuild(model)` attribute that makes the same step on the clone
+    (`pifpaf_fused_decode` does)."""
+    from .runtime.engine import PoseEngine
+
+    scales = calibrate_engine(engine, batches_u8)
+    if skip is not None:
+        scales = {k: v for k, v in scales.items() if not skip(k)}
+    model = copy.deepcopy(engine.model)
+    fused = engine.fused_decode
+    if fused is not None:
+        if not hasattr(fused, "rebuild"):
+            raise ValueError("quantize_engine: the engine's fused_decode has no "
+                             "rebuild(model) to make its step on the int8 clone")
+        fused = fused.rebuild(model)
+    return PoseEngine(
+        model, engine.variables, input_hw=engine.input_hw,
+        max_batch_size=engine.max_batch_size, decoder=engine.decoder,
+        topology=engine.topology, keep_ratio=engine.keep_ratio,
+        fused_decode=fused, quant_scales=scales,
+        input_format=engine.input_format, device=engine.device,
+    )
+
+
+# -- export (int8 weights + scale table, the JAX package's npz format) -------------
+
+def _keystr(flat_key: str) -> str:
+    """"params/a/conv/kernel" -> "['params']['a']['conv']['kernel']", the
+    text `jax.tree_util.keystr` gives the same leaf of a nested dict."""
+    return "".join(f"[{k!r}]" for k in flat_key.split("/"))
+
+
+def export_quantized(variables, scales: dict[str, float], path: str) -> str:
+    """Save an int8 serving artifact (JAX `export_quantized`,
+    `quant.py:206-239`): each calibrated conv kernel as `q::<path>::w_q`
+    (int8 HWIO) and `q::<path>::s_w`, every float leaf as `f::` + its
+    `keystr`, the scale table as JSON bytes in `__scales__`; compressed npz.
+    Each package loads the other's artifact. The weights come from
+    `variables` (flax layout, anything `read_flax_weights` takes), so no
+    model is needed."""
+    flat = read_flax_weights(variables)
+    out: dict[str, np.ndarray] = {}
+    for p, amax in scales.items():
+        if not amax:
+            continue
+        out[f"q::{p}::w_q"], out[f"q::{p}::s_w"] = weight_scales(flat[f"params/{p}/kernel"])
+    for k, v in flat.items():
+        out["f::" + _keystr(k)] = np.asarray(v)
+    out["__scales__"] = np.frombuffer(json.dumps(scales).encode(), dtype=np.uint8)
+    np.savez_compressed(path, **out)
+    return path
+
+
+def load_quantized(path: str) -> tuple[dict[str, float], dict[str, np.ndarray]]:
+    """The int8 artifact: (activation scale table, flat tensor dict keyed as
+    `export_quantized` writes)."""
+    with np.load(path) as z:
+        scales = json.loads(bytes(z["__scales__"]).decode())
+        tensors = {k: z[k] for k in z.files if k != "__scales__"}
+    return scales, tensors
+
+
+def dequantized_params(variables, tensors: dict[str, np.ndarray]) -> dict[str, np.ndarray]:
+    """A new flat flax-layout weight dict: `variables` with each quantized
+    conv kernel replaced by s_w * w_q, which re-quantizes to the same w_q."""
+    flat = {k: np.array(v) for k, v in read_flax_weights(variables).items()}
+    for p in {k.split("::")[1] for k in tensors if k.startswith("q::")}:
+        flat[f"params/{p}/kernel"] = (tensors[f"q::{p}::w_q"].astype(np.float32)
+                                      * tensors[f"q::{p}::s_w"])
+    return flat

@@ -18,10 +18,11 @@ from torch import nn
 
 from ..ops.image import letterbox_resize, resize_bilinear, rgb_to_yuv420, yuv420_to_rgb
 from ..ops.paf_decode import DecodedSkeletons, PafDecoderConfig, paf_decode_batch
+from ..quant import quantize_model
 from ..utils import tracing
 from ..utils.human import Human, SkeletonBatch
 from ..utils.topology import COCO_TOPOLOGY, Topology
-from ..utils.weights import load_flax_weights
+from ..utils.weights import load_flax_weights, read_flax_weights
 
 
 @dataclasses.dataclass
@@ -77,12 +78,13 @@ class PoseEngine:
         output sizes are learnt by `warmup()`, which the packed path needs.
         input_format: "rgb8" (uint8 [B,H,W,3]) or "yuv420" (planar I420
         uint8 [B,H*3/2,W]; the device reconstructs RGB).
+        quant_scales: an activation scale table (`quant.calibrate_engine`,
+        or the JAX package's): every calibrated conv of `model` is swapped for
+        an `Int8Conv2d` (s8 x s8 -> s32 on the card's int8 GEMM kernel),
+        quantized from the float32 `variables`, which the engine keeps as
+        `self.variables`. `quant.quantize_engine` builds such an engine on a
+        copy of another engine's model.
         device: where the step runs; the CPU only when asked for."""
-        if quant_scales is not None:
-            raise NotImplementedError(
-                "quant_scales (int8 serving) is not ported yet: ROADMAP "
-                "Queue 1 #14"
-            )
         if input_format not in ("rgb8", "yuv420"):
             raise ValueError(f"unknown input_format {input_format!r}")
         if input_format == "yuv420" and (input_hw[0] % 4 or input_hw[1] % 2):
@@ -90,8 +92,12 @@ class PoseEngine:
                 f"yuv420 infeed needs H%4==0 and W%2==0; got {input_hw}"
             )
         self.device = torch.device(device)
-        if variables is not None:
-            load_flax_weights(model, variables)
+        self.variables = None if variables is None else read_flax_weights(variables)
+        if self.variables is not None:
+            load_flax_weights(model, self.variables)
+        self.quant_scales = dict(quant_scales) if quant_scales else None
+        if self.quant_scales is not None:
+            quantize_model(model, self.quant_scales, weights=self.variables)
         model = model.to(self.device).eval()
         if self.device.type == "cuda":
             model = model.to(memory_format=torch.channels_last)

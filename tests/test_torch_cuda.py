@@ -22,16 +22,20 @@ CPU sum the f32 convs in other orders). The grow kernel equals its plain
 version exactly (same float32 steps, no FMA contraction, accurate expf);
 PifPaf decodes are compared as sets of humans (duplicates of equal score
 may take other slots), coords and scores atol 1e-5 for painted fields and
-1e-4 behind the f32 network.
+1e-4 behind the f32 network. int8_gemm s8 equals its plain version
+exactly, bf16 within the float32 sum-order slack at its depth
+(torch_measures.sum_order); Int8Conv2d on the card equals the CPU; the int8
+engines agree with the CPU within their int8 noise (chip_smoke.INT8_TOL;
+see the test).
 """
 import numpy as np
 import pytest
 import torch
 
 from torch_parity import FLAGSHIP_NPZ, SYNTH_NPZ, tie_maps
-from torch_measures import SUM_ORDER, bf16_ulps
+from torch_measures import SUM_ORDER, bf16_ulps, sum_order
 from chip_smoke import (
-    TWO_PEOPLE, _numpy, human_deltas, make_synthetic_maps,
+    INT8_TOL, TWO_PEOPLE, _numpy, find_people, human_deltas, make_synthetic_maps,
     painted_pifpaf_batch,
 )
 from hyperpose_torch.models.backbones import VggTinyFusedStem, remap_vggtiny_to_fused
@@ -43,11 +47,13 @@ from hyperpose_torch.ops.kernels.conv1_pool import (
     conv1_pool, conv1_pool_plain, stem_gemm, stem_gemm_plain,
 )
 from hyperpose_torch.ops.kernels.grow import fused_grow, fused_grow_plain
+from hyperpose_torch.ops.kernels.int8_gemm import int8_gemm, int8_gemm_plain
 from hyperpose_torch.ops.kernels.line_gather import line_gather, line_gather_plain
 from hyperpose_torch.ops.kernels.peak_topk import (
     peak_candidates, peak_candidates_plain, peak_topk, peak_topk_plain,
 )
 from hyperpose_torch.ops.paf_decode import PafDecoderConfig, paf_decode_batch
+from hyperpose_torch.quant import Int8Conv2d, calibrate_engine
 from hyperpose_torch.runtime.engine import PoseEngine
 from hyperpose_torch.utils.topology import COCO_TOPOLOGY, PIFPAF_TOPOLOGY
 from hyperpose_torch.utils.weights import random_flax_weights
@@ -267,6 +273,128 @@ def test_fused_stem_engine_on_card_matches_cpu(cuda):
                                rtol=0, atol=1e-4)
     torch.testing.assert_close(out["cuda"]["scores"], out["cpu"]["scores"],
                                rtol=0, atol=1e-3)
+
+
+# -- int8 serving: the GEMM, Int8Conv2d and the int8 engine ------------------------
+
+@pytest.mark.parametrize("k", [32, 192, 1824, 3456])
+@pytest.mark.parametrize("n", [19, 38, 200, 256])
+@pytest.mark.parametrize("m", [1, 17, 4099])
+def test_int8_gemm_matches_plain(cuda, m, n, k):
+    """s8 x s8 -> s32 equals the exact float64 product at the M, N and K
+    tails the convolutions give it (N odd: scalar stores; K = 1824: a
+    partial last slice)."""
+    rng = np.random.default_rng(m * n + k)
+    a = torch.from_numpy(rng.integers(-127, 128, (m, k)).astype(np.int8)).to(cuda)
+    bt = torch.from_numpy(rng.integers(-127, 128, (n, k)).astype(np.int8)).to(cuda)
+    before = int8_gemm.launches
+    got = int8_gemm(a, bt)
+    want = int8_gemm_plain(a, bt)
+    torch.cuda.synchronize()
+    assert int8_gemm.launches == before + 1
+    assert got.dtype == torch.int32 and got.shape == (m, n)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("m,n,k", [(4096, 256, 1792), (17, 19, 48), (4099, 200, 1824)])
+def test_int8_gemm_bf16_matches_plain(cuda, m, n, k):
+    """bf16 -> f32 at the probe's shape and at tails: within what two
+    float32 sums of the same K products in any order differ by."""
+    rng = np.random.default_rng(k)
+    a = torch.from_numpy(rng.normal(0, 1, (m, k)).astype(np.float32)).to(cuda, torch.bfloat16)
+    bt = torch.from_numpy(rng.normal(0, 1, (n, k)).astype(np.float32)).to(cuda, torch.bfloat16)
+    got = int8_gemm(a, bt)
+    want = int8_gemm_plain(a, bt)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.float32 and got.shape == (m, n)
+    slack = sum_order(k) * torch.matmul(a.float().abs(), bt.float().abs().T)
+    assert bool(((got - want).abs() <= slack).all())
+
+
+def test_int8_gemm_probe_shape_exact(cuda):
+    rng = np.random.default_rng(0)
+    a = torch.from_numpy(rng.integers(-127, 128, (4096, 1792)).astype(np.int8)).to(cuda)
+    bt = torch.from_numpy(rng.integers(-127, 128, (256, 1792)).astype(np.int8)).to(cuda)
+    assert torch.equal(int8_gemm(a, bt), int8_gemm_plain(a, bt))
+
+
+def test_int8_gemm_refuses_what_it_does_not_take(cuda):
+    a = torch.zeros(8, 64, dtype=torch.int8, device=cuda)
+    bt = torch.zeros(4, 64, dtype=torch.int8, device=cuda)
+    with pytest.raises(TypeError):
+        int8_gemm(a, bt.bfloat16())
+    with pytest.raises(TypeError):
+        int8_gemm(a.float(), bt.float())
+    with pytest.raises(ValueError, match="multiple"):
+        int8_gemm(a[:, :48], bt[:, :48])
+    with pytest.raises(ValueError, match="contiguous"):
+        int8_gemm(a[:, 32:], bt[:, 32:])
+    with pytest.raises(ValueError):
+        int8_gemm(a, bt[:, :32])
+    with pytest.raises(ValueError, match="different devices"):
+        int8_gemm(a, bt.cpu())
+
+
+@pytest.mark.parametrize("cin,cout,k,stride,dtype", [
+    (16, 24, 3, 1, torch.float32), (185, 128, 1, 1, torch.float32),
+    (3, 64, 7, 2, torch.float32), (200, 38, 3, 1, torch.bfloat16),
+    (384, 512, 1, 1, torch.bfloat16)])
+def test_int8_conv_on_card_equals_cpu(cuda, cin, cout, k, stride, dtype):
+    """The same Int8Conv2d and channels-last input on the card and on the
+    CPU: the s32 sums are exact and the float32 epilogue is the same IEEE
+    operations, so the outputs are equal."""
+    rng = np.random.default_rng(cin + k)
+    kernel = (rng.normal(0, 1, (k, k, cin, cout)) / np.sqrt(k * k * cin)).astype(np.float32)
+    conv = torch.nn.Conv2d(cin, cout, k, stride=stride, padding=k // 2 if stride == 1 else 0)
+    q = Int8Conv2d.from_conv(conv, kernel, rng.normal(0, 0.1, cout), 2.5)
+    x = torch.from_numpy(rng.normal(0, 1, (2, cin, 23, 27)).astype(np.float32)).to(dtype)
+    before = int8_gemm.launches
+    with torch.inference_mode():
+        got = q.to(cuda)(x.to(cuda).contiguous(memory_format=torch.channels_last))
+        want = q.cpu()(x.contiguous(memory_format=torch.channels_last))
+    torch.cuda.synchronize()
+    assert int8_gemm.launches == before + 1
+    assert got.dtype == dtype and got.shape == want.shape
+    assert torch.equal(got.cpu(), want)
+
+
+def test_int8_engine_on_card_matches_cpu(cuda):
+    """The int8 f32 flagship (one scale table) in the plain and fused forms
+    on the card and on the CPU: every conv launches the GEMM (and the fused
+    stem conv1_pool once); the maps agree within the int8 noise (a last-
+    place difference between the devices' BatchNorms flips roundings that
+    grow through the network: chip_smoke.INT8_TOL), and both engines find
+    the float engine's people."""
+    frame = np.load(SYNTH_NPZ)["rgb"]
+    hw = (368, 432)   # at 184x216 the synthetic people are too weak to survive int8
+    batch = resize_bilinear(frame, hw)[None]
+    for backbone, weights, n_convs in (
+            (None, FLAGSHIP_NPZ, 40),
+            (VggTinyFusedStem, remap_vggtiny_to_fused(FLAGSHIP_NPZ), 39)):
+        kw = {} if backbone is None else {"backbone": backbone}
+        cpu = PoseEngine(LightWeightOpenPose(**kw), weights, input_hw=hw,
+                         max_batch_size=1, device="cpu")
+        people = cpu.inference([frame])[0]
+        assert len(people) == 2
+        scales = calibrate_engine(cpu, [batch])
+        maps = {}
+        for dev in (cuda, torch.device("cpu")):
+            eng = PoseEngine(LightWeightOpenPose(**kw), weights, input_hw=hw,
+                             max_batch_size=1, device=dev, quant_scales=scales)
+            before = int8_gemm.launches, conv1_pool.launches
+            eng.infer_batch_device(batch)
+            on_card = dev.type == "cuda"
+            assert int8_gemm.launches == before[0] + on_card * n_convs
+            assert conv1_pool.launches == before[1] + (on_card and n_convs == 39)
+            found = find_people(people, eng.inference([frame])[0])
+            assert found is not None and found <= INT8_TOL["xy"]
+            with torch.inference_mode():
+                x = torch.from_numpy(batch).to(dev, torch.float32) / 255.0
+                maps[dev.type] = {k: v.cpu() for k, v in eng.model(x).items()
+                                  if k in ("conf_map", "paf_map")}
+        for k, want in maps["cpu"].items():
+            rel = float((maps["cuda"][k] - want).abs().max() / want.abs().max())
+            assert rel <= INT8_TOL["maps"], (k, rel)
 
 
 # -- PifPaf: the grow kernel, the decoder and the engine ------------------------

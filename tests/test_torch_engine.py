@@ -15,7 +15,7 @@ import pytest
 import torch
 
 from test_torch_pifpaf_decode import assert_same_humans
-from torch_parity import FLAGSHIP_NPZ, nest, synth_frame_rgb
+from torch_parity import FLAGSHIP_NPZ, flagship_flat, nest, synth_frame_rgb
 from hyperpose_tpu.models.backbones import VggTiny as JaxVggTiny
 from hyperpose_tpu.models.openpose import LightWeightOpenPose as JaxLwOpenPose
 from hyperpose_tpu.runtime.engine import PoseEngine as JaxPoseEngine
@@ -166,13 +166,37 @@ def test_rejected_arguments():
         _port_engine((66, 72), input_format="yuv420")
     with pytest.raises(ValueError):
         _port_engine((64, 72)).inference([np.zeros((8, 8, 3), np.uint8)] * 2)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        _port_engine((64, 72), quant_scales={"a": 1.0})
+    with pytest.raises(ValueError, match="float32"):   # bf16 weights, no checkpoint
+        PoseEngine(LightWeightOpenPose(dtype=torch.bfloat16), None, input_hw=(64, 72),
+                   max_batch_size=1, device="cpu", quant_scales={"cpm/init": 1.0})
     eng = _port_engine((64, 72))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         eng.save("x")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         PoseEngine.load_executable("x")
+
+
+def test_quant_scales_swap_every_calibrated_conv():
+    """`quant_scales` (JAX `PoseEngine(quant_scales=...)`): every conv with
+    a scale runs in int8, the engine keeps the table and its float32
+    weights, and the step decodes on the CPU through the GEMM's plain
+    version (no launch)."""
+    from hyperpose_torch import quant
+    from hyperpose_torch.ops.kernels.int8_gemm import int8_gemm
+
+    x = torch.from_numpy(resize_bilinear(synth_frame_rgb(), (64, 72))[None])
+    scales = quant.calibrate(LightWeightOpenPose().eval(), [x.float() / 255.0])
+    scales = {k: v for k, v in scales.items() if k != "ref_heads/paf2"}
+    eng = _port_engine((64, 72), quant_scales=scales)
+    convs = {n: type(m) for n, m in eng.model.named_modules()
+             if isinstance(m, (torch.nn.Conv2d, quant.Int8Conv2d))}
+    assert len(convs) == 40 and eng.quant_scales == scales
+    assert convs.pop("ref_heads.paf2") is torch.nn.Conv2d
+    assert all(t is quant.Int8Conv2d for t in convs.values())
+    assert sorted(eng.variables) == sorted(flagship_flat())
+    before = int8_gemm.launches
+    d = eng.infer_batch_device(x.numpy())
+    assert int8_gemm.launches == before and d.coords.shape == (1, 32, 18, 2)
 
 
 # -- PifPaf through fused_decode -------------------------------------------------

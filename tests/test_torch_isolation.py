@@ -40,9 +40,10 @@ def _parse(rel):
 def test_port_has_sources():
     for rel in ("ops/paf_decode.py", "ops/kernels/conv1_pool.py",
                 "runtime/stream.py", "runtime/native/__init__.py",
-                "models/pifpaf.py", "ops/pifpaf_decode.py", "ops/kernels/grow.py"):
+                "models/pifpaf.py", "ops/pifpaf_decode.py", "ops/kernels/grow.py",
+                "quant.py", "ops/kernels/int8_gemm.py"):
         assert f"hyperpose_torch/{rel}" in PORT_FILES
-    assert len(PORT_FILES) >= 21
+    assert len(PORT_FILES) >= 23
 
 
 @pytest.mark.parametrize("rel", PORT_FILES)

@@ -1,0 +1,370 @@
+"""The port's int8 quantization (`hyperpose_torch/quant.py`) and its GEMM
+(`ops/kernels/int8_gemm.py`) against the JAX package's `quant.py` and the
+TPU probe `scripts/probe_int8_pallas.py`, on the CPU.
+
+Tolerances:
+- `int8_gemm_plain` s8 equals the probe's int32 product exactly; bf16 lies
+  within what two float32 sums of the same K products in any order can
+  differ by (torch_measures.sum_order(K) times the sum of their magnitudes).
+- `Int8Conv2d`: its s32 sums equal JAX's int8 conv exactly; its output lies
+  within 1 float32 ulp of `_quantized_conv`'s (bf16: within 1 bf16 ulp).
+- `calibrate`: the same keys as JAX, values within 1e-5 relative (float32
+  activations of the same network summed in another order).
+- quantized networks on the same scale table: the plain f32 network within
+  1 float32 ulp of JAX's; the fused-stem and bf16 ones, where float noise in
+  the layers between the convs may flip an int8 rounding, relative to the
+  maps' largest value (JAX's own int8-vs-float bound is 0.15,
+  tests/test_quant.py:53): 0.1 (measured values in the test).
+- artifacts: keys, w_q and s_w equal; re-quantized outputs within 1e-6.
+"""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+import torch.nn.functional as F
+from flax import linen as fnn
+from jax import lax
+
+from torch_measures import bf16_ulps, sum_order
+from torch_parity import FLAGSHIP_NPZ, flagship_flat, nest, synth_frame_rgb
+from hyperpose_tpu import quant as jquant
+from hyperpose_tpu.models import backbones as JB
+from hyperpose_tpu.models.openpose import LightWeightOpenPose as JaxLwOpenPose
+from hyperpose_torch import quant
+from hyperpose_torch.models.backbones import (
+    VggTiny, VggTinyFusedStem, VggTinyS2DStem, remap_vggtiny_to_fused,
+    remap_vggtiny_to_s2d, same_pads,
+)
+from hyperpose_torch.models.openpose import LightWeightOpenPose
+from hyperpose_torch.ops.image import resize_bilinear
+from hyperpose_torch.ops.kernels.int8_gemm import int8_gemm, int8_gemm_plain
+from hyperpose_torch.utils.weights import load_flax_weights
+
+HW = (64, 80)   # tests/test_quant.py's size
+
+
+# -- the GEMM's plain version against the probe's formulas -------------------------
+
+@pytest.mark.parametrize("m,k,n", [(64, 1792, 256), (17, 32, 19), (5, 3456, 38)])
+def test_int8_gemm_plain_matches_probe_formula(m, k, n):
+    """s8: `jnp.dot(a.astype(int32), b.astype(int32))`
+    (probe_int8_pallas.py:91), exactly."""
+    rng = np.random.default_rng(m + k)
+    a = rng.integers(-127, 128, (m, k)).astype(np.int8)
+    b = rng.integers(-127, 128, (k, n)).astype(np.int8)
+    want = np.asarray(jnp.dot(jnp.asarray(a).astype(jnp.int32),
+                              jnp.asarray(b).astype(jnp.int32)))
+    got = int8_gemm_plain(torch.from_numpy(a), torch.from_numpy(b.T.copy()))
+    assert got.dtype == torch.int32 and tuple(got.shape) == (m, n)
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+def test_int8_gemm_plain_is_exact_at_its_largest_sums():
+    """|sum| = K * 127^2 at the flagship's deepest conv (K = 3456), both
+    signs, and a row chunking that splits M."""
+    k = 3456
+    a = torch.full((3, k), 127, dtype=torch.int8)
+    a[1] = -127
+    bt = torch.full((2, k), 127, dtype=torch.int8)
+    bt[1, ::2] = -127
+    got = int8_gemm_plain(a, bt)
+    big = k * 127 * 127
+    assert got.tolist() == [[big, 0], [-big, 0], [big, 0]]
+
+
+@pytest.mark.parametrize("m,k,n", [(64, 1792, 256), (9, 16, 19)])
+def test_int8_gemm_plain_bf16_matches_probe_formula(m, k, n):
+    """bf16 -> f32: `jnp.dot(a, b, preferred_element_type=float32)`
+    (probe_int8_pallas.py:35-36), within float32 sum-order slack at depth K."""
+    rng = np.random.default_rng(k)
+    a = torch.from_numpy(rng.normal(0, 1, (m, k)).astype(np.float32)).bfloat16()
+    bt = torch.from_numpy(rng.normal(0, 1, (n, k)).astype(np.float32)).bfloat16()
+    want = np.asarray(jnp.dot(jnp.asarray(a.float().numpy(), jnp.bfloat16),
+                              jnp.asarray(bt.float().numpy().T, jnp.bfloat16),
+                              preferred_element_type=jnp.float32))
+    got = int8_gemm_plain(a, bt)
+    assert got.dtype == torch.float32 and tuple(got.shape) == (m, n)
+    slack = sum_order(k) * torch.matmul(a.float().abs(), bt.float().abs().T)
+    assert bool(((got - torch.from_numpy(want.copy())).abs() <= slack).all())
+
+
+def test_int8_gemm_cpu_takes_the_plain_version():
+    a = torch.ones(4, 32, dtype=torch.int8)
+    bt = torch.ones(3, 32, dtype=torch.int8)
+    before = int8_gemm.launches
+    assert torch.equal(int8_gemm(a, bt), int8_gemm_plain(a, bt))
+    assert int8_gemm.launches == before
+    with pytest.raises(ValueError, match="unsupported device"):
+        int8_gemm(a.to("meta"), bt.to("meta"))
+
+
+# -- Int8Conv2d against _quantized_conv ----------------------------------------------
+
+class _OneConv(fnn.Module):
+    features: int
+    kernel: tuple
+    strides: int = 1
+    dtype: jnp.dtype = jnp.float32
+
+    @fnn.compact
+    def __call__(self, x):
+        return fnn.Conv(self.features, self.kernel, strides=self.strides,
+                        padding="SAME", dtype=self.dtype, name="conv")(x)
+
+
+class _PortOneConv(torch.nn.Module):
+    """One conv with XLA's SAME padding: padded in float first at stride 2,
+    as the port's ConvBN does."""
+
+    def __init__(self, cin, cout, k, stride, dtype):
+        super().__init__()
+        self.k, self.stride = k, stride
+        self.conv = torch.nn.Conv2d(cin, cout, k, stride=stride,
+                                    padding=k // 2 if stride == 1 else 0, dtype=dtype)
+
+    def forward(self, x):
+        if self.stride > 1:
+            x = F.pad(x, same_pads(x.shape[-2:], self.k, self.stride))
+        return self.conv(x)
+
+
+CONV_CASES = {   # cin, cout, kernel, stride, input dtype
+    "3x3": (16, 24, 3, 1, "float32"),
+    "1x1": (64, 19, 1, 1, "float32"),
+    "3x3_cin3": (3, 32, 3, 1, "float32"),         # K = 27 -> 32
+    "1x1_cin185": (185, 128, 1, 1, "float32"),    # K = 185 -> 192 (ref_b0.init)
+    "7x7_stride2": (3, 64, 7, 2, "float32"),      # the ResNet50 stem: pads 2, 3
+    "3x3_bf16": (32, 40, 3, 1, "bfloat16"),
+}
+
+
+def _conv_run(case):
+    cin, cout, k, stride, dt = CONV_CASES[case]
+    rng = np.random.default_rng(cin * 7 + k)
+    x = rng.normal(0, 1, (2, *HW, cin)).astype(np.float32)
+    kernel = (rng.normal(0, 1, (k, k, cin, cout)) / np.sqrt(k * k * cin)).astype(np.float32)
+    bias = rng.normal(0, 0.1, cout).astype(np.float32)
+    jdt = jnp.bfloat16 if dt == "bfloat16" else jnp.float32
+    xj = jnp.asarray(x, jdt)
+    s_abs = float(jnp.max(jnp.abs(xj.astype(jnp.float32))))
+    variables = {"params": {"conv": {"kernel": kernel, "bias": bias}}}
+    jmod = _OneConv(cout, (k, k), stride, jdt)
+    want = jquant.quantized_apply(jmod, {"conv": s_abs})(variables, xj)
+    # JAX's s32 sums, from _quantized_conv's own formulas (quant.py:130-153).
+    s_in = s_abs / 127.0
+    s_w = jnp.maximum(jnp.max(jnp.abs(kernel), axis=(0, 1, 2)), 1e-8) / 127.0
+    w_q = jnp.clip(jnp.round(kernel / s_w), -127, 127).astype(jnp.int8)
+    x_q = jnp.clip(jnp.round(xj.astype(jnp.float32) * (1.0 / s_in)), -127, 127
+                   ).astype(jnp.int8)
+    dn = lax.conv_dimension_numbers(x_q.shape, w_q.shape, ("NHWC", "HWIO", "NHWC"))
+    acc_want = lax.conv_general_dilated(x_q, w_q, (stride, stride), "SAME",
+                                        dimension_numbers=dn,
+                                        preferred_element_type=jnp.int32)
+
+    tdt = getattr(torch, dt)
+    model = _PortOneConv(cin, cout, k, stride, tdt).eval()
+    quant.quantize_model(model, {"conv": s_abs},
+                         weights={"params/conv/kernel": kernel, "params/conv/bias": bias})
+    xt = torch.from_numpy(x).to(tdt).permute(0, 3, 1, 2)
+    with torch.inference_mode():
+        got = model(xt)
+        q = model.conv
+        xin = F.pad(xt, same_pads(xt.shape[-2:], k, stride)) if stride > 1 else xt
+        acc = int8_gemm(q.im2col(q.quantize(xin)), q.w_q)
+    return q, got, np.asarray(want.astype(jnp.float32)), acc, np.asarray(acc_want)
+
+
+@pytest.mark.parametrize("case", list(CONV_CASES))
+def test_int8_conv_matches_jax_quantized_conv(case):
+    q, got, want, acc, acc_want = _conv_run(case)
+    assert isinstance(q, quant.Int8Conv2d) and q.w_q.shape[1] % 32 == 0
+    b, ho, wo, cout = acc_want.shape
+    np.testing.assert_array_equal(acc.numpy().reshape(b, ho, wo, cout), acc_want)
+    got = got.permute(0, 2, 3, 1)
+    assert tuple(got.shape) == want.shape
+    if got.dtype == torch.bfloat16:
+        assert bf16_ulps(got, torch.from_numpy(want).bfloat16()) <= 1
+    else:
+        np.testing.assert_array_max_ulp(got.numpy(), want, maxulp=1)
+
+
+def test_int8_conv_output_is_a_channels_last_view():
+    """The NCHW result is the [M, cout] GEMM output seen through a permute:
+    no transposing copy."""
+    q, got, *_ = _conv_run("3x3")
+    assert got.is_contiguous(memory_format=torch.channels_last)
+    assert got.permute(0, 2, 3, 1).is_contiguous()
+
+
+def test_grouped_int8_conv_raises():
+    conv = torch.nn.Conv2d(8, 8, 3, padding=1, groups=4)
+    kernel = np.zeros((3, 3, 2, 8), np.float32)
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 #7"):
+        quant.Int8Conv2d.from_conv(conv, kernel, None, 1.0)
+
+
+# -- calibration ---------------------------------------------------------------------
+
+FORMS = {  # port backbone, port remap, JAX backbone, JAX remap
+    "plain": (VggTiny, None, JB.VggTiny, None),
+    "s2d": (VggTinyS2DStem, remap_vggtiny_to_s2d, JB.VggTinyS2DStem,
+            JB.remap_vggtiny_to_s2d),
+    "fused": (VggTinyFusedStem, remap_vggtiny_to_fused,
+              lambda **kw: JB.VggTinyFusedStem(interpret=True, **kw),
+              JB.remap_vggtiny_to_fused),
+}
+
+
+def _form(form, dtype=torch.float32):
+    """(port model, its flat weights, JAX model, its variables) of the
+    flagship in one serving form."""
+    port_bb, port_remap, jax_bb, jax_remap = FORMS[form]
+    flat = flagship_flat()
+    pflat = flat if port_remap is None else port_remap(flat)
+    jvars = nest(flat) if jax_remap is None else jax_remap(nest(flat))
+    jdt = jnp.bfloat16 if dtype == torch.bfloat16 else jnp.float32
+    model = load_flax_weights(LightWeightOpenPose(backbone=port_bb, dtype=dtype), pflat)
+    return model.eval(), pflat, JaxLwOpenPose(backbone=jax_bb, dtype=jdt), jvars
+
+
+def _images(seed=1, n=2):
+    return np.random.default_rng(seed).random((n, *HW, 3), np.float32)
+
+
+@pytest.mark.parametrize("form", list(FORMS))
+def test_calibrate_covers_all_convs_as_jax_does(form):
+    model, _, jmodel, jvars = _form(form)
+    x = _images()
+    want = jquant.calibrate(jmodel, jvars, [jnp.asarray(x)], train=False)
+    got = quant.calibrate(model, [torch.from_numpy(x)])
+    n_convs = sum(isinstance(m, torch.nn.Conv2d) for m in model.modules())
+    assert len(got) == n_convs == (39 if form == "fused" else 40)
+    assert list(got) == list(want)
+    assert all(v > 0 for v in got.values())
+    np.testing.assert_allclose([got[k] for k in want], list(want.values()),
+                               rtol=1e-5, atol=0)
+
+
+# -- quantized networks ----------------------------------------------------------------
+
+@pytest.mark.parametrize("form,dtype,tol", [
+    ("plain", torch.float32, None), ("fused", torch.float32, 0.1),
+    ("plain", torch.bfloat16, 0.1)])
+def test_quantize_model_matches_jax_quantized_apply(form, dtype, tol):
+    """JAX's scale table on the same weights and image (the synthetic
+    frame): the port's int8 network against `quantized_apply`. Each int8
+    conv is bit-exact alone; between them the two packages' elementwise
+    float ops (BatchNorm's formula, bf16 roundings) differ in the last
+    place (and the fused stem's float32 block_1 sums run in another order),
+    which now and then flips an int8 rounding. Measured max |d| / max |v|
+    (conf, paf): f32 plain 0 and 0 (bit-equal), f32 fused 0.031 and 0.048;
+    bf16 0.035 and 0.051, where the two packages' float bf16 networks
+    already differ by up to 0.043. With a uniform-random second image in the
+    batch the f32 maps differ by up to 0.023 (conf) and 0.20 (its paf, whose
+    values are small). So the plain f32 network (tol None) is held to 1
+    float32 ulp, which a change in rounding order (of the dequantize
+    product, of 1 / s_in, of ties) breaks; the others to `tol`."""
+    model, pflat, jmodel, jvars = _form(form, dtype)
+    jdt = jnp.bfloat16 if dtype == torch.bfloat16 else jnp.float32
+    x = resize_bilinear(synth_frame_rgb(), HW)[None].astype(np.float32) / 255.0
+    scales = jquant.calibrate(jmodel, jvars, [jnp.asarray(x, jdt)], train=False)
+    want = jquant.quantized_apply(jmodel, scales)(jvars, jnp.asarray(x, jdt), train=False)
+    quant.quantize_model(model, scales, weights=pflat)
+    assert sum(isinstance(m, quant.Int8Conv2d) for m in model.modules()) == len(scales)
+    assert not any(type(m) is torch.nn.Conv2d for m in model.modules())
+    with torch.inference_mode():
+        got = model(torch.from_numpy(x).to(dtype))
+    for key in ("conf_map", "paf_map"):
+        w = np.asarray(want[key].astype(jnp.float32))
+        g = got[key].float().numpy()
+        if tol is None:
+            np.testing.assert_array_max_ulp(g, w, maxulp=1)
+            continue
+        rel = np.abs(g - w).max() / np.abs(w).max()
+        assert rel <= tol, f"{key}: max |d| / max |v| = {rel}"
+
+
+def test_skip_all_keeps_the_float_model():
+    model, pflat, *_ = _form("plain")
+    x = torch.from_numpy(_images(seed=3))
+    with torch.inference_mode():
+        ref = model(x)["conf_map"]
+    scales = quant.calibrate(model, [x])
+    quant.quantize_model(model, scales, skip=lambda p: True, weights=pflat)
+    assert not any(isinstance(m, quant.Int8Conv2d) for m in model.modules())
+    with torch.inference_mode():
+        assert torch.equal(model(x)["conf_map"], ref)
+
+
+def test_bf16_model_quantizes_the_float32_weights():
+    """A bf16 model holds rounded weights: with the float32 checkpoint the
+    int8 weights are those of the checkpoint; without it, quantizing
+    raises."""
+    model, pflat, *_ = _form("plain", torch.bfloat16)
+    scales = {"backbone/block_2/conv": 1.5, "cpm/init": 2.0}
+    with pytest.raises(ValueError, match="float32"):
+        quant.quantize_model(model, scales)
+    quant.quantize_model(model, scales, weights=pflat)
+    q = model.backbone.block_2.conv
+    w_q, s_w = quant.weight_scales(pflat["params/backbone/block_2/conv/kernel"])
+    k = w_q.size // w_q.shape[-1]
+    assert torch.equal(q.w_q[:, :k], torch.from_numpy(
+        w_q.transpose(3, 0, 1, 2).reshape(w_q.shape[-1], k)))
+    assert torch.equal(q.s_w, torch.from_numpy(s_w))
+    assert torch.equal(model.cpm.init.bias,
+                       torch.from_numpy(pflat["params/cpm/init/bias"]))
+
+
+# -- the int8 artifact, both directions ---------------------------------------------------
+
+def _assert_same_artifact(a, b):
+    (sa, ta), (sb, tb) = a, b
+    assert sa == pytest.approx(sb, rel=0, abs=0)
+    assert sorted(ta) == sorted(tb)
+    for k in ta:
+        assert ta[k].dtype == tb[k].dtype, k
+        np.testing.assert_array_equal(ta[k], tb[k], err_msg=k)
+
+
+def test_jax_artifact_loads_in_the_port(tmp_path):
+    model, pflat, jmodel, jvars = _form("plain")
+    x = _images(seed=4)
+    scales = jquant.calibrate(jmodel, jvars, [jnp.asarray(x)], train=False)
+    path = str(tmp_path / "jax_int8.npz")
+    jquant.export_quantized(jmodel, jvars, scales, path)
+    _assert_same_artifact(quant.load_quantized(path), jquant.load_quantized(path))
+    loaded_scales, tensors = quant.load_quantized(path)
+    deq = quant.dequantized_params(FLAGSHIP_NPZ, tensors)
+    want = jax.device_get(jquant.dequantized_params(jvars, tensors))
+    flat_want = {"/".join(str(getattr(p, "key", p)) for p in kp): np.asarray(v)
+                 for kp, v in jax.tree_util.tree_flatten_with_path(want)[0]}
+    assert sorted(deq) == sorted(flat_want)
+    for k, v in flat_want.items():
+        np.testing.assert_array_equal(deq[k], v, err_msg=k)
+    # Re-quantizing the dequantized weights gives the same int8 network.
+    xt = torch.from_numpy(x)
+    outs = []
+    for w in (pflat, deq):
+        m = load_flax_weights(LightWeightOpenPose(), w).eval()
+        quant.quantize_model(m, loaded_scales, weights=w)
+        with torch.inference_mode():
+            outs.append(m(xt)["conf_map"])
+    torch.testing.assert_close(outs[0], outs[1], rtol=0, atol=1e-6)
+
+
+def test_port_artifact_loads_in_jax(tmp_path):
+    model, pflat, jmodel, jvars = _form("plain")
+    x = _images(seed=5)
+    scales = quant.calibrate(model, [torch.from_numpy(x)])
+    ours, theirs = str(tmp_path / "port_int8.npz"), str(tmp_path / "jax_int8.npz")
+    quant.export_quantized(FLAGSHIP_NPZ, scales, ours)
+    jquant.export_quantized(jmodel, jvars, scales, theirs)
+    _assert_same_artifact(jquant.load_quantized(ours), jquant.load_quantized(theirs))
+    assert any(k.startswith("f::['batch_stats']") for k in jquant.load_quantized(ours)[1])
+    loaded_scales, tensors = jquant.load_quantized(ours)
+    deq = jquant.dequantized_params(jvars, tensors)
+    q_apply = jquant.quantized_apply(jmodel, loaded_scales)
+    a = np.asarray(q_apply(jvars, jnp.asarray(x), train=False)["conf_map"])
+    b = np.asarray(q_apply(deq, jnp.asarray(x), train=False)["conf_map"])
+    np.testing.assert_allclose(a, b, rtol=0, atol=1e-6)

@@ -1,6 +1,7 @@
 """Measures shared by the port's tests and chip_smoke.py: bf16 distances in
-units in the last place, and the work that PifPaf growth needs on given
-inputs (the evaluations and bytes behind the growth kernel's bound).
+units in the last place, the slack of float32 sums taken in another order,
+and the work that PifPaf growth needs on given inputs (the evaluations and
+bytes behind the growth kernel's bound).
 
 It imports torch and the port only, and has no side effects at import, so
 chip_smoke.py can use it on the card as it is.
@@ -11,9 +12,15 @@ import torch
 
 from hyperpose_torch.ops.kernels.grow import find_connection, fused_grow_plain
 
-# Two float32 sums of the same 384 products, taken in any two orders, differ
-# by at most this times the sum of the products' magnitudes (2 * 384 * 2^-24).
-SUM_ORDER = 2 * 384 * 2.0 ** -24
+
+def sum_order(k: int) -> float:
+    """Two float32 sums of the same k products, taken in any two orders,
+    differ by at most this times the sum of the products' magnitudes
+    (2 * k * 2^-24)."""
+    return 2 * k * 2.0 ** -24
+
+
+SUM_ORDER = sum_order(384)   # the 384-deep sums of the fused stem's kernel
 
 
 def _ulp_distance(a, b, slack=None):
