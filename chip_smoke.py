@@ -23,10 +23,12 @@ the growth kernel is held against its plain version, and timed, on the
 tables of the painted fields and of that network's outputs. Then int8
 serving: the int8 GEMM at the TPU int8 probe's shape in both its types
 against the library's, and `quantize_engine` (calibrated on the batch) on
-each flagship form in f32 and bf16 and on PifPaf in bf16, with every int8
-conv's quantize / im2col / GEMM / epilogue device time, every int8 conv of
-a step equal to a CPU copy of it on the same input, and the GEMM held
-against its plain version at every shape of the step. It checks that each
+each flagship form in f32 and bf16 and on PifPaf in bf16, with the device
+time of every int8 conv's two kernels (the quantize pass and the
+implicit-GEMM conv) beside their bounds, the unfused path they replace and
+the bf16 cuDNN convs of the same layers, every int8 conv of a step equal to
+a CPU copy of it on the same input, and the conv kernel held against its
+plain version at every shape of the step. It checks that each
 path went through its kernels. Every phase prints one line; any failure
 exits non-zero before the result line. The last line is
 `{"ok": true, "device": {...}}`. It needs a CUDA device and exits non-zero
@@ -365,8 +367,8 @@ def phase_build() -> None:
                      for op in ("HMMA", "HGMMA", "IMMA", "IGMMA")}
     check(sum(mma["conv1_pool"].values()) > 0,
           f"conv1_pool's machine code has no tensor-core instruction: {mma}")
-    check(mma["int8_gemm"]["IMMA"] > 0 and mma["int8_gemm"]["HMMA"] > 0,
-          f"int8_gemm's machine code lacks IMMA or HMMA: {mma}")
+    check(mma["int8_gemm"]["IGMMA"] > 0 and mma["int8_gemm"]["HGMMA"] > 0,
+          f"int8_gemm's machine code lacks IGMMA or HGMMA (wgmma): {mma}")
     emit("build", seconds=secs, built=built, arch="sm_90a", ptxas=ptxas,
          sass_mma=mma)
 
@@ -740,12 +742,12 @@ def phase_decode(limbs, **cfg) -> dict:
 def _launch_counters():
     from hyperpose_torch.ops.kernels.conv1_pool import conv1_pool, stem_gemm
     from hyperpose_torch.ops.kernels.grow import fused_grow
-    from hyperpose_torch.ops.kernels.int8_gemm import int8_gemm
+    from hyperpose_torch.ops.kernels.int8_gemm import int8_conv, int8_gemm, int8_quantize
     from hyperpose_torch.ops.kernels.line_gather import line_gather
     from hyperpose_torch.ops.kernels.peak_topk import peak_candidates, peak_topk
 
     return (line_gather, peak_topk, peak_candidates, conv1_pool, fused_grow, stem_gemm,
-            int8_gemm)
+            int8_gemm, int8_quantize, int8_conv)
 
 
 def drive(engine, frames) -> tuple[list, dict]:
@@ -1147,10 +1149,10 @@ def _record_int8_inputs(model, forward) -> list:
 
 def _convs_card_vs_cpu(seen, key: str) -> int:
     """Every int8 conv of one step, run on the card, equals a CPU copy of
-    it on the same input: quantize, im2col, GEMM and the dequantize + bias
-    epilogue, exactly. The first image of the batch stands for the batch
-    (each output row depends on its own image only), to keep the CPU's
-    share short. Returns the number of convs compared."""
+    it on the same input: quantize, the conv's s32 sums and the dequantize
+    + bias epilogue, exactly. The first image of the batch stands for the
+    batch (each output row depends on its own image only), to keep the
+    CPU's share short. Returns the number of convs compared."""
     import torch
 
     for i, (conv, x) in enumerate(seen):
@@ -1162,53 +1164,123 @@ def _convs_card_vs_cpu(seen, key: str) -> int:
     return len(seen)
 
 
-def _int8_breakdown(seen) -> tuple[dict, list]:
-    """Device ms of the int8 convs' four stages over one step, each summed
-    over every conv (one CUDA graph per stage replays it for all of them),
-    and every conv's GEMM operands."""
-    from hyperpose_torch.ops.kernels.int8_gemm import int8_gemm
+def _unfused_conv(conv, xq, dtype):
+    """The conv as the int8 path ran it before the implicit-GEMM kernel, on
+    the library's int8 GEMM: the explicit im2col [M, kh*kw*Cp], then
+    `torch._int_mm` (s32), then the dequantize + bias in float32 and the
+    cast, each its own pass."""
+    import torch
+    from hyperpose_torch.ops.kernels.int8_gemm import int8_im2col_plain
 
-    xps = [c.quantize(x) for c, x in seen]
-    cols = [c.im2col(xp) for (c, _), xp in zip(seen, xps)]
-    accs = [int8_gemm(a, c.w_q) for (c, _), a in zip(seen, cols)]
-    outs = [(x.shape[0], *c.out_hw(*x.shape[2:]), x.dtype) for c, x in seen]
+    a = int8_im2col_plain(xq, conv.w_taps.shape[1:3], *conv.taps_geometry)
+    acc = _int_mm(a, conv.w_q)()[:, :conv.out_channels]
+    y = acc.to(torch.float32).mul_(conv.dq)
+    if conv.bias is not None:
+        y.add_(conv.bias)
+    return y.to(dtype)
+
+
+def _conv_work(conv, x, xq) -> tuple[int, int, int]:
+    """(conv bytes, conv operations, quantize bytes) of one int8 conv on
+    input x and its quantized buffer xq: the conv reads xq (channels padded;
+    for a folded conv, its taps along the channels) once and the padded
+    weights once and writes its output once in x's dtype, against
+    2 * M * cout * kh * kw * cin operations; the quantize reads x once and
+    writes xq once."""
+    b, cin, h, w = x.shape
+    ho, wo = conv.out_hw(h, w)
+    m, (kh, kw) = b * ho * wo, conv.kernel_size
+    c_bytes = xq.numel() + conv.w_q.numel() + 8 * conv.out_channels \
+        + m * conv.out_channels * x.element_size()
+    return (c_bytes, 2 * m * conv.out_channels * kh * kw * cin,
+            x.numel() * x.element_size() + xq.numel())
+
+
+def _float_weight(conv):
+    """The conv's weights as float32 OIHW, s_w * w_q."""
+    (kh, kw), cin, cout = conv.kernel_size, conv.in_channels, conv.out_channels
+    w = conv.w_q[:cout].float()
+    w = (w[:, :kh * kw * cin].view(cout, kh, kw, cin) if conv.folded
+         else w.view(cout, kh, kw, -1)[..., :cin])
+    return (w * conv.s_w[:, None, None, None]).permute(0, 3, 1, 2)
+
+
+def _int8_breakdown(seen) -> dict:
+    """Device ms of the int8 convs of one step, each stage summed over every
+    conv (one CUDA graph per stage replays it for all of them): the two
+    kernels (`quantize`, `conv`), the unfused path they replace (the
+    quantize's plain version, then `_unfused_conv`), and the bf16 cuDNN
+    convs of the same layers (weights s_w * w_q, channels-last input), with
+    the bounds of the kernels' work."""
+    import torch
+    import torch.nn.functional as F
+    from hyperpose_torch.ops.kernels.int8_gemm import int8_quantize_plain
+
+    xqs = [c.quantize(x) for c, x in seen]
+    dts = [x.dtype for _, x in seen]
+    bf16 = [(x.to(torch.bfloat16).contiguous(memory_format=torch.channels_last),
+             _float_weight(c).to(torch.bfloat16).contiguous(memory_format=torch.channels_last),
+             None if c.bias is None else c.bias.to(torch.bfloat16)) for c, x in seen]
     stages = {
         "quantize": lambda: [c.quantize(x) for c, x in seen],
-        "im2col": lambda: [c.im2col(xp) for (c, _), xp in zip(seen, xps)],
-        "gemm": lambda: [int8_gemm(a, c.w_q) for (c, _), a in zip(seen, cols)],
-        "epilogue": lambda: [c.dequantize(acc, *o) for (c, _), acc, o in zip(seen, accs, outs)],
+        "conv": lambda: [c.conv(xq, dt) for (c, _), xq, dt in zip(seen, xqs, dts)],
+        "unfused_quantize": lambda: [int8_quantize_plain(x, c.inv_s, c.w_taps.shape[3], c.fold)
+                                     for c, x in seen],
+        "unfused_conv": lambda: [_unfused_conv(c, xq, dt)
+                                 for (c, _), xq, dt in zip(seen, xqs, dts)],
+        "cudnn_bf16_conv": lambda: [F.conv2d(x, w, b, c.stride, c.padding, c.dilation)
+                                    for (c, _), (x, w, b) in zip(seen, bf16)],
     }
-    ms = {f"{k}_device_ms": device_ms(fn, reps=2, replays=2) for k, fn in stages.items()}
-    return ms, [(a, c.w_q) for (c, _), a in zip(seen, cols)]
-
-
-def _main_path_gemms(operands) -> dict:
-    """`int8_gemm` at the shapes one step gives it: each against its plain
-    version (exact) and against `torch._int_mm`; the step's GEMMs timed
-    together (kernel, plain, library) beside the sum of their bounds."""
-    import torch
-    from hyperpose_torch.ops.kernels.int8_gemm import int8_gemm, int8_gemm_plain
-
-    libs = [_int_mm(a, bt) for a, bt in operands]
-    for (a, bt), lib in zip(operands, libs):
-        want = int8_gemm_plain(a, bt)
-        check(bool(torch.equal(int8_gemm(a, bt), want)),
-              f"int8_gemm differs from its plain version at {tuple(a.shape)} x {tuple(bt.shape)}")
-        check(bool(torch.equal(lib(), want)), "torch._int_mm differs from the plain version")
-    work = [_gemm_work(a.shape[0], bt.shape[0], a.shape[1], False) for a, bt in operands]
+    out = {f"{k}_device_ms": device_ms(fn, reps=2, replays=2) for k, fn in stages.items()}
+    work = [_conv_work(c, x, xq) for (c, x), xq in zip(seen, xqs)]
     t_bytes = sum(w[0] for w in work) / H100_BYTES_PER_S
     t_ops = sum(w[1] for w in work) / H100_INT8_OPS_PER_S
+    out.update(conv_bytes=sum(w[0] for w in work), conv_operations=sum(w[1] for w in work),
+               conv_bound_ms=1e3 * max(t_bytes, t_ops),
+               conv_bound_by="bytes" if t_bytes >= t_ops else "operations",
+               quantize_bytes=sum(w[2] for w in work),
+               quantize_bound_ms=1e3 * sum(w[2] for w in work) / H100_BYTES_PER_S)
+    return out
+
+
+def _main_path_convs(seen, breakdown) -> dict:
+    """`int8_conv` at every shape one step gives it, on the step's own
+    quantized inputs: each exact against its plain version (and so is the
+    unfused yardstick); the step's convs
+    timed together (kernel and plain) beside the sum of their bounds. The
+    library yardstick is the unfused path on `torch._int_mm` (PyTorch has no
+    int8 conv on CUDA); the GEMM-only bound of that path (A the explicit
+    im2col, C in s32) is given beside, for it is not like for like."""
+    import torch
+    from hyperpose_torch.ops.kernels.int8_gemm import int8_conv_plain
+
+    xqs = [c.quantize(x) for c, x in seen]
+    args = [(xq, c.w_taps, c.dq, c.bias, *c.taps_geometry, x.dtype)
+            for (c, x), xq in zip(seen, xqs)]
+    for (c, x), xq, a in zip(seen, xqs, args):
+        want = int8_conv_plain(*a)
+        check(bool(torch.equal(c.conv(xq, x.dtype), want)),
+              f"int8_conv differs from its plain version at {tuple(x.shape)} -> "
+              f"{c.out_channels} ({c.kernel_size}, stride {c.stride})")
+        check(bool(torch.equal(_unfused_conv(c, xq, x.dtype), want)),
+              "the unfused path on torch._int_mm differs from the plain version")
+    old_gemm = []
+    for (c, x) in seen:
+        ho, wo = c.out_hw(*x.shape[2:])
+        old_gemm.append(_gemm_work(x.shape[0] * ho * wo, c.out_channels,
+                                   -(-c.kernel_size[0] * c.kernel_size[1] * c.in_channels
+                                     // 32) * 32, False))
     return {
-        "gemms": len(operands),
-        "shapes_mnk": [[a.shape[0], bt.shape[0], a.shape[1]] for a, bt in operands],
+        "convs": len(seen),
+        "shapes": [[*x.shape, c.out_channels, *c.kernel_size, *c.stride, *c.padding]
+                   for c, x in seen],
         "max_abs_err": 0.0,
-        "ms": device_ms(lambda: [int8_gemm(a, bt) for a, bt in operands], reps=3, replays=3),
-        "plain_ms": device_ms(lambda: [int8_gemm_plain(a, bt) for a, bt in operands],
-                              reps=1, replays=2),
-        "library_ms": device_ms(lambda: [lib() for lib in libs], reps=3, replays=3),
-        "bytes": sum(w[0] for w in work), "operations": sum(w[1] for w in work),
-        "bound_ms": sum(w[2] for w in work),
-        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+        "ms": breakdown["conv_device_ms"],
+        "plain_ms": device_ms(lambda: [int8_conv_plain(*a) for a in args], reps=1, replays=2),
+        "library_ms": breakdown["unfused_conv_device_ms"],
+        "bytes": breakdown["conv_bytes"], "operations": breakdown["conv_operations"],
+        "bound_ms": breakdown["conv_bound_ms"], "bound_by": breakdown["conv_bound_by"],
+        "unfused_gemm_only_bound_ms": sum(w[2] for w in old_gemm),
     }
 
 
@@ -1216,13 +1288,16 @@ def phase_int8_end_to_end(frames, card) -> tuple[dict, dict]:
     """The int8 serving path: `quantize_engine` calibrated on the 8 frames,
     for each flagship form in f32 (TF32 off) and bf16 and for PifPaf in
     bf16; the main path once with its kernel counts (every conv launches
-    `int8_gemm`; the fused stem `conv1_pool`, PifPaf `fused_grow`), then step
-    / network / decode timings and the int8 convs' quantize / im2col / GEMM /
-    epilogue device times. Every int8 conv of a step equals a CPU copy of it
+    `int8_quantize` and `int8_conv` once and `int8_gemm` never; the fused
+    stem `conv1_pool`, PifPaf `fused_grow`), then step / network / decode
+    timings and the int8 convs' device times: the two kernels, the unfused
+    path they replace, and the bf16 cuDNN convs of the same layers, beside
+    the kernels' bounds. Every int8 conv of a step equals a CPU copy of it
     on the same input. The int8 f32 flagship finds the float engine's 2
     people on the synthetic frame and agrees with the same int8 engine on
-    the CPU. Returns the kernel row of `int8_gemm` at the shapes of the
-    bf16 plain-stem flagship's step, and that path's launch counts."""
+    the CPU. Returns the kernel row of `int8_gemm.cu` (the conv, at the
+    shapes of the bf16 plain-stem flagship's step), and that path's launch
+    counts."""
     import torch
     from torch import nn
     from hyperpose_torch.models.pifpaf import Pifpaf
@@ -1260,8 +1335,11 @@ def phase_int8_end_to_end(frames, card) -> tuple[dict, dict]:
               f"int8 {key}: {n_convs} calibrated convs")
         check(not any(type(m) is nn.Conv2d for m in qeng.model.modules()),
               f"int8 {key}: a float conv is left")
-        check(launches["int8_gemm"] == n_convs,
-              f"int8 {key}: int8_gemm launched {launches['int8_gemm']} times, not {n_convs}")
+        check(launches["int8_conv"] == n_convs and launches["int8_quantize"] == n_convs
+              and launches["int8_gemm"] == 0,
+              f"int8 {key}: {n_convs} convs launched int8_conv {launches['int8_conv']}, "
+              f"int8_quantize {launches['int8_quantize']} and int8_gemm "
+              f"{launches['int8_gemm']} times")
         check(launches["conv1_pool"] == (stem == "fused"),
               f"int8 {key}: conv1_pool launches {launches['conv1_pool']}")
         check((launches["fused_grow"] > 0) == (stem == "pifpaf")
@@ -1327,12 +1405,11 @@ def phase_int8_end_to_end(frames, card) -> tuple[dict, dict]:
             entry["convs_equal_to_cpu"] = _convs_card_vs_cpu(seen, key)
             check(entry["convs_equal_to_cpu"] == n_convs,
                   f"int8 {key}: {entry['convs_equal_to_cpu']} convs ran in one step, not {n_convs}")
-            breakdown, operands = _int8_breakdown(seen)
-            del seen
+            breakdown = _int8_breakdown(seen)
             entry.update(breakdown)
             if key == "plain_bf16":
-                row = _main_path_gemms(operands)
-            del operands
+                row = _main_path_convs(seen, breakdown)
+            del seen
         entry.update(frames_per_s=1e3 * BATCH / entry["step_ms"],
                      device_idle_share=1.0 - entry["step_device_busy_ms"] / entry["step_ms"])
         timing[key] = entry
@@ -1341,8 +1418,8 @@ def phase_int8_end_to_end(frames, card) -> tuple[dict, dict]:
     emit("int8_end_to_end", card=card, input="x".join(map(str, INPUT_HW)), batch=BATCH,
          tf32=False, wall_samples=10, calibration="the 8 frames of the batch",
          tolerance=INT8_TOL,
-         main_path_gemms={k: v for k, v in row.items() if k != "shapes_mnk"},
-         main_path_gemm_shapes_mnk=row["shapes_mnk"], **timing)
+         main_path_convs={k: v for k, v in row.items() if k != "shapes"},
+         main_path_conv_shapes_bchw_cout_kernel_stride_pad=row["shapes"], **timing)
     return {"name": "int8_gemm", "route": "cuda", "source": "hyperpose_torch/csrc/int8_gemm.cu",
             "replaces": "scripts/probe_int8_pallas.py:40",
             **{k: row[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
@@ -1388,13 +1465,14 @@ def main() -> None:
     # Each kernel's launches on its own path: the plain-stem f32 engine for
     # the PAF decoder kernels, the bf16 fused-stem engine for conv1_pool, the
     # use_pallas_peaks decode for peak_candidates, the f32 PifPaf engine for
-    # grow, the int8 bf16 plain-stem engine for int8_gemm; stem_gemm (on no
-    # path) in its own phase.
+    # grow, the int8 bf16 plain-stem engine for int8_gemm.cu (its conv
+    # kernel, launched once per int8 conv; the probe's GEMM is on no path);
+    # stem_gemm (on no path) in its own phase.
     launches = {**paths["plain_f32"],
                 "conv1_pool": paths["fused_bf16"]["conv1_pool"],
                 "peak_candidates": pallas_peaks["peak_candidates"],
                 "grow": pifpaf["fused_grow"], "stem_gemm": gemm_launches,
-                "int8_gemm": int8_path["int8_gemm"]}
+                "int8_gemm": int8_path["int8_conv"]}
     for row in rows:
         row["launches"] = launches[row["name"]]
         check(row["launches"] > 0, f"{row['name']} was not launched on its path")

@@ -1,10 +1,12 @@
 """Backbones in PyTorch: the flagship's TinyVGG and its two exact serving
-forms, and the ResNet50 trunk of PifPaf.
+forms, the dilated MobileNet of Lightweight-OpenPose, and the ResNet50 trunk
+of PifPaf.
 
 Counterpart of `hyperpose_tpu/models/backbones.py` `ConvBN`, `VggTiny`,
-`VggTinyS2DStem`, `VggTinyFusedStem`, `Bottleneck` and `Resnet50`, with the
-numpy remaps that turn a VggTiny checkpoint into either serving form
-(reference: hyperpose/Model/backbones.py:343-391, 587-697). Modules run NCHW;
+`VggTinyS2DStem`, `VggTinyFusedStem`, `Bottleneck`, `Resnet50`,
+`DepthwiseConv`, `SeparableBlock` and `MobilenetDilated`, with the numpy
+remaps that turn a VggTiny checkpoint into either serving form (reference:
+hyperpose/Model/backbones.py:201-232, 343-391, 587-697). Modules run NCHW;
 the submodule names follow the flax module names, so the flat weight layout
 maps one to one (`utils/weights.py`).
 """
@@ -232,6 +234,71 @@ class Resnet50(nn.Module):
         if self.use_pool:
             x = F.max_pool2d(F.pad(x, same_pads(x.shape[-2:], 3, 2),
                                    value=float("-inf")), 3, 2)
+        for name in self._blocks:
+            x = getattr(self, name)(x)
+        return x
+
+
+class DepthwiseConv(nn.Module):
+    """A depthwise conv (groups = channels, no bias) with flax's SAME
+    padding: at stride 1, dilation * (kernel - 1) / 2 on each side; at a
+    larger stride the forward pads first (`same_pads` of the dilated span).
+    The conv is `dwconv`, the flax module's name."""
+
+    def __init__(self, channels: int, kernel: int = 3, stride: int = 1,
+                 dilation: int = 1, dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.span, self.stride = dilation * (kernel - 1) + 1, stride
+        self.dwconv = nn.Conv2d(channels, channels, kernel, stride=stride, dilation=dilation,
+                                padding=self.span // 2 if stride == 1 else 0,
+                                groups=channels, bias=False, dtype=dtype)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.stride > 1:
+            x = F.pad(x, same_pads(x.shape[-2:], self.span, self.stride))
+        return self.dwconv(x)
+
+
+class SeparableBlock(nn.Module):
+    """Depthwise conv `dw` + BN `bn1` + ReLU, then the 1x1 conv `pw` + BN
+    `bn2` + ReLU (BN eps 1e-5, flax's default)."""
+
+    def __init__(self, in_features: int, features: int, stride: int = 1,
+                 dilation: int = 1, dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.dw = DepthwiseConv(in_features, stride=stride, dilation=dilation, dtype=dtype)
+        self.bn1 = nn.BatchNorm2d(in_features, eps=1e-5, dtype=dtype)
+        self.pw = nn.Conv2d(in_features, features, 1, bias=False, dtype=dtype)
+        self.bn2 = nn.BatchNorm2d(features, eps=1e-5, dtype=dtype)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = torch.relu(self.bn1(self.dw(x)))
+        return torch.relu(self.bn2(self.pw(x)))
+
+
+class MobilenetDilated(nn.Module):
+    """Dilated MobileNetV1 at stride 8, the Lightweight-OpenPose backbone:
+    a 3x3 stride-2 `stem` ConvBN (32), then separable blocks `sep_0` ..
+    `sep_10` (64, 128/2, 128, 256/2, 256, 512, 512 dilated 2, 512 x 4). With
+    `scale_size=32`, `sep_6` and `sep_8` also stride 2."""
+
+    out_channels = 512
+
+    def __init__(self, scale_size: int = 8, dtype: torch.dtype = torch.float32):
+        super().__init__()
+        s = 2 if scale_size == 32 else 1
+        self.stem = ConvBN(3, 32, dtype, stride=2)
+        plan = [(64, 1, 1), (128, 2, 1), (128, 1, 1), (256, 2, 1), (256, 1, 1),
+                (512, 1, 1), (512, s, 2), (512, 1, 1), (512, s, 1), (512, 1, 1),
+                (512, 1, 1)]
+        self._blocks, cin = [], 32
+        for i, (f, st, dil) in enumerate(plan):
+            self.add_module(f"sep_{i}", SeparableBlock(cin, f, st, dil, dtype))
+            self._blocks.append(f"sep_{i}")
+            cin = f
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = self.stem(x)
         for name in self._blocks:
             x = getattr(self, name)(x)
         return x

@@ -13,7 +13,7 @@ from typing import Callable
 import torch
 from torch import nn
 
-from .backbones import ConvBN, VggTiny
+from .backbones import ConvBN, MobilenetDilated
 
 N_CONFMAPS = 19   # 18 COCO parts + background
 N_PAFMAPS = 38    # x and y for each of the 19 limbs
@@ -88,11 +88,11 @@ class LightWeightOpenPose(nn.Module):
     """Lightweight OpenPose: backbone + cpm + init stage + 1 refinement stage.
 
     `dtype` is the compute and parameter type: float32 for parity with the
-    JAX package, bfloat16 for serving. Only the VggTiny backbone is ported
-    so far; it is the default here (the flax module defaults to
-    MobilenetDilated)."""
+    JAX package, bfloat16 for serving. The backbone defaults to
+    `MobilenetDilated`, as the flax module's does; the committed flagship
+    checkpoint is `backbone=VggTiny` (or one of its serving forms)."""
 
-    def __init__(self, backbone: Callable[..., nn.Module] = VggTiny,
+    def __init__(self, backbone: Callable[..., nn.Module] = MobilenetDilated,
                  dtype: torch.dtype = torch.float32):
         super().__init__()
         self.dtype = dtype

@@ -4,9 +4,10 @@ Counterpart of `hyperpose_tpu/quant.py` (reference: export_tflite.py:29-41,
 int8 TFLite calibrated on a representative dataset): symmetric int8 with a
 per-tensor activation scale and a per-output-channel weight scale, every
 calibrated convolution run as s8 x s8 -> s32. PyTorch has no int8
-convolution on CUDA, so `Int8Conv2d` runs each one as an int8 im2col and the
-hand-written GEMM `ops/kernels/int8_gemm.py`, then dequantizes and adds the
-bias in float32.
+convolution on CUDA, so `Int8Conv2d` runs each one as two hand-written
+kernels (`ops/kernels/int8_gemm.py`): a one-pass quantize into int8 NHWC,
+then an implicit-GEMM conv whose epilogue dequantizes, adds the bias and
+casts to the activation dtype.
 
 Scale tables are keyed by the flax module path of each conv, which is the
 port's module name with "." -> "/" (the weight bridge relies on the names
@@ -28,10 +29,11 @@ import numpy as np
 import torch
 from torch import nn
 
-from .ops.kernels.int8_gemm import int8_gemm
+from .ops.kernels.int8_gemm import conv_out_hw, int8_conv, int8_quantize, padded_channels
 from .utils.weights import read_flax_weights, state_dict_to_flax
 
 Skip = Callable[[str], bool]
+_FOLD_CIN = 16   # Int8Conv2d folds the taps of convs on at most this many channels
 
 
 def _pair(v) -> tuple[int, int]:
@@ -53,23 +55,27 @@ class Int8Conv2d(nn.Module):
     """A calibrated `nn.Conv2d` in int8: the counterpart of JAX
     `_quantized_conv` (`quant.py:127-157`).
 
-    Holds w_q as the GEMM's Bt [cout, K] int8 with K = (dy, dx, cin) in HWIO
-    order, zero-padded to a multiple of 32; the float32 per-channel scale
-    s_w; the float32 bias; the conv's stride, padding and dilation. The
-    forward runs four stages, each a method, so a caller can time them:
+    Holds the int8 weights [Np, kh, kw, Cp] (`w_taps`; the buffer `w_q` is
+    their 2-D view [Np, kh*kw*Cp], which a channels-last conversion of the
+    model leaves contiguous): Np = cout rounded up to 8 and Cp =
+    `padded_channels(cin)`, zero where padded; the float32 per-channel scale
+    s_w; dq = s_w * float32(s_in); the float32 bias; the conv's stride,
+    padding and dilation. A conv on at most 16 input channels with a filter
+    larger than 1x1 is `folded`: its weights are [Np, 1, 1, Cp] with the
+    taps along K. The forward runs two stages, each a method, so a caller
+    can time them:
 
     1. `quantize`: x * float32(1 / s_in), rounded half to even, clipped to
-       +-127, written as int8 into a zero-padded channels-last buffer;
-    2. `im2col`: one copy of a strided view of that buffer into [M, K]
-       (rows (b, y, x)); a 1x1 stride-1 conv without padding uses the
-       buffer itself;
-    3. `int8_gemm`: s8 x s8 -> s32 [M, cout];
-    4. `dequantize`: y * (s_w * float32(s_in)) + bias in float32, cast to the
-       input's dtype, returned as the NCHW view of [M, cout] (channels-last
-       memory, no transposing copy).
+       +-127, written as int8 [B, H, W, Cp] (`int8_quantize`; folded, the
+       filter's kh * kw * cin values of each output pixel, [B, Ho, Wo, Cp]);
+    2. `conv`: the conv of that buffer, dequantized (s32 * dq + bias in
+       float32) and cast to the input's dtype in the same kernel, as
+       [B*Ho*Wo, cout] (`int8_conv`), returned as its NCHW view
+       (channels-last memory, no transposing copy).
 
-    On a CUDA tensor the GEMM runs the kernel or raises: there is no float
-    fallback."""
+    On a CUDA tensor each stage runs its kernel or raises: there is no float
+    fallback. `int8_conv_sums_plain(xq, q.w_taps, *q.taps_geometry)` gives
+    the exact s32 sums of stage 2."""
 
     def __init__(self, w_q: np.ndarray, s_w: np.ndarray, bias, s_in: float,
                  stride=1, padding=0, dilation=1):
@@ -80,17 +86,25 @@ class Int8Conv2d(nn.Module):
         self.dilation = _pair(dilation)
         self.s_in = float(s_in)
         self.inv_s = float(np.float32(1.0 / self.s_in))
-        k = kh * kw * cin
-        wt = np.zeros((cout, -(-k // 32) * 32), np.int8)
-        wt[:, :k] = np.asarray(w_q, np.int8).transpose(3, 0, 1, 2).reshape(cout, k)
+        # A conv on a few input channels (the networks' first convs) folds its
+        # taps into the quantized buffer's channels and runs as 1x1: the
+        # conv kernel then loads one wide box per tile instead of kh * kw
+        # boxes of 32 bytes that hold cin values each.
+        self.folded = (kh, kw) != (1, 1) and cin <= _FOLD_CIN
+        np_ = -(-cout // 8) * 8
+        w_t = np.asarray(w_q, np.int8).transpose(3, 0, 1, 2)  # [cout, kh, kw, cin]
+        if self.folded:
+            w = np.zeros((np_, 1, 1, padded_channels(kh * kw * cin)), np.int8)
+            w[:cout, 0, 0, :kh * kw * cin] = w_t.reshape(cout, -1)
+        else:
+            w = np.zeros((np_, kh, kw, padded_channels(cin)), np.int8)
+            w[:cout, :, :, :cin] = w_t
         s_w = np.asarray(s_w, np.float32)
-        self.register_buffer("w_q", torch.from_numpy(wt))
+        self.register_buffer("w_q", torch.from_numpy(w.reshape(np_, -1)))
         self.register_buffer("s_w", torch.from_numpy(s_w.copy()))
         self.register_buffer("dq", torch.from_numpy(s_w * np.float32(self.s_in)))
         self.register_buffer("bias", None if bias is None else
                              torch.from_numpy(np.array(bias, np.float32)))
-        self.direct = (kh, kw) == (1, 1) and self.stride == (1, 1) \
-            and self.padding == (0, 0)
 
     @classmethod
     def from_conv(cls, conv: nn.Conv2d, kernel, bias, s_abs: float) -> "Int8Conv2d":
@@ -99,7 +113,7 @@ class Int8Conv2d(nn.Module):
         if conv.groups != 1:
             raise NotImplementedError(
                 "grouped and depthwise int8 convolutions are not ported yet; "
-                "they come with the MobileNet backbones: ROADMAP Queue 1 #7")
+                "they come with the rest of the OpenPose family: ROADMAP Queue 1 #2")
         if isinstance(conv.padding, str) or conv.padding_mode != "zeros":
             raise NotImplementedError(
                 f"Int8Conv2d takes explicit zero padding, not {conv.padding!r} "
@@ -113,57 +127,49 @@ class Int8Conv2d(nn.Module):
                 conv.dilation)
         return q.to(conv.weight.device)
 
+    @property
+    def w_taps(self) -> torch.Tensor:
+        """The int8 weights as [Np, kh, kw, Cp], a view of `w_q` (folded:
+        [Np, 1, 1, Cp], Cp >= kh * kw * cin in (dy, dx, c) order)."""
+        taps = (1, 1) if self.folded else self.kernel_size
+        return self.w_q.view(self.w_q.shape[0], *taps, -1)
+
+    @property
+    def fold(self):
+        """The `fold` argument of `int8_quantize`: the conv's (kernel_size,
+        stride, padding, dilation) where folded, else None."""
+        if self.folded:
+            return self.kernel_size, self.stride, self.padding, self.dilation
+        return None
+
+    @property
+    def taps_geometry(self) -> tuple:
+        """(stride, padding, dilation) of the conv `int8_conv` runs on the
+        quantized buffer: 1x1, stride 1, no padding where folded."""
+        if self.folded:
+            return (1, 1), (0, 0), (1, 1)
+        return self.stride, self.padding, self.dilation
+
     def out_hw(self, h: int, w: int) -> tuple[int, int]:
-        return tuple(
-            (n + 2 * p - d * (k - 1) - 1) // s + 1 for n, p, d, k, s in zip(
-                (h, w), self.padding, self.dilation, self.kernel_size, self.stride))
+        return conv_out_hw(h, w, self.kernel_size, self.stride, self.padding, self.dilation)
 
     def quantize(self, x: torch.Tensor) -> torch.Tensor:
-        """NCHW x -> int8 [B, H + 2ph, W + 2pw, C'] with zero borders; C' is
-        C, or on the direct path the GEMM's padded K."""
-        b, c, h, w = x.shape
-        if c != self.in_channels:
-            raise ValueError(f"Int8Conv2d: {c} input channels, expected {self.in_channels}")
-        ph, pw = self.padding
-        cb = self.w_q.shape[1] if self.direct else c
-        shape = (b, h + 2 * ph, w + 2 * pw, cb)
-        pad = ph or pw or cb > c
-        xp = (torch.zeros if pad else torch.empty)(shape, dtype=torch.int8, device=x.device)
-        q = x.to(torch.float32, copy=True).mul_(self.inv_s).round_().clamp_(-127, 127)
-        xp[:, ph:ph + h, pw:pw + w, :c] = q.permute(0, 2, 3, 1)
-        return xp
+        """NCHW x -> int8 [B, H, W, Cp], channels >= C zero (folded:
+        [B, Ho, Wo, Cp], see `int8_quantize_plain`)."""
+        if x.shape[1] != self.in_channels:
+            raise ValueError(f"Int8Conv2d: {x.shape[1]} input channels, "
+                             f"expected {self.in_channels}")
+        return int8_quantize(x, self.inv_s, self.w_taps.shape[3], self.fold)
 
-    def im2col(self, xp: torch.Tensor) -> torch.Tensor:
-        """The quantized buffer -> the GEMM's A [B*Ho*Wo, K] int8, columns
-        (dy, dx, c) zero-padded to the width of w_q."""
-        b, hp, wp, c = xp.shape
-        if self.direct:
-            return xp.view(b * hp * wp, c)
-        (kh, kw), (sh, sw), (dh, dw) = self.kernel_size, self.stride, self.dilation
-        ho, wo = self.out_hw(hp - 2 * self.padding[0], wp - 2 * self.padding[1])
-        k, kp = kh * kw * c, self.w_q.shape[1]
-        s = xp.stride()
-        windows = xp.as_strided((b, ho, wo, kh, kw, c),
-                                (s[0], sh * s[1], sw * s[2], dh * s[1], dw * s[2], 1))
-        a = torch.empty((b * ho * wo, kp), dtype=torch.int8, device=xp.device)
-        if kp > k:
-            a[:, k:] = 0
-        a[:, :k].view(b, ho, wo, kh, kw, c).copy_(windows)
-        return a
-
-    def dequantize(self, acc: torch.Tensor, b: int, ho: int, wo: int,
-                   dtype: torch.dtype) -> torch.Tensor:
-        """s32 [M, cout] -> the NCHW view [B, cout, Ho, Wo] in `dtype`."""
-        y = acc.to(torch.float32).mul_(self.dq)
-        if self.bias is not None:
-            y.add_(self.bias)
-        return y.to(dtype).view(b, ho, wo, -1).permute(0, 3, 1, 2)
+    def conv(self, xq: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+        """The quantized buffer -> [B*Ho*Wo, cout] in `dtype`."""
+        return int8_conv(xq, self.w_taps, self.dq, self.bias, *self.taps_geometry, dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         b, _, h, w = x.shape
         ho, wo = self.out_hw(h, w)
-        acc = int8_gemm(self.im2col(self.quantize(x)), self.w_q)
-        return self.dequantize(acc, b, ho, wo, x.dtype)
+        y = self.conv(self.quantize(x), x.dtype)
+        return y.view(b, ho, wo, -1).permute(0, 3, 1, 2)
 
 
 # -- calibration ------------------------------------------------------------------

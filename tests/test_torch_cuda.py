@@ -24,7 +24,9 @@ PifPaf decodes are compared as sets of humans (duplicates of equal score
 may take other slots), coords and scores atol 1e-5 for painted fields and
 1e-4 behind the f32 network. int8_gemm s8 equals its plain version
 exactly, bf16 within the float32 sum-order slack at its depth
-(torch_measures.sum_order); Int8Conv2d on the card equals the CPU; the int8
+(torch_measures.sum_order); int8_quantize and int8_conv equal their plain
+versions exactly (exact s32 sums, the same float32 epilogue operations);
+Int8Conv2d on the card equals the CPU; the int8
 engines agree with the CPU within their int8 noise (chip_smoke.INT8_TOL;
 see the test).
 """
@@ -38,7 +40,9 @@ from chip_smoke import (
     INT8_TOL, TWO_PEOPLE, _numpy, find_people, human_deltas, make_synthetic_maps,
     painted_pifpaf_batch,
 )
-from hyperpose_torch.models.backbones import VggTinyFusedStem, remap_vggtiny_to_fused
+from hyperpose_torch.models.backbones import (
+    VggTiny, VggTinyFusedStem, remap_vggtiny_to_fused,
+)
 from hyperpose_torch.models.openpose import LightWeightOpenPose
 from hyperpose_torch.models.pifpaf import Pifpaf, pifpaf_fused_decode
 from hyperpose_torch.ops import pifpaf_decode as PD
@@ -47,7 +51,10 @@ from hyperpose_torch.ops.kernels.conv1_pool import (
     conv1_pool, conv1_pool_plain, stem_gemm, stem_gemm_plain,
 )
 from hyperpose_torch.ops.kernels.grow import fused_grow, fused_grow_plain
-from hyperpose_torch.ops.kernels.int8_gemm import int8_gemm, int8_gemm_plain
+from hyperpose_torch.ops.kernels.int8_gemm import (
+    int8_conv, int8_conv_plain, int8_gemm, int8_gemm_plain, int8_quantize, int8_quantize_plain,
+    padded_channels,
+)
 from hyperpose_torch.ops.kernels.line_gather import line_gather, line_gather_plain
 from hyperpose_torch.ops.kernels.peak_topk import (
     peak_candidates, peak_candidates_plain, peak_topk, peak_topk_plain,
@@ -244,7 +251,7 @@ def test_engine_on_card_matches_cpu(cuda):
     batch = resize_bilinear(np.load(SYNTH_NPZ)["rgb"], (184, 216))[None]
     out = {}
     for dev in (cuda, torch.device("cpu")):
-        eng = PoseEngine(LightWeightOpenPose(), FLAGSHIP_NPZ, input_hw=(184, 216),
+        eng = PoseEngine(LightWeightOpenPose(backbone=VggTiny), FLAGSHIP_NPZ, input_hw=(184, 216),
                          max_batch_size=1, device=dev)
         d = eng.infer_batch_device(batch)
         out[dev.type] = {f: getattr(d, f).cpu() for f in ("valid", "coords", "scores")}
@@ -335,6 +342,147 @@ def test_int8_gemm_refuses_what_it_does_not_take(cuda):
         int8_gemm(a, bt.cpu())
 
 
+def _int8_conv_operands(cuda, cin, cout, k, stride, pad, dil, b, h, w, seed=0, cp=None):
+    """A quantized buffer and padded weights as `Int8Conv2d` holds them
+    (Cp = `padded_channels(cin)` unless given)."""
+    rng = np.random.default_rng(seed)
+    cp, np_ = cp or padded_channels(cin), -(-cout // 8) * 8
+    xq = np.zeros((b, h, w, cp), np.int8)
+    xq[..., :cin] = rng.integers(-127, 128, (b, h, w, cin))
+    wq = np.zeros((np_, k, k, cp), np.int8)
+    wq[:cout, ..., :cin] = rng.integers(-127, 128, (cout, k, k, cin))
+    dq = rng.uniform(1e-5, 1e-3, cout).astype(np.float32)
+    bias = rng.normal(0, 0.1, cout).astype(np.float32)
+    t = lambda a: torch.from_numpy(a).to(cuda)  # noqa: E731
+    return t(xq), t(wq), t(dq), t(bias), (stride, stride), (pad, pad), (dil, dil)
+
+
+# cin, cout, k, stride, padding, dilation, batch, H, W: the padded layouts
+# (Cp 32, 192, 224; Np 24, 40, 64), odd sizes, both strides, dilation 2, M
+# tails, and the ResNet50 stem and downsample.
+INT8_CONV_GRID = [
+    (3, 19, 1, 1, 0, 1, 1, 37, 45), (3, 64, 7, 2, 3, 1, 2, 67, 61),
+    (185, 38, 3, 1, 2, 2, 2, 23, 29), (200, 64, 7, 2, 3, 1, 1, 31, 27),
+    (3, 38, 3, 2, 2, 2, 2, 33, 41), (185, 19, 7, 1, 6, 2, 1, 19, 25),
+    (200, 38, 1, 1, 0, 1, 2, 21, 23), (200, 19, 3, 2, 1, 1, 2, 25, 21),
+    (185, 64, 1, 2, 0, 1, 1, 27, 35), (64, 256, 1, 2, 0, 1, 2, 46, 54),
+    (128, 512, 1, 1, 0, 1, 1, 9, 7), (384, 128, 3, 1, 1, 1, 1, 1, 1),
+]
+
+
+@pytest.mark.parametrize("narrow", [False, True])
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", INT8_CONV_GRID)
+def test_int8_conv_matches_plain(cuda, shape, out_dtype, narrow):
+    """The implicit-GEMM conv (im2col TMA boxes, zero borders from the
+    hardware, fused dequantize) equals its plain version exactly: the s32
+    sums are exact and the epilogue is the same float32 operations. Cp is
+    `padded_channels(cin)` (boxes of 32, 64 and 128 bytes), or with `narrow`
+    cin rounded up to 32 (32-byte boxes wherever Cp is not a multiple of
+    64)."""
+    cin, cout, k, stride, pad, dil, b, h, w = shape
+    cp = -(-cin // 32) * 32 if narrow else None
+    args = _int8_conv_operands(cuda, cin, cout, k, stride, pad, dil, b, h, w, seed=sum(shape),
+                               cp=cp)
+    before = int8_conv.launches
+    got = int8_conv(*args, out_dtype)
+    want = int8_conv_plain(*args, out_dtype)
+    torch.cuda.synchronize()
+    assert int8_conv.launches == before + 1
+    assert got.dtype == out_dtype and got.shape == want.shape
+    assert torch.equal(got, want)
+    no_bias = args[:3] + (None,) + args[4:]
+    assert torch.equal(int8_conv(*no_bias, out_dtype), int8_conv_plain(*no_bias, out_dtype))
+
+
+def test_int8_conv_matches_plain_at_every_flagship_shape(cuda):
+    """Every conv of the flagship step at 368x432, batch 8, on that conv's
+    own input shape: the kernel equals its plain version exactly."""
+    model = LightWeightOpenPose(backbone=VggTiny).to(cuda).eval()
+    shapes = []
+    hooks = [m.register_forward_pre_hook(
+        lambda mod, a: shapes.append((mod, tuple(a[0].shape))))
+        for m in model.modules() if isinstance(m, torch.nn.Conv2d)]
+    with torch.inference_mode():
+        model(torch.zeros(8, 368, 432, 3, device=cuda))
+    for hk in hooks:
+        hk.remove()
+    assert len(shapes) == 40
+    for i, (conv, (b, cin, h, w)) in enumerate(shapes):
+        args = _int8_conv_operands(cuda, cin, conv.out_channels, conv.kernel_size[0],
+                                   conv.stride[0], conv.padding[0], conv.dilation[0], b, h, w,
+                                   seed=i)
+        got = int8_conv(*args, torch.bfloat16)
+        assert torch.equal(got, int8_conv_plain(*args, torch.bfloat16)), (i, cin, h, w)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("c,layout", [(3, "nchw"), (37, "channels_last"), (64, "channels_last"),
+                                      (185, "channels_last"), (128, "strided"), (200, "strided")])
+def test_int8_quantize_matches_plain(cuda, dtype, c, layout):
+    """One pass from any NCHW view, ties and clipping included: the 4-channel
+    path, and (C a multiple of 16 on 16-byte-aligned channels-last pixels:
+    64, 128) the 16-channel path."""
+    rng = np.random.default_rng(c)
+    x = torch.from_numpy((rng.integers(-600, 601, (3, c, 13, 17)) / 4).astype(np.float32))
+    x = x.to(cuda, dtype)
+    if layout == "channels_last":
+        x = x.contiguous(memory_format=torch.channels_last)
+    elif layout == "strided":
+        x = x.contiguous(memory_format=torch.channels_last)[::2, :, 1:, ::3]
+    inv_s, cp = float(np.float32(2.0)), padded_channels(c)
+    before = int8_quantize.launches
+    got = int8_quantize(x, inv_s, cp)
+    want = int8_quantize_plain(x, inv_s, cp)
+    torch.cuda.synchronize()
+    assert int8_quantize.launches == before + 1
+    assert got.shape == want.shape and torch.equal(got, want)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("c,k,stride,pad,dil", [
+    (3, 3, 1, 1, 1), (3, 7, 2, 3, 1), (6, 3, 1, 2, 2), (12, 3, 2, 0, 1)])
+def test_int8_quantize_folded_matches_plain(cuda, dtype, c, k, stride, pad, dil):
+    """The folding quantize of a conv on few channels: each output pixel's
+    kh * kw * C filter values in (dy, dx, c) order, zero outside the image
+    and beyond K, equal to the plain quantize followed by im2col."""
+    rng = np.random.default_rng(c + k)
+    x = torch.from_numpy((rng.integers(-600, 601, (2, c, 21, 26)) / 4).astype(np.float32))
+    x = x.to(cuda, dtype).contiguous(memory_format=torch.channels_last)
+    fold = ((k, k), (stride, stride), (pad, pad), (dil, dil))
+    cp = padded_channels(k * k * c)
+    before = int8_quantize.launches
+    got = int8_quantize(x, 2.0, cp, fold)
+    want = int8_quantize_plain(x, 2.0, cp, fold)
+    torch.cuda.synchronize()
+    assert int8_quantize.launches == before + 1
+    assert got.shape == want.shape and torch.equal(got, want)
+
+
+def test_int8_kernels_refuse_what_they_do_not_take(cuda):
+    xq, wq, dq, bias, *geo = _int8_conv_operands(cuda, 32, 24, 3, 1, 1, 1, 1, 8, 8)
+    with pytest.raises(TypeError):
+        int8_conv(xq.float(), wq, dq, bias, *geo, torch.float32)
+    with pytest.raises(TypeError):
+        int8_conv(xq, wq, dq.double(), bias, *geo, torch.float32)
+    with pytest.raises(TypeError):
+        int8_conv(xq, wq, dq, bias, *geo, torch.float16)
+    odd = torch.empty(xq.numel() + 1, dtype=torch.int8, device=cuda)[1:].view(xq.shape)
+    with pytest.raises(ValueError, match="aligned"):
+        int8_conv(odd, wq, dq, bias, *geo, torch.float32)
+    with pytest.raises(ValueError, match="different devices"):
+        int8_conv(xq, wq.cpu(), dq, bias, *geo, torch.float32)
+    with pytest.raises(ValueError):
+        int8_conv(xq, wq[:, :, :, :16].contiguous(), dq, bias, *geo, torch.float32)
+    with pytest.raises(TypeError):
+        int8_quantize(torch.zeros(1, 3, 4, 4, device=cuda, dtype=torch.float64), 1.0, 32)
+    with pytest.raises(ValueError):
+        int8_quantize(torch.zeros(1, 40, 4, 4, device=cuda), 1.0, 32)
+    conv = torch.nn.Conv2d(8, 8, 3, padding=1, groups=4)
+    with pytest.raises(NotImplementedError, match="grouped"):
+        Int8Conv2d.from_conv(conv, np.zeros((3, 3, 2, 8), np.float32), None, 1.0)
+
+
 @pytest.mark.parametrize("cin,cout,k,stride,dtype", [
     (16, 24, 3, 1, torch.float32), (185, 128, 1, 1, torch.float32),
     (3, 64, 7, 2, torch.float32), (200, 38, 3, 1, torch.bfloat16),
@@ -342,36 +490,39 @@ def test_int8_gemm_refuses_what_it_does_not_take(cuda):
 def test_int8_conv_on_card_equals_cpu(cuda, cin, cout, k, stride, dtype):
     """The same Int8Conv2d and channels-last input on the card and on the
     CPU: the s32 sums are exact and the float32 epilogue is the same IEEE
-    operations, so the outputs are equal."""
+    operations, so the outputs are equal. The card runs one quantize and
+    one conv launch, and no GEMM."""
     rng = np.random.default_rng(cin + k)
     kernel = (rng.normal(0, 1, (k, k, cin, cout)) / np.sqrt(k * k * cin)).astype(np.float32)
     conv = torch.nn.Conv2d(cin, cout, k, stride=stride, padding=k // 2 if stride == 1 else 0)
     q = Int8Conv2d.from_conv(conv, kernel, rng.normal(0, 0.1, cout), 2.5)
     x = torch.from_numpy(rng.normal(0, 1, (2, cin, 23, 27)).astype(np.float32)).to(dtype)
-    before = int8_gemm.launches
+    before = int8_gemm.launches, int8_quantize.launches, int8_conv.launches
     with torch.inference_mode():
         got = q.to(cuda)(x.to(cuda).contiguous(memory_format=torch.channels_last))
         want = q.cpu()(x.contiguous(memory_format=torch.channels_last))
     torch.cuda.synchronize()
-    assert int8_gemm.launches == before + 1
+    assert (int8_gemm.launches, int8_quantize.launches, int8_conv.launches) == (
+        before[0], before[1] + 1, before[2] + 1)
     assert got.dtype == dtype and got.shape == want.shape
     assert torch.equal(got.cpu(), want)
 
 
 def test_int8_engine_on_card_matches_cpu(cuda):
     """The int8 f32 flagship (one scale table) in the plain and fused forms
-    on the card and on the CPU: every conv launches the GEMM (and the fused
-    stem conv1_pool once); the maps agree within the int8 noise (a last-
-    place difference between the devices' BatchNorms flips roundings that
-    grow through the network: chip_smoke.INT8_TOL), and both engines find
+    on the card and on the CPU: every conv launches the quantize and the
+    conv kernels once, never the GEMM (and the fused stem conv1_pool once);
+    the maps agree within the int8 noise (a last-place difference between
+    the devices' BatchNorms flips roundings that grow through the network:
+    chip_smoke.INT8_TOL), and both engines find
     the float engine's people."""
     frame = np.load(SYNTH_NPZ)["rgb"]
     hw = (368, 432)   # at 184x216 the synthetic people are too weak to survive int8
     batch = resize_bilinear(frame, hw)[None]
     for backbone, weights, n_convs in (
-            (None, FLAGSHIP_NPZ, 40),
+            (VggTiny, FLAGSHIP_NPZ, 40),
             (VggTinyFusedStem, remap_vggtiny_to_fused(FLAGSHIP_NPZ), 39)):
-        kw = {} if backbone is None else {"backbone": backbone}
+        kw = {"backbone": backbone}
         cpu = PoseEngine(LightWeightOpenPose(**kw), weights, input_hw=hw,
                          max_batch_size=1, device="cpu")
         people = cpu.inference([frame])[0]
@@ -381,11 +532,13 @@ def test_int8_engine_on_card_matches_cpu(cuda):
         for dev in (cuda, torch.device("cpu")):
             eng = PoseEngine(LightWeightOpenPose(**kw), weights, input_hw=hw,
                              max_batch_size=1, device=dev, quant_scales=scales)
-            before = int8_gemm.launches, conv1_pool.launches
+            before = (int8_conv.launches, int8_quantize.launches, int8_gemm.launches,
+                      conv1_pool.launches)
             eng.infer_batch_device(batch)
             on_card = dev.type == "cuda"
-            assert int8_gemm.launches == before[0] + on_card * n_convs
-            assert conv1_pool.launches == before[1] + (on_card and n_convs == 39)
+            assert (int8_conv.launches, int8_quantize.launches, int8_gemm.launches) == (
+                before[0] + on_card * n_convs, before[1] + on_card * n_convs, before[2])
+            assert conv1_pool.launches == before[3] + (on_card and n_convs == 39)
             found = find_people(people, eng.inference([frame])[0])
             assert found is not None and found <= INT8_TOL["xy"]
             with torch.inference_mode():

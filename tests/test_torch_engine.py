@@ -20,6 +20,7 @@ from hyperpose_tpu.models.backbones import VggTiny as JaxVggTiny
 from hyperpose_tpu.models.openpose import LightWeightOpenPose as JaxLwOpenPose
 from hyperpose_tpu.runtime.engine import PoseEngine as JaxPoseEngine
 from hyperpose_tpu.train.checkpoint import load_npz_tree
+from hyperpose_torch.models.backbones import VggTiny
 from hyperpose_torch.models.openpose import LightWeightOpenPose
 from hyperpose_torch.models.pifpaf import Pifpaf, pifpaf_fused_decode
 from hyperpose_torch.ops.image import resize_bilinear
@@ -39,7 +40,7 @@ def _jax_engine(hw, **kw):
 
 
 def _port_engine(hw, **kw):
-    return PoseEngine(LightWeightOpenPose(), FLAGSHIP_NPZ, input_hw=hw,
+    return PoseEngine(LightWeightOpenPose(backbone=VggTiny), FLAGSHIP_NPZ, input_hw=hw,
                       max_batch_size=1, device="cpu", **kw)
 
 
@@ -156,7 +157,7 @@ def test_entry_points_default_to_cuda():
     assert inspect.signature(PoseEngine).parameters["device"].default == "cuda"
     if not torch.cuda.is_available():
         with pytest.raises((AssertionError, RuntimeError)):
-            PoseEngine(LightWeightOpenPose(), max_batch_size=1)
+            PoseEngine(LightWeightOpenPose(backbone=VggTiny), max_batch_size=1)
 
 
 def test_rejected_arguments():
@@ -167,7 +168,7 @@ def test_rejected_arguments():
     with pytest.raises(ValueError):
         _port_engine((64, 72)).inference([np.zeros((8, 8, 3), np.uint8)] * 2)
     with pytest.raises(ValueError, match="float32"):   # bf16 weights, no checkpoint
-        PoseEngine(LightWeightOpenPose(dtype=torch.bfloat16), None, input_hw=(64, 72),
+        PoseEngine(LightWeightOpenPose(backbone=VggTiny, dtype=torch.bfloat16), None, input_hw=(64, 72),
                    max_batch_size=1, device="cpu", quant_scales={"cpm/init": 1.0})
     eng = _port_engine((64, 72))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
@@ -179,13 +180,13 @@ def test_rejected_arguments():
 def test_quant_scales_swap_every_calibrated_conv():
     """`quant_scales` (JAX `PoseEngine(quant_scales=...)`): every conv with
     a scale runs in int8, the engine keeps the table and its float32
-    weights, and the step decodes on the CPU through the GEMM's plain
-    version (no launch)."""
+    weights, and the step decodes on the CPU through the int8 kernels'
+    plain versions (no launch)."""
     from hyperpose_torch import quant
-    from hyperpose_torch.ops.kernels.int8_gemm import int8_gemm
+    from hyperpose_torch.ops.kernels.int8_gemm import int8_conv, int8_quantize
 
     x = torch.from_numpy(resize_bilinear(synth_frame_rgb(), (64, 72))[None])
-    scales = quant.calibrate(LightWeightOpenPose().eval(), [x.float() / 255.0])
+    scales = quant.calibrate(LightWeightOpenPose(backbone=VggTiny).eval(), [x.float() / 255.0])
     scales = {k: v for k, v in scales.items() if k != "ref_heads/paf2"}
     eng = _port_engine((64, 72), quant_scales=scales)
     convs = {n: type(m) for n, m in eng.model.named_modules()
@@ -194,9 +195,10 @@ def test_quant_scales_swap_every_calibrated_conv():
     assert convs.pop("ref_heads.paf2") is torch.nn.Conv2d
     assert all(t is quant.Int8Conv2d for t in convs.values())
     assert sorted(eng.variables) == sorted(flagship_flat())
-    before = int8_gemm.launches
+    before = int8_conv.launches, int8_quantize.launches
     d = eng.infer_batch_device(x.numpy())
-    assert int8_gemm.launches == before and d.coords.shape == (1, 32, 18, 2)
+    assert (int8_conv.launches, int8_quantize.launches) == before
+    assert d.coords.shape == (1, 32, 18, 2)
 
 
 # -- PifPaf through fused_decode -------------------------------------------------

@@ -38,7 +38,9 @@ from hyperpose_torch.models.backbones import (
 )
 from hyperpose_torch.models.openpose import LightWeightOpenPose
 from hyperpose_torch.ops.image import resize_bilinear
-from hyperpose_torch.ops.kernels.int8_gemm import int8_gemm, int8_gemm_plain
+from hyperpose_torch.ops.kernels.int8_gemm import (
+    int8_conv_sums_plain, int8_gemm, int8_gemm_plain, int8_quantize_plain,
+)
 from hyperpose_torch.utils.weights import load_flax_weights
 
 HW = (64, 80)   # tests/test_quant.py's size
@@ -105,51 +107,64 @@ class _OneConv(fnn.Module):
     features: int
     kernel: tuple
     strides: int = 1
+    dilation: int = 1
     dtype: jnp.dtype = jnp.float32
 
     @fnn.compact
     def __call__(self, x):
         return fnn.Conv(self.features, self.kernel, strides=self.strides,
-                        padding="SAME", dtype=self.dtype, name="conv")(x)
+                        kernel_dilation=self.dilation, padding="SAME", dtype=self.dtype,
+                        name="conv")(x)
 
 
 class _PortOneConv(torch.nn.Module):
     """One conv with XLA's SAME padding: padded in float first at stride 2,
     as the port's ConvBN does."""
 
-    def __init__(self, cin, cout, k, stride, dtype):
+    def __init__(self, cin, cout, k, stride, dilation, dtype):
         super().__init__()
-        self.k, self.stride = k, stride
-        self.conv = torch.nn.Conv2d(cin, cout, k, stride=stride,
-                                    padding=k // 2 if stride == 1 else 0, dtype=dtype)
+        self.span, self.stride = dilation * (k - 1) + 1, stride
+        self.conv = torch.nn.Conv2d(cin, cout, k, stride=stride, dilation=dilation,
+                                    padding=self.span // 2 if stride == 1 else 0, dtype=dtype)
 
     def forward(self, x):
         if self.stride > 1:
-            x = F.pad(x, same_pads(x.shape[-2:], self.k, self.stride))
+            x = F.pad(x, same_pads(x.shape[-2:], self.span, self.stride))
         return self.conv(x)
 
 
-CONV_CASES = {   # cin, cout, kernel, stride, input dtype
-    "3x3": (16, 24, 3, 1, "float32"),
-    "1x1": (64, 19, 1, 1, "float32"),
-    "3x3_cin3": (3, 32, 3, 1, "float32"),         # K = 27 -> 32
-    "1x1_cin185": (185, 128, 1, 1, "float32"),    # K = 185 -> 192 (ref_b0.init)
-    "7x7_stride2": (3, 64, 7, 2, "float32"),      # the ResNet50 stem: pads 2, 3
-    "3x3_bf16": (32, 40, 3, 1, "bfloat16"),
+CONV_CASES = {   # cin, cout, kernel, stride, input dtype, dilation, batch, (H, W)
+    "3x3": (16, 24, 3, 1, "float32", 1, 2, HW),
+    "1x1": (64, 19, 1, 1, "float32", 1, 2, HW),
+    "3x3_cin3": (3, 32, 3, 1, "float32", 1, 2, HW),         # K = 27 -> 9 taps of 32
+    "1x1_cin185": (185, 128, 1, 1, "float32", 1, 2, HW),    # Cp = 192 (ref_b0.init)
+    "7x7_stride2": (3, 64, 7, 2, "float32", 1, 2, HW),      # the ResNet50 stem: pads 2, 3
+    "3x3_bf16": (32, 40, 3, 1, "bfloat16", 1, 2, HW),
+    # The padded layouts (Cp = 32, 192, 224; Np = 24, 40, 64) over odd sizes,
+    # both strides, dilation 2 and batch 1:
+    "1x1_cin3_cout19_stride2": (3, 19, 1, 2, "float32", 1, 1, (37, 45)),
+    "3x3_cin185_cout38_dil2": (185, 38, 3, 1, "float32", 2, 2, (23, 29)),
+    "7x7_cin200_cout64_stride2": (200, 64, 7, 2, "float32", 1, 1, (31, 27)),
+    "3x3_cin3_cout64_stride2_dil2": (3, 64, 3, 2, "float32", 2, 2, (33, 41)),
+    "7x7_cin185_cout19_dil2_bf16": (185, 19, 7, 1, "bfloat16", 2, 1, (19, 25)),
+    "1x1_cin200_cout38": (200, 38, 1, 1, "float32", 1, 2, (21, 23)),
+    "3x3_cin200_cout19_stride2_bf16": (200, 19, 3, 2, "bfloat16", 1, 2, (25, 21)),
+    "7x7_cin3_cout38_dil2": (3, 38, 7, 1, "float32", 2, 1, (29, 33)),
+    "1x1_cin185_cout64_stride2_dil2_bf16": (185, 64, 1, 2, "bfloat16", 2, 1, (27, 35)),
 }
 
 
 def _conv_run(case):
-    cin, cout, k, stride, dt = CONV_CASES[case]
+    cin, cout, k, stride, dt, dil, batch, hw = CONV_CASES[case]
     rng = np.random.default_rng(cin * 7 + k)
-    x = rng.normal(0, 1, (2, *HW, cin)).astype(np.float32)
+    x = rng.normal(0, 1, (batch, *hw, cin)).astype(np.float32)
     kernel = (rng.normal(0, 1, (k, k, cin, cout)) / np.sqrt(k * k * cin)).astype(np.float32)
     bias = rng.normal(0, 0.1, cout).astype(np.float32)
     jdt = jnp.bfloat16 if dt == "bfloat16" else jnp.float32
     xj = jnp.asarray(x, jdt)
     s_abs = float(jnp.max(jnp.abs(xj.astype(jnp.float32))))
     variables = {"params": {"conv": {"kernel": kernel, "bias": bias}}}
-    jmod = _OneConv(cout, (k, k), stride, jdt)
+    jmod = _OneConv(cout, (k, k), stride, dil, jdt)
     want = jquant.quantized_apply(jmod, {"conv": s_abs})(variables, xj)
     # JAX's s32 sums, from _quantized_conv's own formulas (quant.py:130-153).
     s_in = s_abs / 127.0
@@ -159,26 +174,30 @@ def _conv_run(case):
                    ).astype(jnp.int8)
     dn = lax.conv_dimension_numbers(x_q.shape, w_q.shape, ("NHWC", "HWIO", "NHWC"))
     acc_want = lax.conv_general_dilated(x_q, w_q, (stride, stride), "SAME",
-                                        dimension_numbers=dn,
+                                        rhs_dilation=(dil, dil), dimension_numbers=dn,
                                         preferred_element_type=jnp.int32)
 
     tdt = getattr(torch, dt)
-    model = _PortOneConv(cin, cout, k, stride, tdt).eval()
+    model = _PortOneConv(cin, cout, k, stride, dil, tdt).eval()
     quant.quantize_model(model, {"conv": s_abs},
                          weights={"params/conv/kernel": kernel, "params/conv/bias": bias})
     xt = torch.from_numpy(x).to(tdt).permute(0, 3, 1, 2)
     with torch.inference_mode():
         got = model(xt)
         q = model.conv
-        xin = F.pad(xt, same_pads(xt.shape[-2:], k, stride)) if stride > 1 else xt
-        acc = int8_gemm(q.im2col(q.quantize(xin)), q.w_q)
+        xin = F.pad(xt, same_pads(xt.shape[-2:], model.span, stride)) if stride > 1 else xt
+        acc = int8_conv_sums_plain(q.quantize(xin), q.w_taps, *q.taps_geometry)[:, :cout]
     return q, got, np.asarray(want.astype(jnp.float32)), acc, np.asarray(acc_want)
 
 
 @pytest.mark.parametrize("case", list(CONV_CASES))
 def test_int8_conv_matches_jax_quantized_conv(case):
+    """Through the padded layouts: the weights [Np, kh, kw, Cp] with Np a
+    multiple of 8 and Cp of 32, the quantized buffer [B, H, W, Cp] without
+    spatial padding, and `int8_conv_plain`'s dequantize."""
     q, got, want, acc, acc_want = _conv_run(case)
-    assert isinstance(q, quant.Int8Conv2d) and q.w_q.shape[1] % 32 == 0
+    assert isinstance(q, quant.Int8Conv2d)
+    assert q.w_taps.shape[0] % 8 == 0 and q.w_taps.shape[3] % 32 == 0
     b, ho, wo, cout = acc_want.shape
     np.testing.assert_array_equal(acc.numpy().reshape(b, ho, wo, cout), acc_want)
     got = got.permute(0, 2, 3, 1)
@@ -187,6 +206,30 @@ def test_int8_conv_matches_jax_quantized_conv(case):
         assert bf16_ulps(got, torch.from_numpy(want).bfloat16()) <= 1
     else:
         np.testing.assert_array_max_ulp(got.numpy(), want, maxulp=1)
+
+
+@pytest.mark.parametrize("s_in", [0.5, 0.0123])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_int8_quantize_plain_matches_jax(dtype, s_in):
+    """`int8_quantize_plain` equals JAX's x_q (`quant.py:139-141`) on a
+    channels-last input: exact .5 ties (x = n / 2 * s_in, so x * inv_s lands
+    on halves), values beyond +-127 s_in, and zeros in channels >= C."""
+    rng = np.random.default_rng(17)
+    c = 37
+    x = (rng.integers(-600, 601, (2, 5, 7, c)) / 4 * (2 * s_in)).astype(np.float32)
+    x[0, 0, 0, :8] = np.array([0.25, -0.25, 0.75, -0.75, 63.25, -63.75, 100, -1e3]) * 2 * s_in
+    jdt = jnp.bfloat16 if dtype == "bfloat16" else jnp.float32
+    xj = jnp.asarray(x, jdt)
+    want = np.asarray(jnp.clip(jnp.round(xj.astype(jnp.float32) * (1.0 / s_in)), -127, 127
+                               ).astype(jnp.int8))
+    xt = torch.from_numpy(np.asarray(xj.astype(jnp.float32))).to(getattr(torch, dtype))
+    got = int8_quantize_plain(xt.permute(0, 3, 1, 2), float(np.float32(1.0 / s_in)), 64)
+    assert got.dtype == torch.int8 and tuple(got.shape) == (2, 5, 7, 64)
+    np.testing.assert_array_equal(got[..., :c].numpy(), want)
+    assert not got[..., c:].any()
+    v = np.asarray(xj.astype(jnp.float32)) * np.float32(1.0 / s_in)
+    assert (np.abs(want) == 127).any()
+    assert s_in != 0.5 or (np.abs(v - np.trunc(v)) == 0.5).any()
 
 
 def test_int8_conv_output_is_a_channels_last_view():
@@ -200,7 +243,7 @@ def test_int8_conv_output_is_a_channels_last_view():
 def test_grouped_int8_conv_raises():
     conv = torch.nn.Conv2d(8, 8, 3, padding=1, groups=4)
     kernel = np.zeros((3, 3, 2, 8), np.float32)
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 #7"):
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 #2"):
         quant.Int8Conv2d.from_conv(conv, kernel, None, 1.0)
 
 
@@ -308,9 +351,8 @@ def test_bf16_model_quantizes_the_float32_weights():
     quant.quantize_model(model, scales, weights=pflat)
     q = model.backbone.block_2.conv
     w_q, s_w = quant.weight_scales(pflat["params/backbone/block_2/conv/kernel"])
-    k = w_q.size // w_q.shape[-1]
-    assert torch.equal(q.w_q[:, :k], torch.from_numpy(
-        w_q.transpose(3, 0, 1, 2).reshape(w_q.shape[-1], k)))
+    cin, cout = w_q.shape[2:]
+    assert torch.equal(q.w_taps[:cout, :, :, :cin], torch.from_numpy(w_q.transpose(3, 0, 1, 2)))
     assert torch.equal(q.s_w, torch.from_numpy(s_w))
     assert torch.equal(model.cpm.init.bias,
                        torch.from_numpy(pflat["params/cpm/init/bias"]))
@@ -346,7 +388,7 @@ def test_jax_artifact_loads_in_the_port(tmp_path):
     xt = torch.from_numpy(x)
     outs = []
     for w in (pflat, deq):
-        m = load_flax_weights(LightWeightOpenPose(), w).eval()
+        m = load_flax_weights(LightWeightOpenPose(backbone=VggTiny), w).eval()
         quant.quantize_model(m, loaded_scales, weights=w)
         with torch.inference_mode():
             outs.append(m(xt)["conf_map"])

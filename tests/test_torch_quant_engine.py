@@ -25,6 +25,7 @@ from torch_parity import FLAGSHIP_NPZ, nest, synth_frame_rgb
 from hyperpose_tpu import quant as jquant
 from hyperpose_tpu.runtime.engine import PoseEngine as JaxPoseEngine
 from hyperpose_torch import quant
+from hyperpose_torch.models.backbones import VggTiny
 from hyperpose_torch.models.openpose import LightWeightOpenPose
 from hyperpose_torch.models.pifpaf import Pifpaf, pifpaf_fused_decode
 from hyperpose_torch.ops import pifpaf_decode as PD
@@ -155,16 +156,15 @@ def test_bf16_engine_quantizes_its_float32_checkpoint():
     weights its model holds."""
     scales = {"backbone/block_3/conv": 3.0}
     with pytest.raises(ValueError, match="float32"):
-        PoseEngine(LightWeightOpenPose(dtype=torch.bfloat16), None, input_hw=(64, 72),
+        PoseEngine(LightWeightOpenPose(backbone=VggTiny, dtype=torch.bfloat16), None, input_hw=(64, 72),
                    max_batch_size=1, device="cpu", quant_scales=scales)
-    eng = PoseEngine(LightWeightOpenPose(dtype=torch.bfloat16), FLAGSHIP_NPZ,
+    eng = PoseEngine(LightWeightOpenPose(backbone=VggTiny, dtype=torch.bfloat16), FLAGSHIP_NPZ,
                      input_hw=(64, 72), max_batch_size=1, device="cpu",
                      quant_scales=scales)
     q = eng.model.backbone.block_3.conv
     w_q, s_w = quant.weight_scales(eng.variables["params/backbone/block_3/conv/kernel"])
     assert torch.equal(q.s_w, torch.from_numpy(s_w))
-    assert torch.equal(q.w_q[:, :w_q.size // 128], torch.from_numpy(
-        w_q.transpose(3, 0, 1, 2).reshape(128, -1)))
+    assert torch.equal(q.w_taps[:128, :, :, :128], torch.from_numpy(w_q.transpose(3, 0, 1, 2)))
     assert _n_int8(eng.model) == 1 and eng.quant_scales == scales
 
 
@@ -173,7 +173,7 @@ def test_int8_flagship_finds_the_two_people():
     the float engine finds."""
     hw = (368, 432)
     frame = synth_frame_rgb()
-    eng = PoseEngine(LightWeightOpenPose(), FLAGSHIP_NPZ, input_hw=hw,
+    eng = PoseEngine(LightWeightOpenPose(backbone=VggTiny), FLAGSHIP_NPZ, input_hw=hw,
                      max_batch_size=1, device="cpu")
     qeng = quant.quantize_engine(eng, [resize_bilinear(frame, hw)[None]])
     want, got = eng.inference([frame])[0], qeng.inference([frame])[0]

@@ -14,7 +14,9 @@ import numpy as np
 import pytest
 
 from torch_parity import FLAGSHIP_NPZ, SYNTH_NPZ, flagship_flat
-from hyperpose_torch.models.backbones import VggTinyFusedStem, remap_vggtiny_to_fused
+from hyperpose_torch.models.backbones import (
+    VggTiny, VggTinyFusedStem, remap_vggtiny_to_fused,
+)
 from hyperpose_torch.models.openpose import LightWeightOpenPose
 from hyperpose_torch.models.pifpaf import Pifpaf, pifpaf_fused_decode
 from hyperpose_torch.ops.image import letterbox_resize, resize_bilinear
@@ -283,7 +285,7 @@ def _engine(stem: str, **kw):
         model = LightWeightOpenPose(backbone=VggTinyFusedStem)
         weights = remap_vggtiny_to_fused(flagship_flat())
     else:
-        model, weights = LightWeightOpenPose(), FLAGSHIP_NPZ
+        model, weights = LightWeightOpenPose(backbone=VggTiny), FLAGSHIP_NPZ
     return PoseEngine(model, weights, input_hw=(96, 112), max_batch_size=2,
                       device="cpu", **kw)
 

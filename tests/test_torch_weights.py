@@ -4,6 +4,7 @@ import pytest
 import torch
 
 from torch_parity import FLAGSHIP_NPZ, flagship_flat, nest
+from hyperpose_torch.models.backbones import VggTiny
 from hyperpose_torch.models.openpose import LightWeightOpenPose
 from hyperpose_torch.utils.weights import (
     flax_to_state_dict, load_flax_weights, save_flax_npz, state_dict_to_flax,
@@ -18,7 +19,7 @@ def test_every_flagship_key_is_consumed():
     flat = flagship_flat()
     assert len(flat) == 146
     sd = flax_to_state_dict(FLAGSHIP_NPZ)
-    model = LightWeightOpenPose()
+    model = LightWeightOpenPose(backbone=VggTiny)
     assert len(sd) == 146
     assert set(sd) == _trainable_keys(model)
     load_flax_weights(model, FLAGSHIP_NPZ)
@@ -31,7 +32,7 @@ def test_layout_conversion():
     """HWIO kernels become OIHW; BN scale/bias/mean/var land on
     weight/bias/running_mean/running_var with the flax eps."""
     flat = flagship_flat()
-    model = load_flax_weights(LightWeightOpenPose(), FLAGSHIP_NPZ)
+    model = load_flax_weights(LightWeightOpenPose(backbone=VggTiny), FLAGSHIP_NPZ)
     conv = model.backbone.block_1.conv.weight.detach().numpy()
     np.testing.assert_array_equal(
         conv, flat["params/backbone/block_1/conv/kernel"].transpose(3, 2, 0, 1))
@@ -49,7 +50,7 @@ def test_layout_conversion():
 def test_round_trip_is_bit_exact(source, tmp_path):
     flat = flagship_flat()
     src = {"path": FLAGSHIP_NPZ, "flat": flat, "nested": nest(flat)}[source]
-    model = load_flax_weights(LightWeightOpenPose(), src)
+    model = load_flax_weights(LightWeightOpenPose(backbone=VggTiny), src)
     back = state_dict_to_flax(model.state_dict())
     assert set(back) == set(flat)
     for k, v in flat.items():
@@ -67,7 +68,7 @@ def test_jax_reads_port_weights(tmp_path):
     from hyperpose_tpu.train.checkpoint import load_npz_tree
 
     path = tmp_path / "w.npz"
-    save_flax_npz(load_flax_weights(LightWeightOpenPose(), FLAGSHIP_NPZ), path)
+    save_flax_npz(load_flax_weights(LightWeightOpenPose(backbone=VggTiny), FLAGSHIP_NPZ), path)
     tree = load_npz_tree(str(path))
     ref = nest(flagship_flat())
     assert tree.keys() == ref.keys()
@@ -80,14 +81,14 @@ def test_missing_key_raises():
     flat = flagship_flat()
     del flat["batch_stats/backbone/block_3/bn/var"]
     with pytest.raises(KeyError, match="missing"):
-        load_flax_weights(LightWeightOpenPose(), flat)
+        load_flax_weights(LightWeightOpenPose(backbone=VggTiny), flat)
 
 
 def test_unexpected_key_raises():
     flat = flagship_flat()
     flat["params/backbone/block_9/conv/kernel"] = np.zeros((3, 3, 4, 4), np.float32)
     with pytest.raises(KeyError, match="unexpected"):
-        load_flax_weights(LightWeightOpenPose(), flat)
+        load_flax_weights(LightWeightOpenPose(backbone=VggTiny), flat)
 
 
 def test_unmappable_key_raises():
@@ -101,11 +102,11 @@ def test_shape_mismatch_raises():
     flat = flagship_flat()
     flat["params/cpm/init/bias"] = np.zeros(64, np.float32)
     with pytest.raises(ValueError, match="shape"):
-        load_flax_weights(LightWeightOpenPose(), flat)
+        load_flax_weights(LightWeightOpenPose(backbone=VggTiny), flat)
 
 
 def test_bf16_model_takes_f32_weights():
-    model = load_flax_weights(LightWeightOpenPose(dtype=torch.bfloat16), FLAGSHIP_NPZ)
+    model = load_flax_weights(LightWeightOpenPose(backbone=VggTiny, dtype=torch.bfloat16), FLAGSHIP_NPZ)
     w = model.backbone.block_0.conv.weight
     assert w.dtype == torch.bfloat16
     ref = torch.from_numpy(
