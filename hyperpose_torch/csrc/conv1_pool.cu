@@ -44,11 +44,10 @@
 // shared memory in chunks of 32; its bound is 0.93 ms of operations at the
 // 67 TFLOP/s of float32.
 //
-// hp_stem_gemm is the bare mainloop of the bf16 path, without masks or pool:
-// a [G, M, 384] @ w [384, 128] -> [G, M, 128] bf16 (float32 sums, rounded
-// once), the counterpart of scripts/probe_mosaic_matmul.py
-// pallas_batch_matmul. It separates the mainloop's rate from the masks and
-// the epilogue.
+// The same GEMM without masks or pool, a [M, 384] @ [384, 128] product,
+// is csrc/stem_gemm.cu (the port of the TPU matmul probe): it measures how
+// close a plain bf16 GEMM of this shape comes to streaming device memory at
+// full rate, on wgmma fed by TMA.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -378,81 +377,6 @@ __global__ void __launch_bounds__(kTcThreads, 1) conv1_pool_bf16_kernel(
   }
 }
 
-// The bare mainloop: rows of a [M, 384] into [M, 128]. A warp's unit is 16
-// rows; its three 128-deep slices (dy) stream through a ring of three
-// 16-row planes (rows 0-7 in the plane's first tile, 8-15 in its second),
-// two slices ahead of the MMAs.
-__device__ __forceinline__ void stage_plane(uint32_t plane,
-                                            const bf16_t* __restrict__ a,
-                                            int64_t m0, int64_t M, int dy,
-                                            int lane) {
-#pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    const int idx = lane + 32 * i;
-    const int row = idx >> 4, ch = idx & 15;
-    const int64_t m = m0 + row;
-    const bool ok = m < M;
-    const bf16_t* src = ok ? a + m * kK + dy * 128 + ch * 8 : a;
-    cp_async16(plane + row * kRowBytes + ((ch ^ (row & 7)) << 4), src, ok);
-  }
-}
-
-__global__ void __launch_bounds__(kTcThreads, 1) stem_gemm_kernel(
-    const bf16_t* __restrict__ a, int64_t M, const bf16_t* __restrict__ w,
-    bf16_t* __restrict__ out) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  const int lane = threadIdx.x & 31;
-  stage_weights(reinterpret_cast<bf16_t*>(smem), w);
-  __syncthreads();
-  const uint4* wf = reinterpret_cast<const uint4*>(smem);
-  const uint32_t ring =
-      smem_u32(smem + kWBytes + (threadIdx.x >> 5) * kWarpRing);
-  constexpr int kPlane = 2 * kTile;
-  const int g = lane >> 2, t4 = lane & 3;
-
-  int64_t u0, u1;
-  warp_range((M + 15) / 16, u0, u1);
-  const int64_t n = 3 * (u1 - u0);  // slices of this warp, in order
-  // Slice j is cp.async group j: two groups ahead, then one per iteration.
-  for (int64_t j = 0; j < 2; ++j) {
-    if (j < n) {
-      stage_plane(ring + static_cast<uint32_t>(j) * kPlane, a, 16 * (u0 + j / 3),
-                  M, static_cast<int>(j % 3), lane);
-    }
-    cp_commit();
-  }
-  float acc[16][4];
-  for (int64_t j = 0; j < n; ++j) {
-    if (j + 2 < n) {
-      stage_plane(ring + ((j + 2) % 3) * kPlane, a, 16 * (u0 + (j + 2) / 3), M,
-                  static_cast<int>((j + 2) % 3), lane);
-    }
-    cp_commit();
-    cp_wait<2>();  // groups j+1 and j+2 may still be in flight
-    __syncwarp();
-    const int dy = static_cast<int>(j % 3);
-    if (dy == 0) zero(acc);
-    const uint32_t plane = ring + (j % 3) * kPlane;
-    mma_k128(acc, plane, plane + kTile, wf + dy * 8 * 8 * 32, lane);
-    if (dy == 2) {
-      const int64_t m = 16 * (u0 + j / 3) + g;
-#pragma unroll
-      for (int t = 0; t < 16; ++t) {
-        if (m < M) {
-          *reinterpret_cast<__nv_bfloat162*>(out + m * 128 + 8 * t + 2 * t4) =
-              __floats2bfloat162_rn(acc[t][0], acc[t][1]);
-        }
-        if (m + 8 < M) {
-          *reinterpret_cast<__nv_bfloat162*>(out + (m + 8) * 128 + 8 * t +
-                                             2 * t4) =
-              __floats2bfloat162_rn(acc[t][2], acc[t][3]);
-        }
-      }
-    }
-    __syncwarp();  // the plane is read before it is refilled
-  }
-}
-
 // Persistent grid: at most one block per SM, none without work.
 int tc_blocks(int64_t units, int& blocks) {
   int dev = 0, sms = 0;
@@ -504,27 +428,5 @@ extern "C" int hp_conv1_pool(const void* a, int B, int H, int Q, int64_t sb,
         static_cast<const float*>(a), H, Q, sb, sh, sq,
         static_cast<const float*>(w), bp, static_cast<float*>(out));
   }
-  return static_cast<int>(cudaGetLastError());
-}
-
-// a: contiguous 16-byte aligned bf16 [M, 384] (a [G, M', 384] batch with
-// M = G * M'); w: contiguous 16-byte aligned bf16 [384, 128]; out:
-// contiguous bf16 [M, 128]. Returns cudaGetLastError() after the launch.
-extern "C" int hp_stem_gemm(const void* a, int64_t M, const void* w, void* out,
-                            void* stream) {
-  if (M < 0) return static_cast<int>(cudaErrorInvalidValue);
-  if (M == 0) return static_cast<int>(cudaGetLastError());
-  int blocks = 0;
-  int rc = tc_blocks((M + 15) / 16, blocks);
-  if (rc == 0) {
-    rc = static_cast<int>(cudaFuncSetAttribute(
-        stem_gemm_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        kTcSmem));
-  }
-  if (rc != 0) return rc;
-  stem_gemm_kernel<<<blocks, kTcThreads, kTcSmem,
-                     static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const bf16_t*>(a), M, static_cast<const bf16_t*>(w),
-      static_cast<bf16_t*>(out));
   return static_cast<int>(cudaGetLastError());
 }

@@ -2,11 +2,12 @@
 
 Each source `hyperpose_torch/csrc/<name>.cu` exposes a plain C interface and
 is compiled by `nvcc` for Hopper (sm_90a) into its own shared library, which
-is loaded with ctypes. Libraries go to `build/hyperpose_torch/` beside the
-package (the repo's `.gitignore` lists `build/`); the file name carries a hash
-of the source and the flags, so an edited source is rebuilt and never
-confused with a stale library. The first call builds: nothing happens when a
-module is imported.
+is loaded with ctypes; sources may include the shared headers `csrc/*.cuh`.
+Libraries go to `build/hyperpose_torch/` beside the package (the repo's
+`.gitignore` lists `build/`); the file name carries a hash of the source,
+every header and the flags, so an edited source or header is rebuilt and
+never confused with a stale library. The first call builds: nothing happens
+when a module is imported.
 """
 from __future__ import annotations
 
@@ -20,7 +21,7 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parents[2] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "hyperpose_torch"
-KERNELS = ("line_gather", "peak_topk", "conv1_pool", "grow", "int8_gemm")
+KERNELS = ("line_gather", "peak_topk", "conv1_pool", "stem_gemm", "grow", "int8_gemm")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -41,10 +42,11 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(
-        src.read_bytes() + " ".join(NVCC_FLAGS).encode()
-    ).hexdigest()[:16]
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode() + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    digest = h.hexdigest()[:16]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 
 

@@ -17,9 +17,11 @@ FMA; see the source for the bounds. Zero lanes 0-31 at q = 0 and 96-127 at
 q = Q-1 (conv0p evaluated them outside the image) and the rows -1 and H are
 applied as masks on load, not as copies of the input.
 
-`stem_gemm` is the bf16 path's bare mainloop, without masks or pool: the
-counterpart of the TPU probe `scripts/probe_mosaic_matmul.py`
-`pallas_batch_matmul`, [G, M, 384] @ [384, 128] -> [G, M, 128].
+`stem_gemm` is the same GEMM without masks or pool, [G, M, 384] @ [384, 128]
+-> [G, M, 128] in bf16: the counterpart of the TPU probe
+`scripts/probe_mosaic_matmul.py` `pallas_batch_matmul`, on its own kernel
+(`csrc/stem_gemm.cu`: `wgmma` fed by TMA, the weights resident in shared
+memory, TMA-stored output tiles).
 """
 from __future__ import annotations
 
@@ -129,8 +131,9 @@ def stem_gemm_plain(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 
 def stem_gemm(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """`stem_gemm_plain`'s contract. CPU tensors take the plain version;
-    CUDA tensors launch `hp_stem_gemm`, which takes contiguous, 16-byte
-    aligned bf16 operands and raises on anything else."""
+    CUDA tensors launch `hp_stem_gemm` (`csrc/stem_gemm.cu`), which takes
+    contiguous, 16-byte aligned bf16 operands and raises on anything
+    else."""
     if a.device.type == "cpu":
         return stem_gemm_plain(a, w)
     if a.device.type != "cuda":
@@ -148,7 +151,7 @@ def stem_gemm(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
         raise ValueError("stem_gemm: a and w must be contiguous and 16-byte aligned")
     g, m, _ = a.shape
     out = torch.empty((g, m, 128), dtype=a.dtype, device=a.device)
-    lib = build.load("conv1_pool")
+    lib = build.load("stem_gemm")
     fn = lib.hp_stem_gemm
     fn.argtypes = [ctypes.c_void_p, ctypes.c_int64] + [ctypes.c_void_p] * 3
     fn.restype = ctypes.c_int

@@ -19,9 +19,14 @@ gather (reference: src/post_process.hpp:56-187, src/cudnn_kernel_pool.hpp).
 On the card (`csrc/peak_topk.cu`) one block owns one (image, part) plane and
 keeps the plane, its smoothed copy and a scratch plane in shared memory
 (30 KB at 46x54), so the map is read from device memory once and only the K
-results go back. It is bound by those bytes; the K block-wide argmax scans
-run out of shared memory. The plain version runs the same arithmetic as ~50
-small tensor ops.
+results go back. Its time is one block's chain of dependent steps. The K
+argmax rounds are written out in a fixed number of steps whatever K is: the
+survivors of the tie-break never touch, their values lie above `_NEG` (the
+threshold does) and every other pixel holds `_NEG`, so the rounds are the
+survivors stably sorted by (value desc, index asc), then fillers at `_NEG`
+(`select_peaks` states the rule). The kernel ranks each survivor by
+counting those that beat it. The plain version runs the same arithmetic as
+~50 small tensor ops.
 
 `peak_candidates` replaces the Pallas TPU kernel `fused_peak_candidates`
 (same file), the front end of the decoder's `use_pallas_peaks` mode: the
@@ -98,7 +103,15 @@ def select_peaks(
     lowest index; a chosen pixel is set to `taken`), then the quadratic
     sub-pixel fit on `smoothed` and the gather of `raw` (both [B, P, H*W]).
     zero=True reads neighbours outside the plane as 0, else at the clipped
-    flat index. Returns (xy [B, P, K, 2], raw [B, P, K], sval [B, P, K])."""
+    flat index. Returns (xy [B, P, K, 2], raw [B, P, K], sval [B, P, K]).
+
+    Where every pixel holds either `_NEG` or a value above it (n of them),
+    the rounds equal the first K of those n pixels stably sorted by (value
+    desc, index asc), then K - n fillers of value `_NEG`: pixel 0 each time
+    when taken == _NEG (a taken pixel falls back to `_NEG`, and pixel 0 is
+    the lowest index at `_NEG`), else (taken below `_NEG`) the `_NEG`
+    pixels in index order. The CUDA kernel writes that rule out
+    (tests/test_torch_peak_select.py holds the two equal)."""
     hw = h * w
     iota = torch.arange(hw, device=ranked.device)
     cur, vals, idxs = ranked, [], []
@@ -150,9 +163,13 @@ def peak_topk(
     conf: torch.Tensor, k: int = 16, ksize: int = 5, sigma: float = 0.75,
     thresh: float = 0.05, border: str = "reflect",
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """`peak_topk_plain`'s contract. CPU tensors take the plain version;
-    CUDA tensors launch the kernel, which raises if it cannot run. `conf`
-    may be a strided view (the decoder passes conf[..., :P])."""
+    """`peak_topk_plain`'s contract for thresh > _NEG, which the kernel's
+    selection relies on (on either device a lower threshold raises). CPU
+    tensors take the plain version; CUDA tensors launch the kernel, which
+    raises if it cannot run. `conf` may be a strided view (the decoder
+    passes conf[..., :P])."""
+    if not thresh > _NEG:
+        raise ValueError(f"peak_topk: thresh={thresh} must exceed {_NEG}")
     if conf.device.type == "cpu":
         return peak_topk_plain(conf, k, ksize, sigma, thresh, border)
     if conf.device.type != "cuda":

@@ -73,6 +73,12 @@ class PafDecoderConfig:
     gather_bf16: bool = True   # round the sampled PAF values to bf16
     gather_backend: str = "auto"
 
+    def __post_init__(self):
+        # peak_topk's selection holds only above the sentinel; refuse at
+        # construction on every device rather than at the first decode.
+        if not self.conf_thresh > _NEG:
+            raise ValueError(f"conf_thresh={self.conf_thresh} must exceed {_NEG}")
+
     def replace(self, **kw) -> "PafDecoderConfig":
         return dataclasses.replace(self, **kw)
 

@@ -7,9 +7,9 @@ JAX it runs as
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py -q
 
-Tolerances: line_gather exact; peak_topk valid masks exact, xy atol 1e-4, raw
-exact, and peak_candidates exact (the kernels repeat the plain versions'
-float32 operations in the same order); conv1_pool atol and rtol 1e-4 in f32
+Tolerances: line_gather exact; peak_topk exact (xy, raw and sval, filler
+slots included) and peak_candidates exact (the kernels repeat the plain
+versions' float32 operations in the same order); conv1_pool atol and rtol 1e-4 in f32
 (384-term sums in another order) and 1e-2 in bf16; in bf16 conv1_pool and
 stem_gemm lie at most one bf16 ulp from their plain versions (the tensor
 cores sum the float32 products in another order, so a sum next to a
@@ -37,8 +37,8 @@ import torch
 from torch_parity import FLAGSHIP_NPZ, SYNTH_NPZ, tie_maps
 from torch_measures import SUM_ORDER, bf16_ulps, sum_order
 from chip_smoke import (
-    INT8_TOL, TWO_PEOPLE, _numpy, find_people, human_deltas, make_synthetic_maps,
-    painted_pifpaf_batch,
+    INT8_TOL, TWO_PEOPLE, _numpy, _peak_maps as serving_peak_maps, find_people,
+    human_deltas, make_synthetic_maps, painted_pifpaf_batch, peak_topk_cases,
 )
 from hyperpose_torch.models.backbones import (
     VggTiny, VggTinyFusedStem, remap_vggtiny_to_fused,
@@ -103,28 +103,55 @@ def test_line_gather_matches_plain(cuda, bf16):
     assert torch.equal(got, want)
 
 
+# (ksize, sigma) of the smooth: the PAF decoder's 5 / 0.75 (compiled with its
+# taps unrolled), and 3 / 0.5 and the JAX evaluator's 9 / 1.5 (radius read
+# at run time).
+SMOOTHS = [(3, 0.5), (5, 0.75), (9, 1.5)]
+
+
+@pytest.mark.parametrize("ksize,sigma", SMOOTHS)
 @pytest.mark.parametrize("border", ["reflect", "zero"])
 @pytest.mark.parametrize("maps", ["painted", "random", "ties"])
-def test_peak_topk_matches_plain(cuda, border, maps):
+def test_peak_topk_matches_plain(cuda, border, maps, ksize, sigma):
     full = torch.from_numpy(_peak_maps(maps)).to(cuda)
     conf = torch.cat([full, full[..., :1]], dim=-1)[..., :18]  # strided view
     before = peak_topk.launches
-    got = peak_topk(conf, 16, 5, 0.75, 0.05, border)
-    want = peak_topk_plain(conf, 16, 5, 0.75, 0.05, border)
+    got = peak_topk(conf, 16, ksize, sigma, 0.05, border)
+    want = peak_topk_plain(conf, 16, ksize, sigma, 0.05, border)
     torch.cuda.synchronize()
     assert peak_topk.launches == before + 1
     assert torch.equal(got[2] > -5e29, want[2] > -5e29)
-    torch.testing.assert_close(got[0], want[0], rtol=0, atol=1e-4)
-    assert torch.equal(got[1], want[1])
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
 
 
+@pytest.mark.parametrize("border", ["reflect", "zero"])
+@pytest.mark.parametrize("case", [
+    "painted_k1", "random_k1", "random_k128", "lattice_k128", "lattice_ties_k16",
+    "lattice_ties_k128", "no_survivor", "plateaus", "small_k_hw", "small_sparse_k_hw",
+    "batch_strided",
+])
+def test_peak_topk_edge_cases_match_plain(cuda, border, case):
+    """K = 1, 128 and H*W, no survivor, the densest lattice of survivors
+    (621 a plane, more than the block's threads) with distinct and equal
+    values, plateaus, a batch-strided view: equal to the plain version bit
+    for bit, filler slots included (chip_smoke.peak_topk_cases)."""
+    maps = serving_peak_maps(np.random.default_rng(0), LIMBS)
+    conf, k = {n: (c, k) for n, c, k in peak_topk_cases(maps, cuda)}[case]
+    got = peak_topk(conf, k, 5, 0.75, 0.05, border)
+    want = peak_topk_plain(conf, k, 5, 0.75, 0.05, border)
+    torch.cuda.synchronize()
+    assert got[0].shape == (conf.shape[0], conf.shape[3], k, 2)
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+
+
+@pytest.mark.parametrize("ksize,sigma", SMOOTHS)
 @pytest.mark.parametrize("maps", ["painted", "random", "ties"])
-def test_peak_candidates_match_plain(cuda, maps):
+def test_peak_candidates_match_plain(cuda, maps, ksize, sigma):
     full = torch.from_numpy(_peak_maps(maps)).to(cuda)
     conf = torch.cat([full, full[..., :1]], dim=-1)[..., :18]  # strided view
     before = peak_candidates.launches
-    got = peak_candidates(conf, 5, 0.75, 0.05, -1e30)
-    want = peak_candidates_plain(conf, 5, 0.75, 0.05, -1e30)
+    got = peak_candidates(conf, ksize, sigma, 0.05, -1e30)
+    want = peak_candidates_plain(conf, ksize, sigma, 0.05, -1e30)
     torch.cuda.synchronize()
     assert peak_candidates.launches == before + 1
     assert torch.equal(got[0] > -5e29, want[0] > -5e29)
@@ -173,10 +200,12 @@ def test_conv1_pool_matches_plain(cuda, dtype, tol, shape, batch_step):
         assert bf16_ulps(got, want, SUM_ORDER * scale) <= 1
 
 
-@pytest.mark.parametrize("g,m", [(1, 16), (3, 37), (64, 321)])
+@pytest.mark.parametrize("g,m", [(1, 16), (3, 37), (64, 321), (1, 1), (1, 127), (1, 128),
+                                 (1, 129), (64, 9936)])
 def test_stem_gemm_matches_plain(cuda, g, m):
-    """The bare mainloop, ragged last tile included (M not a multiple of
-    16), within one bf16 ulp of the float32 product."""
+    """The stem's GEMM at ragged row counts around its 128-row tile (rows
+    past M load as zeros and are not stored) and at the probe's shape,
+    within one bf16 ulp of the float32 product."""
     rng = np.random.default_rng(8)
     a = torch.from_numpy(rng.normal(0, 1, (g, m, 384)).astype(np.float32))
     w = torch.from_numpy(rng.normal(0, 0.05, (384, 128)).astype(np.float32))
@@ -221,6 +250,8 @@ def test_kernels_raise_on_what_they_do_not_take(cuda):
     conf = torch.zeros(1, 8, 8, 2, device=cuda)
     with pytest.raises(ValueError):
         peak_topk(conf, k=200)
+    with pytest.raises(ValueError, match="thresh"):
+        peak_topk(conf, thresh=-1e30)
     with pytest.raises(TypeError):
         peak_topk(conf.double())
     planes = torch.zeros(1, 1, 2, 4, 4, device=cuda)

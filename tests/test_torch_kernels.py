@@ -237,3 +237,26 @@ def test_library_names_follow_the_source():
     path = build.library_path("peak_topk")
     assert path.parent == build.BUILD_DIR and path.name.startswith("libpeak_topk-")
     assert build.library_path("line_gather") != path
+
+
+def test_library_names_follow_the_headers(monkeypatch, tmp_path):
+    """An edited, added or removed header (`csrc/*.cuh`) renames every
+    library, so no source that includes it loads a stale build."""
+    assert all((build.CSRC / f"{n}.cu").exists() for n in build.KERNELS)
+    assert (build.CSRC / "sm90.cuh").exists()
+    monkeypatch.setattr(build, "CSRC", tmp_path)
+    for name in ("one", "two"):
+        (tmp_path / f"{name}.cu").write_text(f"// {name}\n")
+    header = tmp_path / "shared.cuh"
+    header.write_text("// first\n")
+    first = {n: build.library_path(n) for n in ("one", "two")}
+    assert first["one"] != first["two"]
+    assert first == {n: build.library_path(n) for n in ("one", "two")}
+    header.write_text("// second\n")
+    second = {n: build.library_path(n) for n in ("one", "two")}
+    assert all(second[n] != first[n] for n in first)
+    (tmp_path / "more.cuh").write_text("")
+    assert build.library_path("one") not in (first["one"], second["one"])
+    header.unlink()
+    (tmp_path / "more.cuh").unlink()
+    assert build.library_path("one") not in (first["one"], second["one"])

@@ -1,8 +1,8 @@
 """The port of the TPU matmul probe, and the measures chip_smoke.py reports
 (`tests/torch_measures.py`).
 
-`stem_gemm_plain` (the bf16 stem kernel's bare mainloop, `hp_stem_gemm` on
-the card) is held against the probe's own XLA formula
+`stem_gemm_plain` (the stem's bf16 GEMM, `hp_stem_gemm` of
+`csrc/stem_gemm.cu` on the card) is held against the probe's own XLA formula
 (`scripts/probe_mosaic_matmul.py`: `jnp.einsum` with float32 accumulation,
 rounded to bf16), written out here: the script sets a JAX cache when it is
 imported. Tolerance: one bf16 ulp (the float32 sums are taken in another
