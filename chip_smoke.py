@@ -383,49 +383,81 @@ def phase_build() -> None:
          sass_mma=mma)
 
 
-def phase_line_gather(rng) -> dict:
+def limb_scores_inputs(rng, batch=BATCH, h=FEAT_HW[0], w=FEAT_HW[1], k=16):
+    """(paf [B, H, W, 38], peak_xy [B, 18, K, 2], peak_valid [B, 18, K],
+    limbs) for the limb scoring at the flagship decode's shape: a random
+    field leaning towards positive values (so that many pairs pass), a fifth
+    of the peaks invalid, peaks on the plane's corners and edges and beyond
+    them by less than a pixel (samples the clamp moves), and coincident
+    pairs (zero length) on every fourth limb."""
+    from hyperpose_torch.utils.topology import COCO_TOPOLOGY
+
+    limbs = np.asarray(COCO_TOPOLOGY.limbs)
+    paf = (0.8 + 0.4 * rng.standard_normal((batch, h, w, 2 * len(limbs)))).astype(np.float32)
+    xy = np.stack([rng.uniform(-0.5, w - 0.5, (batch, 18, k)),
+                   rng.uniform(-0.5, h - 0.5, (batch, 18, k))], -1).astype(np.float32)
+    xy[:, :, 0] = (-0.5, -0.5)
+    xy[:, :, 1] = (w - 0.5, h - 0.5)
+    xy[:, 0::3, 2] = (w - 1, -0.7)
+    for a, b in limbs[::4]:
+        xy[:, b, 3] = xy[:, a, 1]
+    valid = rng.uniform(size=(batch, 18, k)) < 0.8
+    return paf, xy, valid, limbs
+
+
+def phase_limb_scores() -> dict:
+    """limb_scores equal, bit for bit, to its plain version at the flagship
+    decode's shape, with the field channels-last and as a view of an NCHW
+    tensor, both bf16 modes; timed beside the bytes this run's peaks need.
+    Its inputs come from a generator of their own, so that they leave the
+    later phases' draws alone."""
     import torch
-    from hyperpose_torch.ops.kernels.line_gather import (
-        line_gather, line_gather_plain,
-    )
+    from hyperpose_torch.ops.kernels.line_gather import limb_scores, limb_scores_plain
+    from torch_measures import limb_scores_work
 
-    b, l, (h, w), m = BATCH, 19, FEAT_HW, 16 * 16 * 10
-    planes = torch.from_numpy(
-        rng.standard_normal((b, l, 2, h, w)).astype(np.float32)).cuda()
-    ly = torch.from_numpy(rng.integers(0, h, (b, l, m)).astype(np.int32)).cuda()
-    lx = torch.from_numpy(rng.integers(0, w, (b, l, m)).astype(np.int32)).cuda()
-    err = 0.0
-    for bf16 in (True, False):
-        got = line_gather(planes, ly, lx, bf16)
-        want = line_gather_plain(planes, ly, lx, bf16)
+    paf, xy, valid, limbs = limb_scores_inputs(np.random.default_rng(1))
+    field = torch.from_numpy(paf).cuda()
+    layouts = {"nhwc": field,
+               "nchw_view": field.permute(0, 3, 1, 2).contiguous().permute(0, 2, 3, 1)}
+    xy, valid = torch.from_numpy(xy).cuda(), torch.from_numpy(valid).cuda()
+    err, passed = 0.0, {}
+    for (name, f), bf16 in itertools.product(layouts.items(), (True, False)):
+        got = limb_scores(f, xy, valid, limbs, bf16=bf16)
+        want = limb_scores_plain(f, xy, valid, limbs, bf16=bf16)
         torch.cuda.synchronize()
+        ok = want > -5e29
+        check(bool(torch.equal(got, want)),
+              f"limb_scores {name} bf16={bf16} differs from its plain version: masks equal "
+              f"{bool(torch.equal(got > -5e29, ok))}, max |d| on passing pairs "
+              f"{float((got - want)[ok].abs().max()) if bool(ok.any()) else 0.0}")
+        passed[f"{name}_bf16" if bf16 else name] = int(ok.sum())
         err = max(err, float((got - want).abs().max()))
-    check(err == 0.0, f"line_gather differs from its plain version: {err}")
+    check(all(n > 0 for n in passed.values()), f"limb_scores: no passing pair {passed}")
 
-    # The yardstick: one advanced-indexing call computing the same function.
-    idx = (torch.arange(b, device="cuda")[:, None, None, None],
-           torch.arange(l, device="cuda")[None, :, None, None],
-           torch.arange(2, device="cuda")[None, None, :, None],
-           ly[:, :, None, :].long(), lx[:, :, None, :].long())
-    check(bool(torch.equal(planes[idx], line_gather(planes, ly, lx, False))),
-          "advanced indexing disagrees with line_gather(bf16=False)")
-
-    nbytes = 4 * (planes.numel() + ly.numel() + lx.numel() + b * l * 2 * m)
+    b, h, w, c = field.shape
+    work = limb_scores_work(field.shape, xy, valid, limbs)
+    t_bytes, t_ops = work["bytes"] / H100_BYTES_PER_S, work["operations"] / H100_F32_OPS_PER_S
+    args = (xy, valid, limbs)
     row = {
-        "name": "line_gather", "route": "cuda",
+        "name": "limb_scores", "route": "cuda",
         "source": "hyperpose_torch/csrc/line_gather.cu",
         "replaces": "hyperpose_tpu/ops/pallas/line_gather.py:57",
         "max_abs_err": err,
-        "ms": device_ms(lambda: line_gather(planes, ly, lx, True)),
-        "plain_ms": device_ms(lambda: line_gather_plain(planes, ly, lx, True)),
-        "bound_ms": 1e3 * nbytes / H100_BYTES_PER_S, "bound_by": "bytes",
-        "library_ms": device_ms(lambda: planes[idx]),
+        "ms": device_ms(lambda: limb_scores(field, *args)),
+        "plain_ms": device_ms(lambda: limb_scores_plain(field, *args), reps=10),
+        "bound_ms": 1e3 * max(t_bytes, t_ops),
+        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+        "library_ms": None,
     }
-    emit("line_gather", shapes=f"planes [{b},{l},2,{h},{w}] f32, idx [{b},{l},{m}]",
-         bytes=nbytes, kernel_ms=row["ms"],
-         call_ms=call_ms(lambda: line_gather(planes, ly, lx, True)),
-         **{k: row[k] for k in (
-             "max_abs_err", "plain_ms", "library_ms", "bound_ms")})
+    field_whole = 4 * field.numel() + 4 * xy.numel() + valid.numel() + 4 * b * len(limbs) * 16 * 16
+    emit("limb_scores", shapes=f"paf [{b},{h},{w},{c}] f32, peaks [{b},18,16], 19 limbs, "
+         f"S=10 -> [{b},19,16,16] f32", passing_pairs=passed, **work,
+         kernel_ms=row["ms"],
+         call_ms=call_ms(lambda: limb_scores(field, *args)),
+         bytes_whole_field=field_whole,
+         bound_ms_whole_field=1e3 * field_whole / H100_BYTES_PER_S,
+         **{k: row[k] for k in ("max_abs_err", "plain_ms", "library_ms", "bound_ms",
+                                "bound_by")})
     return row
 
 
@@ -556,25 +588,59 @@ def phase_peak_topk(cases) -> dict:
     return row
 
 
+BIG_SMOOTH = (31, 5.0)  # the largest ksize the peak wrappers take (radius 15)
+
+
+def peak_candidates_cases(maps, device):
+    """(name, conf, ksize, sigma) cases of the banded peak_candidates beside
+    the serving shape: each smooth, up to the largest ksize, on the
+    decoder's strided NHWC view and on a view of an NCHW tensor (the two
+    load orders), at H not a multiple of the 16-row band (46 and 13 rows,
+    from row 20 on) and below it (5 rows), with a ragged part group (5
+    parts), and maps so wide that the band shrinks to 8 and to 4 rows (1,600
+    and 3,000 columns). `maps` holds the [B, 46, 54, 18] "painted" and
+    "random" arrays."""
+    import torch
+
+    out = []
+    smooths = ((5, 0.75),) + OTHER_SMOOTHS + (BIG_SMOOTH,)
+    for name, m in maps.items():
+        views = {"nhwc_view": _decoder_view(m, device),
+                 "nchw_view": torch.from_numpy(m).to(device).permute(0, 3, 1, 2)
+                 .contiguous().permute(0, 2, 3, 1)}
+        for (view, conf), (ks, sg) in itertools.product(views.items(), smooths):
+            out.append((f"{name}_{view}_ksize{ks}", conf, ks, sg))
+            for rows in (13, 5):
+                out.append((f"{name}_{view}_h{rows}_ksize{ks}", conf[:, 20:20 + rows], ks, sg))
+            out.append((f"{name}_{view}_parts5_ksize{ks}", conf[..., :5], ks, sg))
+    rng = np.random.default_rng(3)
+    for (h, w, p), (ks, sg) in itertools.product(((20, 1600, 3), (9, 3000, 2)),
+                                                 ((5, 0.75), BIG_SMOOTH)):
+        wide = rng.uniform(0, 1, (1, h, w, p)).astype(np.float32)
+        out.append((f"wide{w}_ksize{ks}", _decoder_view(wide, device), ks, sg))
+    return out
+
+
 def phase_peak_candidates(cases) -> dict:
+    """peak_candidates equal, bit for bit, to its plain version on the
+    serving maps and `peak_candidates_cases`; timed on the decoder's view."""
     import torch
     from hyperpose_torch.ops.kernels.peak_topk import (
         peak_candidates, peak_candidates_plain,
     )
 
     ksize, sigma, thresh, neg = 5, 0.75, 0.05, -1e30
-    for (name, maps), (ks, sg) in itertools.product(cases.items(),
-                                                    ((ksize, sigma),) + OTHER_SMOOTHS):
-        conf = _decoder_view(maps)
+    runs = peak_candidates_cases(cases, "cuda")
+    for name, conf, ks, sg in runs:
         got = peak_candidates(conf, ks, sg, thresh, neg)
         want = peak_candidates_plain(conf, ks, sg, thresh, neg)
         torch.cuda.synchronize()
         mask = got[0] > neg / 2
         check(bool(torch.equal(mask, want[0] > neg / 2)),
-              f"peak_candidates {name} ksize {ks}: peak masks differ")
-        check(int(mask.sum()) > 0, f"peak_candidates {name} ksize {ks}: no peaks")
+              f"peak_candidates {name}: peak masks differ")
+        check(int(mask.sum()) > 0, f"peak_candidates {name}: no peaks")
         check(bool(torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])),
-              f"peak_candidates {name} ksize {ks}: values differ, ranked "
+              f"peak_candidates {name}: values differ, ranked "
               f"{float((got[0] - want[0]).abs().max())}, smoothed "
               f"{float((got[1] - want[1]).abs().max())}")
 
@@ -596,9 +662,12 @@ def phase_peak_candidates(cases) -> dict:
         >= ops / H100_F32_OPS_PER_S else "operations",
         "library_ms": None,
     }
+    nchw = torch.from_numpy(cases["painted"]).cuda().permute(0, 3, 1, 2).contiguous()
     emit("peak_candidates", shapes=f"conf [{b},{h},{w},{p}] f32 view -> "
          f"2 x [{b},{p},{h},{w}]", bytes=nbytes, operations=ops,
-         masks_equal=True, values_equal=True, kernel_ms=row["ms"],
+         equal_cases=[r_[0] for r_ in runs], kernel_ms=row["ms"],
+         kernel_ms_nchw_view=device_ms(lambda: peak_candidates(
+             nchw.permute(0, 2, 3, 1), ksize, sigma, thresh, neg)),
          call_ms=call_ms(lambda: peak_candidates(conf, ksize, sigma, thresh, neg)),
          **{k: row[k] for k in ("plain_ms", "library_ms", "bound_ms", "bound_by")})
     return row
@@ -771,23 +840,25 @@ def phase_stem_gemm() -> tuple[dict, int]:
 
 def phase_decode(limbs, **cfg) -> dict:
     """Painted two-person maps decoded on the card and on the CPU; returns
-    the kernel launches of the card's decode."""
+    the kernel launches of the card's decode. With the default front end it
+    also traces the limb scoring: one kernel, `limb_scores`, and nothing
+    else on the card."""
     import torch
-    from hyperpose_torch.ops.kernels.line_gather import line_gather
+    from hyperpose_torch.ops import paf_decode as PD
+    from hyperpose_torch.ops.kernels.line_gather import limb_scores
     from hyperpose_torch.ops.kernels.peak_topk import peak_candidates, peak_topk
-    from hyperpose_torch.ops.paf_decode import PafDecoderConfig, paf_decode_batch
 
     conf, paf = make_synthetic_maps(TWO_PEOPLE, limbs)
     conf = np.repeat(conf[None], BATCH, axis=0)
     paf = np.repeat(paf[None], BATCH, axis=0)
-    cfg = PafDecoderConfig(**cfg)
-    kernels = (line_gather, peak_topk, peak_candidates)
+    cfg = PD.PafDecoderConfig(**cfg)
+    kernels = (limb_scores, peak_topk, peak_candidates)
     for k in kernels:
         k.launches = 0
-    gpu = paf_decode_batch(torch.from_numpy(conf).cuda(),
-                           torch.from_numpy(paf).cuda(), cfg)
+    gpu = PD.paf_decode_batch(torch.from_numpy(conf).cuda(),
+                              torch.from_numpy(paf).cuda(), cfg)
     launches = {k.__name__: k.launches for k in kernels}
-    cpu = paf_decode_batch(torch.from_numpy(conf), torch.from_numpy(paf), cfg)
+    cpu = PD.paf_decode_batch(torch.from_numpy(conf), torch.from_numpy(paf), cfg)
     gpu = {k: v.cpu().numpy() for k, v in vars(gpu).items()}
     cpu = {k: v.numpy() for k, v in vars(cpu).items()}
     humans = gpu["valid"].sum(axis=1)
@@ -799,10 +870,18 @@ def phase_decode(limbs, **cfg) -> dict:
     d_scores = float(np.abs(gpu["scores"] - cpu["scores"]).max())
     check(d_coords <= 1e-5 and d_scores <= 1e-3,
           f"decode vs CPU: |dcoords| {d_coords}, |dscores| {d_scores}")
+    extra = {}
+    if not cfg.use_pallas_peaks:
+        conf_c, paf_c = torch.from_numpy(conf).cuda(), torch.from_numpy(paf).cuda()
+        xy, _, valid = PD.find_peaks(conf_c[..., :cfg.n_parts], cfg)
+        pairs = PD._limb_pairs(PD.COCO_TOPOLOGY)
+        _, n_kernels = device_busy(lambda: PD._limb_pair_scores(paf_c, xy, valid, pairs, cfg))
+        check(n_kernels == 1, f"the limb scoring launched {n_kernels} kernels, not 1")
+        extra["limb_pair_scores_kernels"] = n_kernels
     name = "decode_pallas_peaks" if cfg.use_pallas_peaks else "decode"
     emit(name, humans=humans.tolist(), max_abs_dcoords=d_coords,
          max_abs_dscores=d_scores, tolerance={"coords": 1e-5, "scores": 1e-3},
-         launches=launches)
+         launches=launches, **extra)
     return launches
 
 
@@ -810,10 +889,10 @@ def _launch_counters():
     from hyperpose_torch.ops.kernels.conv1_pool import conv1_pool, stem_gemm
     from hyperpose_torch.ops.kernels.grow import fused_grow
     from hyperpose_torch.ops.kernels.int8_gemm import int8_conv, int8_gemm, int8_quantize
-    from hyperpose_torch.ops.kernels.line_gather import line_gather
+    from hyperpose_torch.ops.kernels.line_gather import limb_scores
     from hyperpose_torch.ops.kernels.peak_topk import peak_candidates, peak_topk
 
-    return (line_gather, peak_topk, peak_candidates, conv1_pool, fused_grow, stem_gemm,
+    return (limb_scores, peak_topk, peak_candidates, conv1_pool, fused_grow, stem_gemm,
             int8_gemm, int8_quantize, int8_conv)
 
 
@@ -847,7 +926,7 @@ def phase_end_to_end(frames, card) -> dict:
             results, launches = drive(eng, frames)
             key = f"{stem}_{name}"
             paths[key] = launches
-            check(launches["line_gather"] > 0 and launches["peak_topk"] > 0,
+            check(launches["limb_scores"] == launches["peak_topk"] > 0,
                   f"{key}: the main path skipped a decoder kernel: {launches}")
             check((launches["conv1_pool"] > 0) == (stem == "fused"),
                   f"{key}: conv1_pool launches {launches['conv1_pool']}")
@@ -949,7 +1028,7 @@ def phase_stream(rng, card) -> dict:
 # -- PifPaf -----------------------------------------------------------------------
 
 PAF_PATH_KERNELS = (  # the flagship path's kernels: none may launch on PifPaf's
-    "line_gather", "peak_topk", "peak_candidates", "conv1_pool")
+    "limb_scores", "peak_topk", "peak_candidates", "conv1_pool")
 
 
 def phase_pifpaf_decode(card) -> None:
@@ -1410,7 +1489,7 @@ def phase_int8_end_to_end(frames, card) -> tuple[dict, dict]:
         check(launches["conv1_pool"] == (stem == "fused"),
               f"int8 {key}: conv1_pool launches {launches['conv1_pool']}")
         check((launches["fused_grow"] > 0) == (stem == "pifpaf")
-              and (launches["line_gather"] > 0) == (stem != "pifpaf"),
+              and (launches["limb_scores"] > 0) == (stem != "pifpaf"),
               f"int8 {key}: decoder launches {launches}")
         for res in results:
             for hm in res:
@@ -1493,6 +1572,18 @@ def phase_int8_end_to_end(frames, card) -> tuple[dict, dict]:
                                    "library_ms")}}, timing["plain_bf16"]["launches"]
 
 
+def seeded_rng():
+    """The generator of the painted maps, frames and stream frames: seed 0,
+    past a [B, 19, 2, 46, 54] normal draw and two [B, 19, 2560] integer
+    draws. Those are the inputs on which PERF.md's times were taken, so a
+    run of this script compares with them."""
+    rng = np.random.default_rng(0)
+    rng.standard_normal((BATCH, 19, 2, *FEAT_HW))
+    for n in FEAT_HW:
+        rng.integers(0, n, (BATCH, 19, 2560))
+    return rng
+
+
 def main() -> None:
     import torch
 
@@ -1503,11 +1594,11 @@ def main() -> None:
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     limbs = np.asarray(COCO_TOPOLOGY.limbs)
-    rng = np.random.default_rng(0)
+    rng = seeded_rng()
     t0 = time.perf_counter()
     card = phase_card()
     phase_build()
-    rows = [phase_line_gather(rng)]
+    rows = [phase_limb_scores()]
     cases = _peak_maps(rng, limbs)
     rows.append(phase_peak_topk(cases))
     rows.append(phase_peak_candidates(cases))

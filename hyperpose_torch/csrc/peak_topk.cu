@@ -1,5 +1,5 @@
-// Peak front end of the PAF decoder for Hopper (sm_90a), two kernels on one
-// shared smooth + NMS:
+// Peak front end of the PAF decoder for Hopper (sm_90a), two kernels that
+// run the same smooth + NMS + tie-break arithmetic:
 //
 //   * peak_topk_kernel: smooth, NMS, plateau tie-break, top-K, sub-pixel fit
 //     and raw-score gather in one kernel. Replaces the Pallas TPU kernel
@@ -10,12 +10,14 @@
 //     ranked plane (the smoothed value at surviving peaks, `neg` elsewhere)
 //     and the smoothed plane. Replaces the Pallas TPU kernel
 //     peak_kernel.py fused_peak_candidates (zero borders), the front end of
-//     the decoder's use_pallas_peaks mode.
+//     the decoder's use_pallas_peaks mode. It works on row bands, not whole
+//     planes (see "peak_candidates: row bands" below).
 //
-// One block per (image, part) plane. The plane, its smoothed copy and one
-// scratch plane live in shared memory (3 * H * W floats, 30 KB at 46x54), so
-// the map is read from device memory once. A thread walks its pixels with
-// (y, x) advanced incrementally (no division per pixel).
+// peak_topk_kernel: one block per (image, part) plane. The plane, its
+// smoothed copy and one scratch plane live in shared memory (3 * H * W
+// floats, 30 KB at 46x54), so the map is read from device memory once. A
+// thread walks its pixels with (y, x) advanced incrementally (no division
+// per pixel).
 //
 //   1. load the plane (strided: the decoder hands over an NHWC view);
 //   2. separable smooth, taps added centre first then the pairs at distance
@@ -62,6 +64,11 @@
 // passes without a division or a branch per pixel.
 // peak_candidates reads the map once and writes two planes of the same size
 // (1.43 MB in, 2.86 MB out at B=8, 46x54, 18 parts: 1.3 us at 3.35 TB/s).
+// With one block a plane, as peak_topk, its time was one block's chain: the
+// strided NHWC load (a 32-byte sector a value) and five barrier-separated
+// passes over 2,484 pixels, on 144 blocks (a few SMs holding two). Its band
+// kernel below spreads the planes over 216 small blocks, loads a column of
+// a band in one round trip and has two barriers.
 #include <cuda_runtime.h>
 
 #include <cmath>
@@ -357,24 +364,191 @@ __global__ void __launch_bounds__(kThreads) peak_topk_kernel(
   }
 }
 
-__global__ void __launch_bounds__(kThreads) peak_candidates_kernel(
+// -- peak_candidates: row bands of the NHWC map ----------------------------
+//
+// A block owns a band of kRows output rows of G parts of one image (grid:
+// part groups x bands x images), so the 144 planes of the flagship batch
+// spread over a few hundred blocks and every SM gets an even share. A
+// thread owns one (part, x) column of the band at a time:
+//
+//   1. it loads the column's raw rows y0 - r - 2 .. y0 + kRows + r + 1 (the
+//      band and a halo of r for the smooth, 1 for the NMS and 1 for the
+//      tie-break; rows outside the plane read 0) into registers, all loads
+//      in flight together, and runs the vertical smooth there. Where the
+//      map's part stride is below its x stride (the decoder's NHWC view),
+//      consecutive threads take consecutive parts of a pixel, then the next
+//      pixel: whole pixel rows, coalesced, the background channel skipped.
+//      Otherwise consecutive threads take consecutive x of one part;
+//   2. the horizontal smooth, from rows padded with r zero columns (the
+//      zero border), into rows padded with two zero columns and holding
+//      zero outside the plane (the NMS's zero border);
+//   3. the NMS at its column and the two beside it: the 3x3 maximum as a
+//      maximum along x then along y, in registers; a candidate holds its
+//      pixel index. Repeating the neighbours' NMS costs less than a barrier
+//      and a round trip through shared memory;
+//   4. the tie-break the same way over those candidates (a candidate
+//      survives iff it is the largest index of its window), and the writes
+//      of both outputs, consecutive threads on consecutive x.
+//
+// Steps 2 and 3 read what the step before left in shared memory, after a
+// barrier. The taps sit in registers; every product and sum is rounded on
+// its own, centre first, as in smooth_nms. Only the plane's own edges are
+// zero borders: a band's inner edge reads its halo. The maxima equal
+// smooth_nms's eight compares for finite maps. kMaxR = 2 serves ksize 3 and
+// 5 (the decoder's), kMaxR = 15 every ksize up to 31. The launch picks G
+// and, by the shared memory, shrinks G and then kRows until the planes fit:
+// every shape the wrapper accepts runs on this kernel.
+//
+// What bounds it is not the bytes but each block's chain: the launch, the
+// load round trip with the vertical pass, and the two barrier-separated
+// passes after it, each of them a comparable share of the time.
+struct Band {
+  int parts;
+  int st, ss;  // plane strides in floats: vertical pass, smoothed
+};
+
+__host__ __device__ inline Band band_geometry(int rows, int parts, int r, int W) {
+  return Band{parts, ((rows + 4) * (W + 2 * r)) | 1, ((rows + 4) * (W + 4)) | 1};
+}
+
+inline size_t band_smem(const Band& g) {
+  return static_cast<size_t>(g.parts) * (g.st + g.ss) * sizeof(float);
+}
+
+constexpr int kBandThreads = 256;  // threads a block at most: a thread may use 255 registers
+
+template <int kRows, int kMaxR>
+__global__ void __launch_bounds__(kBandThreads) peak_candidates_kernel(
     const float* __restrict__ conf, int H, int W, int P, int64_t sb,
-    int64_t sy, int64_t sx, int64_t sp, Taps taps, int ntaps, float thresh,
-    float neg, float* __restrict__ out_ranked, float* __restrict__ out_sm) {
+    int64_t sy, int64_t sx, int64_t sp, const __grid_constant__ Taps taps, int r,
+    Band bg, float thresh, float neg, float* __restrict__ out_ranked,
+    float* __restrict__ out_sm) {
+  constexpr int kT = kRows + 4;                  // rows of the smoothed band
+  constexpr int kLoad = kRows + 2 * kMaxR + 4;   // raw rows loaded
   extern __shared__ __align__(16) float smem[];
-  __shared__ float s_taps[kMaxTaps];
-  const int HW = H * W;
-  float* ranked = smem;
-  float* sm = smem + 2 * HW;
-  const int bp = blockIdx.x;
-  const float* src = conf + (bp / P) * sb + (bp % P) * sp;
-  if (threadIdx.x < ntaps) s_taps[threadIdx.x] = taps.t[threadIdx.x];
-  smooth_nms(src, H, W, sy, sx, s_taps, ntaps / 2, thresh, true, neg, ranked,
-             smem + HW, sm);
-  const int64_t o = static_cast<int64_t>(bp) * HW;
-  for (int i = threadIdx.x; i < HW; i += blockDim.x) {
-    out_ranked[o + i] = ranked[i];
-    out_sm[o + i] = sm[i];
+  const int p0 = blockIdx.x * bg.parts, y0 = blockIdx.y * kRows;
+  const int64_t b = blockIdx.z;
+  const int G = min(bg.parts, P - p0), n = G * W;
+  const int wt = W + 2 * r, ws = W + 4;
+  float* ts = smem;  // vertical pass
+  float* ss = smem + bg.parts * bg.st;
+  // The taps in registers: lo[d] = taps[r - d], hi[d] = taps[r + d].
+  float lo[kMaxR + 1], hi[kMaxR + 1];
+#pragma unroll
+  for (int d = 0; d <= kMaxR; ++d) {
+    lo[d] = d <= r ? taps.t[r - d] : 0.f;
+    hi[d] = d <= r ? taps.t[r + d] : 0.f;
+  }
+
+  // 1. Raw columns into registers, vertical smooth into ts[g][j][x + r]
+  // (row j is y0 - 2 + j); its padding columns 0.
+  const float* src = conf + b * sb + p0 * sp;
+  const bool part_fastest = sp < sx;
+  for (int q = threadIdx.x; q < n; q += blockDim.x) {
+    const int g = part_fastest ? q % G : q / W, x = part_fastest ? q / G : q % W;
+    const float* col = src + g * sp + x * sx;
+    float raw[kLoad];
+#pragma unroll
+    for (int k = 0; k < kLoad; ++k) {
+      const int y = y0 - kMaxR - 2 + k;
+      raw[k] = y >= 0 && y < H ? __ldg(col + y * sy) : 0.f;
+    }
+    float* t = ts + g * bg.st + x + r;
+#pragma unroll
+    for (int j = 0; j < kT; ++j) {
+      const int c = j + kMaxR;
+      float acc = __fmul_rn(lo[0], raw[c]);
+#pragma unroll
+      for (int d = 1; d <= kMaxR; ++d) {
+        if (d <= r) {
+          acc = __fadd_rn(acc, __fmul_rn(lo[d], raw[c - d]));
+          acc = __fadd_rn(acc, __fmul_rn(hi[d], raw[c + d]));
+        }
+      }
+      t[j * wt] = acc;
+    }
+  }
+  for (int q = threadIdx.x; q < G * kT * 2 * r; q += blockDim.x) {
+    const int c = q % (2 * r), j = q / (2 * r) % kT, g = q / (2 * r * kT);
+    ts[g * bg.st + j * wt + (c < r ? c : W + c)] = 0.f;
+  }
+  __syncthreads();
+
+  // 2. Horizontal smooth into ss[g][j][x + 2], 0 outside the plane; two
+  // zero columns on each side.
+  for (int q = threadIdx.x; q < n; q += blockDim.x) {
+    const int g = q / W, x = q % W;
+    const float* t = ts + g * bg.st + x + r;
+    float* s = ss + g * bg.ss + x + 2;
+#pragma unroll
+    for (int j = 0; j < kT; ++j) {
+      const int y = y0 - 2 + j;
+      float acc = 0.f;
+      if (y >= 0 && y < H) {
+        const float* c = t + j * wt;
+        acc = __fmul_rn(lo[0], c[0]);
+#pragma unroll
+        for (int d = 1; d <= kMaxR; ++d) {
+          if (d <= r) {
+            acc = __fadd_rn(acc, __fmul_rn(lo[d], c[-d]));
+            acc = __fadd_rn(acc, __fmul_rn(hi[d], c[d]));
+          }
+        }
+      }
+      s[j * ws] = acc;
+    }
+  }
+  for (int q = threadIdx.x; q < G * kT * 4; q += blockDim.x) {
+    const int c = q % 4, j = q / 4 % kT, g = q / (4 * kT);
+    ss[g * bg.ss + j * ws + (c < 2 ? c : W + c)] = 0.f;
+  }
+  __syncthreads();
+
+  // 3. NMS + threshold at columns x - 1, x, x + 1 and rows y0 - 1 ..
+  // y0 + kRows (the pixel index of a candidate, else -1), then the
+  // tie-break at x and the writes of rows y0 .. y0 + kRows - 1. A thread
+  // repeats its neighbours' NMS rather than wait for it at a barrier.
+  for (int q = threadIdx.x; q < n; q += blockDim.x) {
+    const int g = q / W, x = q % W;
+    const float* s = ss + g * bg.ss + x + 2;
+    float hmax[3][kT];  // 3x1 maxima centred on columns x - 1, x, x + 1
+#pragma unroll
+    for (int j = 0; j < kT; ++j) {
+      const float* row = s + j * ws;
+      const float m = fmaxf(row[-1], row[0]);
+      const float p = fmaxf(row[0], row[1]);
+      hmax[0][j] = fmaxf(row[-2], m);
+      hmax[1][j] = fmaxf(m, row[1]);
+      hmax[2][j] = fmaxf(p, row[2]);
+    }
+    int cand[3][kRows + 2];
+#pragma unroll
+    for (int o = 0; o < 3; ++o) {
+      const int xo = x + o - 1;
+#pragma unroll
+      for (int j = 0; j < kRows + 2; ++j) {
+        const int y = y0 - 1 + j;
+        const float v = s[(j + 1) * ws + o - 1];
+        const bool pk = xo >= 0 && xo < W && y >= 0 && y < H && v > thresh &&
+                        v >= fmaxf(fmaxf(hmax[o][j], hmax[o][j + 1]), hmax[o][j + 2]);
+        cand[o][j] = pk ? y * W + xo : -1;
+      }
+    }
+    float* ranked = out_ranked + ((b * P + p0 + g) * H + y0) * W + x;
+    float* smoothed = out_sm + ((b * P + p0 + g) * H + y0) * W + x;
+#pragma unroll
+    for (int i = 0; i < kRows; ++i) {
+      if (y0 + i < H) {
+        int m = -1;
+#pragma unroll
+        for (int o = 0; o < 3; ++o) {
+          m = max(m, max(max(cand[o][i], cand[o][i + 1]), cand[o][i + 2]));
+        }
+        const float v = s[(i + 2) * ws];
+        ranked[i * W] = m == (y0 + i) * W + x ? v : neg;
+        smoothed[i * W] = v;
+      }
+    }
   }
 }
 
@@ -427,24 +601,67 @@ extern "C" int hp_peak_topk(const void* conf, int B, int H, int W, int P,
   return static_cast<int>(cudaGetLastError());
 }
 
+// The shared memory a block may use on the current device.
+static int smem_optin(int* bytes) {
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess) {
+    e = cudaDeviceGetAttribute(bytes, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  }
+  return static_cast<int>(e);
+}
+
 // conf as for hp_peak_topk; zero borders; outputs contiguous float
 // [B, P, H, W]: ranked (the smoothed value at surviving peaks, `neg`
-// elsewhere) and smoothed. Returns cudaGetLastError() after the launch.
+// elsewhere) and smoothed. Returns cudaErrorInvalidValue when no band fits
+// a block's shared memory (W above about 3,600), else cudaGetLastError()
+// after the launch.
 extern "C" int hp_peak_candidates(const void* conf, int B, int H, int W,
                                   int P, int64_t sb, int64_t sy, int64_t sx,
                                   int64_t sp, const void* taps_host,
                                   int ntaps, float thresh, float neg,
-                                  void* ranked, void* smoothed,
-                                  void* stream) {
-  Taps taps{};
-  size_t smem = 0;
-  const int e = prepare(peak_candidates_kernel, taps_host, ntaps, H, W, 0, &taps,
-                        &smem);
+                                  void* ranked, void* smoothed, void* stream) {
+  if (ntaps < 1 || ntaps > kMaxTaps || ntaps % 2 == 0 || B > 65535) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (static_cast<int64_t>(B) * P * H * W == 0) return static_cast<int>(cudaGetLastError());
+  int optin = 0;
+  const int e = smem_optin(&optin);
   if (e != 0) return e;
-  if (B * P * H * W == 0) return static_cast<int>(cudaGetLastError());
-  peak_candidates_kernel<<<B * P, kThreads, smem,
-                           static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(conf), H, W, P, sb, sy, sx, sp, taps, ntaps,
+  Taps taps{};
+  const float* th = static_cast<const float*>(taps_host);
+  for (int i = 0; i < ntaps; ++i) taps.t[i] = th[i];
+  const int r = ntaps / 2;
+  // Bands of 16 rows and 2 parts (216 blocks of 108 columns at the
+  // flagship's 8 x 46 x 54 x 18: the fastest of R in {4, 8, 16} and G in
+  // {1, 2, 3, 6, 9, 18} there, measured on an H100); fewer parts, then fewer
+  // rows, where that does not fit.
+  int R = 16, G = P < 2 ? P : 2;
+  const size_t budget = static_cast<size_t>(optin);
+  while (band_smem(band_geometry(R, G, r, W)) > budget && (G > 1 || R > 4)) {
+    if (G > 1) {
+      G = 1;
+    } else {
+      R /= 2;
+    }
+  }
+  const Band bg = band_geometry(R, G, r, W);
+  const size_t smem = band_smem(bg);
+  if (smem > budget) return static_cast<int>(cudaErrorInvalidValue);
+  auto kernel = r <= 2 ? (R == 4 ? peak_candidates_kernel<4, 2>
+                          : R == 8 ? peak_candidates_kernel<8, 2> : peak_candidates_kernel<16, 2>)
+                       : (R == 4 ? peak_candidates_kernel<4, 15>
+                          : R == 8 ? peak_candidates_kernel<8, 15> : peak_candidates_kernel<16, 15>);
+  if (smem > 48 * 1024) {
+    const cudaError_t a = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    if (a != cudaSuccess) return static_cast<int>(a);
+  }
+  const int n = G * W;
+  const int threads = n >= kBandThreads ? kBandThreads : (n + 31) / 32 * 32;
+  const dim3 grid((P + G - 1) / G, (H + R - 1) / R, B);
+  kernel<<<grid, threads, smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(conf), H, W, P, sb, sy, sx, sp, taps, r, bg,
       thresh, neg, static_cast<float*>(ranked), static_cast<float*>(smoothed));
   return static_cast<int>(cudaGetLastError());
 }

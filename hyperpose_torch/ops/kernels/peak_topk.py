@@ -31,8 +31,10 @@ counting those that beat it. The plain version runs the same arithmetic as
 `peak_candidates` replaces the Pallas TPU kernel `fused_peak_candidates`
 (same file), the front end of the decoder's `use_pallas_peaks` mode: the
 zero-border smooth, NMS and tie-break alone, returning the ranked and the
-smoothed planes. In the CUDA source it shares the smooth and NMS with
-`peak_topk`; it is bound by the bytes of its two output planes.
+smoothed planes. On the card a block takes a band of rows of a few parts
+with a halo of r + 2 rows, read as whole pixel rows of the NHWC map, so
+the planes spread over several hundred blocks; it is bound by the bytes of
+its two output planes.
 """
 from __future__ import annotations
 
@@ -228,7 +230,9 @@ def peak_candidates(
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """`peak_candidates_plain`'s contract. CPU tensors take the plain
     version; CUDA tensors launch the kernel, which raises if it cannot run.
-    `conf` may be a strided view (the decoder passes conf[..., :P])."""
+    `conf` may be a strided view (the decoder passes conf[..., :P]). On the
+    card a map too wide for a band of 4 of its rows to fit a block's shared
+    memory (W above about 3,600) raises."""
     if conf.device.type == "cpu":
         return peak_candidates_plain(conf, ksize, sigma, thresh, neg)
     if conf.device.type != "cuda":
@@ -254,6 +258,10 @@ def peak_candidates(
             ctypes.addressof(taps_c), len(taps), float(thresh), float(neg),
             ranked.data_ptr(), smoothed.data_ptr(), stream,
         )
+    if rc == 1:  # cudaErrorInvalidValue
+        raise ValueError(
+            f"peak_candidates: conf {tuple(conf.shape)} with ksize {ksize}: no "
+            f"band of its rows fits a block's shared memory")
     if rc != 0:
         raise RuntimeError(f"peak_candidates kernel failed: CUDA error {rc}")
     peak_candidates.launches += 1

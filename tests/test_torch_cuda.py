@@ -7,7 +7,7 @@ JAX it runs as
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py -q
 
-Tolerances: line_gather exact; peak_topk exact (xy, raw and sval, filler
+Tolerances: limb_scores exact; peak_topk exact (xy, raw and sval, filler
 slots included) and peak_candidates exact (the kernels repeat the plain
 versions' float32 operations in the same order); conv1_pool atol and rtol 1e-4 in f32
 (384-term sums in another order) and 1e-2 in bf16; in bf16 conv1_pool and
@@ -38,7 +38,8 @@ from torch_parity import FLAGSHIP_NPZ, SYNTH_NPZ, tie_maps
 from torch_measures import SUM_ORDER, bf16_ulps, sum_order
 from chip_smoke import (
     INT8_TOL, TWO_PEOPLE, _numpy, _peak_maps as serving_peak_maps, find_people,
-    human_deltas, make_synthetic_maps, painted_pifpaf_batch, peak_topk_cases,
+    human_deltas, limb_scores_inputs, make_synthetic_maps, painted_pifpaf_batch,
+    peak_candidates_cases, peak_topk_cases,
 )
 from hyperpose_torch.models.backbones import (
     VggTiny, VggTinyFusedStem, remap_vggtiny_to_fused,
@@ -55,7 +56,7 @@ from hyperpose_torch.ops.kernels.int8_gemm import (
     int8_conv, int8_conv_plain, int8_gemm, int8_gemm_plain, int8_quantize, int8_quantize_plain,
     padded_channels,
 )
-from hyperpose_torch.ops.kernels.line_gather import line_gather, line_gather_plain
+from hyperpose_torch.ops.kernels.line_gather import limb_scores, limb_scores_plain
 from hyperpose_torch.ops.kernels.peak_topk import (
     peak_candidates, peak_candidates_plain, peak_topk, peak_topk_plain,
 )
@@ -87,19 +88,32 @@ def _peak_maps(name):
     return make_synthetic_maps(TWO_PEOPLE, LIMBS)[0][None, ..., :18]
 
 
+def _field(paf, layout, cuda):
+    """The field on the card channels-last, or as a view of an NCHW tensor."""
+    f = torch.from_numpy(paf).to(cuda)
+    if layout == "nchw_view":
+        return f.permute(0, 3, 1, 2).contiguous().permute(0, 2, 3, 1)
+    return f
+
+
 @pytest.mark.parametrize("bf16", [True, False])
-def test_line_gather_matches_plain(cuda, bf16):
-    rng = np.random.default_rng(5)
-    b, l, h, w, m = 2, 19, 46, 54, 2560
-    planes = torch.from_numpy(
-        rng.standard_normal((b, l, 2, h, w)).astype(np.float32)).to(cuda)
-    ly = torch.from_numpy(rng.integers(-2, h + 2, (b, l, m)).astype(np.int32)).to(cuda)
-    lx = torch.from_numpy(rng.integers(-2, w + 2, (b, l, m)).astype(np.int32)).to(cuda)
-    before = line_gather.launches
-    got = line_gather(planes, ly, lx, bf16)
-    want = line_gather_plain(planes, ly, lx, bf16)
+@pytest.mark.parametrize("layout", ["nhwc", "nchw_view"])
+@pytest.mark.parametrize("shape", [(2, 46, 54, 16), (3, 13, 17, 5)])
+def test_limb_scores_matches_plain(cuda, bf16, layout, shape):
+    """Bit for bit, with invalid, coincident and edge peaks and samples the
+    clamp moves (chip_smoke.limb_scores_inputs), in both layouts."""
+    b, h, w, k = shape
+    paf, xy, valid, limbs = limb_scores_inputs(np.random.default_rng(5), b, h, w, k)
+    field = _field(paf, layout, cuda)
+    xy, valid = torch.from_numpy(xy).to(cuda), torch.from_numpy(valid).to(cuda)
+    before = limb_scores.launches
+    got = limb_scores(field, xy, valid, limbs, bf16=bf16)
+    want = limb_scores_plain(field, xy, valid, limbs, bf16=bf16)
     torch.cuda.synchronize()
-    assert line_gather.launches == before + 1
+    assert limb_scores.launches == before + 1
+    assert got.shape == (b, len(limbs), k, k)
+    assert bool((want > -5e29).any())
+    assert torch.equal(got > -5e29, want > -5e29)
     assert torch.equal(got, want)
 
 
@@ -155,6 +169,25 @@ def test_peak_candidates_match_plain(cuda, maps, ksize, sigma):
     torch.cuda.synchronize()
     assert peak_candidates.launches == before + 1
     assert torch.equal(got[0] > -5e29, want[0] > -5e29)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+_CANDIDATE_CASES = [name for name, *_ in peak_candidates_cases(
+    dict.fromkeys(("painted", "random"), np.zeros((1, 46, 54, 18), np.float32)), "cpu")]
+
+
+@pytest.mark.parametrize("case", _CANDIDATE_CASES)
+def test_peak_candidates_bands_match_plain(cuda, case):
+    """The band kernel at ragged and short heights, a ragged part group,
+    ksize 3 to 31 on both load orders, and maps wide enough to shrink the
+    band: equal to the plain version bit for bit
+    (chip_smoke.peak_candidates_cases)."""
+    maps = serving_peak_maps(np.random.default_rng(0), LIMBS)
+    conf, ks, sg = {name: rest for name, *rest in peak_candidates_cases(maps, cuda)}[case]
+    got = peak_candidates(conf, ks, sg, 0.05, -1e30)
+    want = peak_candidates_plain(conf, ks, sg, 0.05, -1e30)
+    torch.cuda.synchronize()
+    assert bool((want[0] > -5e29).any())
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
 
 
@@ -254,12 +287,22 @@ def test_kernels_raise_on_what_they_do_not_take(cuda):
         peak_topk(conf, thresh=-1e30)
     with pytest.raises(TypeError):
         peak_topk(conf.double())
-    planes = torch.zeros(1, 1, 2, 4, 4, device=cuda)
-    idx = torch.zeros(1, 1, 8, dtype=torch.int32, device=cuda)
+    paf = torch.zeros(1, 8, 8, 38, device=cuda)
+    xy = torch.zeros(1, 18, 4, 2, device=cuda)
+    valid = torch.ones(1, 18, 4, dtype=torch.bool, device=cuda)
+    limbs = COCO_TOPOLOGY.limbs
     with pytest.raises(TypeError):
-        line_gather(planes.double(), idx, idx)
+        limb_scores(paf.double(), xy, valid, limbs)
     with pytest.raises(TypeError):
-        line_gather(planes, idx.long(), idx)
+        limb_scores(paf, xy, valid.float(), limbs)
+    with pytest.raises(ValueError):
+        limb_scores(paf[..., :36], xy, valid, limbs)       # not 2 channels a limb
+    with pytest.raises(ValueError):
+        limb_scores(paf, xy[:, :10], valid[:, :10], limbs)  # a limb past the parts
+    with pytest.raises(ValueError):
+        limb_scores(paf, xy, valid, limbs, n_samples=0)
+    with pytest.raises(ValueError, match="no band"):
+        peak_candidates(torch.zeros(1, 4, 4000, 2, device=cuda), ksize=31, sigma=5.0)
 
 
 def test_decode_on_card_matches_cpu(cuda):

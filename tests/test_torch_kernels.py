@@ -17,10 +17,14 @@ from hyperpose_tpu.ops.pallas.peak_kernel import (
     fused_peak_candidates, fused_peak_topk,
 )
 from hyperpose_torch.ops.kernels import build
-from hyperpose_torch.ops.kernels.line_gather import line_gather, line_gather_plain
+from hyperpose_torch.ops.kernels.line_gather import (
+    limb_scores, limb_scores_plain, line_gather_plain,
+)
 from hyperpose_torch.ops.kernels.peak_topk import (
     peak_candidates, peak_candidates_plain, peak_topk, peak_topk_plain,
 )
+from hyperpose_torch.utils.topology import COCO_TOPOLOGY
+from chip_smoke import limb_scores_inputs
 from test_paf_decode import TWO_PEOPLE, make_synthetic_maps
 from test_paf_golden import random_scene
 
@@ -65,16 +69,60 @@ def test_line_gather_plain_matches_pallas(bf16, out_of_range):
     np.testing.assert_array_equal(got.numpy(), want)
 
 
-def test_line_gather_takes_strided_planes():
-    """The decoder hands over a permuted view of the NHWC field."""
-    rng = np.random.default_rng(4)
-    paf = rng.standard_normal((2, 12, 16, 3 * 2)).astype(np.float32)
-    planes = torch.from_numpy(paf).reshape(2, 12, 16, 3, 2).permute(0, 3, 4, 1, 2)
-    ly = torch.from_numpy(rng.integers(0, 12, (2, 3, 64)).astype(np.int32))
-    lx = torch.from_numpy(rng.integers(0, 16, (2, 3, 64)).astype(np.int32))
-    got = line_gather(planes, ly, lx, False)
-    want = line_gather_plain(planes.contiguous(), ly, lx, False)
-    assert torch.equal(got, want)
+def limb_inputs(seed):
+    """chip_smoke.limb_scores_inputs at a small size: 2 images, a 12 x 14
+    field, K = 4."""
+    return limb_scores_inputs(np.random.default_rng(seed), 2, 12, 14, 4)
+
+
+def _jax_limb_scores(paf, xy, valid, limbs, **cfg):
+    return np.asarray(JD._limb_pair_scores(
+        jnp.asarray(paf), jnp.asarray(xy), jnp.asarray(valid), limbs,
+        JD.PafDecoderConfig(max_peaks=xy.shape[2], **cfg)))
+
+
+@pytest.mark.parametrize("backend", ["pallas", "xla"])
+@pytest.mark.parametrize("bf16", [True, False])
+@pytest.mark.parametrize("seed", [0, 1])
+def test_limb_scores_plain_matches_jax(backend, bf16, seed):
+    """limb_scores_plain against JAX `_limb_pair_scores` with the Pallas
+    gather (interpret mode) and with the XLA one-hot gather: the same pairs
+    pass (masks equal) and their scores agree within 1e-5 (float32 sums
+    in another order)."""
+    paf, xy, valid, limbs = limb_inputs(seed)
+    want = _jax_limb_scores(paf, xy, valid, limbs, gather_backend=backend,
+                            gather_bf16=bf16)
+    got = limb_scores_plain(torch.from_numpy(paf), torch.from_numpy(xy),
+                            torch.from_numpy(valid), limbs, bf16=bf16).numpy()
+    ok = want > -5e29
+    assert ok.any() and (~ok).any()
+    np.testing.assert_array_equal(got > -5e29, ok)
+    np.testing.assert_allclose(got[ok], want[ok], rtol=0, atol=1e-5)
+    assert (got[~ok] == -1e30).all()
+
+
+def test_limb_scores_fail_zero_length_and_invalid_pairs():
+    """A pair fails, whatever its samples hold, when a peak is invalid or
+    the two peaks coincide."""
+    paf, xy, valid, limbs = limb_inputs(2)
+    got = limb_scores_plain(torch.from_numpy(paf), torch.from_numpy(xy),
+                            torch.from_numpy(valid), limbs).numpy()
+    a, b = limbs[:, 0], limbs[:, 1]
+    invalid = ~(valid[:, a, :, None] & valid[:, b, None, :])
+    same = (xy[:, a, :, None] == xy[:, b, None, :]).all(-1)
+    assert invalid.any() and same.any()
+    assert (got[invalid | same] == -1e30).all()
+
+
+def test_limb_scores_takes_strided_fields():
+    """The decoder may hand over the field as a view (the model permutes
+    its NCHW output); the result does not depend on the strides."""
+    paf, xy, valid, limbs = limb_inputs(4)
+    nchw = torch.from_numpy(paf).permute(0, 3, 1, 2).contiguous()
+    view = nchw.permute(0, 2, 3, 1)
+    args = (torch.from_numpy(xy), torch.from_numpy(valid), limbs)
+    assert view.stride()[-1] != 1
+    assert torch.equal(limb_scores(view, *args), limb_scores_plain(torch.from_numpy(paf), *args))
 
 
 # -- peak top-K ----------------------------------------------------------------
@@ -190,14 +238,14 @@ def test_peak_candidates_take_the_decoders_strided_view():
 
 def test_cpu_tensors_take_the_plain_version():
     conf = torch.from_numpy(peak_inputs("painted"))
-    before = (line_gather.launches, peak_topk.launches)
+    before = (limb_scores.launches, peak_topk.launches)
     a = peak_topk(conf)
     b = peak_topk_plain(conf)
     assert all(torch.equal(x, y) for x, y in zip(a, b))
-    planes = torch.zeros(1, 2, 2, 4, 4)
-    idx = torch.zeros(1, 2, 8, dtype=torch.int32)
-    line_gather(planes, idx, idx)
-    assert (line_gather.launches, peak_topk.launches) == before
+    paf, xy, valid, limbs = limb_inputs(5)
+    args = (torch.from_numpy(paf), torch.from_numpy(xy), torch.from_numpy(valid), limbs)
+    assert torch.equal(limb_scores(*args, bf16=False), limb_scores_plain(*args, bf16=False))
+    assert (limb_scores.launches, peak_topk.launches) == before
 
 
 def test_other_devices_raise():
@@ -205,9 +253,10 @@ def test_other_devices_raise():
     with pytest.raises(ValueError, match="unsupported device"):
         peak_topk(meta)
     with pytest.raises(ValueError, match="unsupported device"):
-        line_gather(torch.empty(1, 1, 2, 4, 4, device="meta"),
-                    torch.empty(1, 1, 3, dtype=torch.int32, device="meta"),
-                    torch.empty(1, 1, 3, dtype=torch.int32, device="meta"))
+        limb_scores(torch.empty(1, 8, 8, 38, device="meta"),
+                    torch.empty(1, 18, 4, 2, device="meta"),
+                    torch.empty(1, 18, 4, dtype=torch.bool, device="meta"),
+                    COCO_TOPOLOGY.limbs)
 
 
 def test_peak_candidates_dispatch():

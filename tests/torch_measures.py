@@ -1,7 +1,7 @@
 """Measures shared by the port's tests and chip_smoke.py: bf16 distances in
 units in the last place, the slack of float32 sums taken in another order,
-and the work that PifPaf growth needs on given inputs (the evaluations and
-bytes behind the growth kernel's bound).
+and the work that PifPaf growth and the PAF limb scoring need on given
+inputs (the evaluations and bytes behind those kernels' bounds).
 
 It imports torch and the port only, and has no side effects at import, so
 chip_smoke.py can use it on the card as it is.
@@ -148,3 +148,40 @@ def grow_work(args) -> dict:
     nbytes = 4 * (3 * k * int(rows.sum()) + 3 * int(picked.sum())
                   + 5 * b * mh + 4 * b * mh * n_parts)
     return {"evaluations": evaluations, "bytes": nbytes}
+
+
+def limb_scores_work(paf_shape, peak_xy, peak_valid, limbs, n_samples: int = 10) -> dict:
+    """The bytes and float operations that `limb_scores` needs on these
+    peaks: only pairs of two valid peaks more than 1e-6 apart are sampled
+    (any other pair scores -1e30 whatever the field holds), and each
+    distinct sampled pixel of a limb's two channels is read once (8 bytes);
+    the peaks are read once and cand_score [B, L, K, K] written once.
+    Operations per sampled pair: 9 for its length and direction, 18 per
+    sample (its position, clamps, dot product, compare and sum) and 9 for the
+    score; 1 per other pair (its validity). paf_shape is [B, H, W, 2L];
+    peak_xy [B, P, K, 2] and peak_valid [B, P, K] may lie on any device."""
+    b, h, w, _ = paf_shape
+    xy = peak_xy.detach().cpu().float()
+    valid = peak_valid.detach().cpu()
+    idx = torch.as_tensor([[int(a), int(c)] for a, c in limbs], dtype=torch.int64)
+    k = xy.shape[2]
+    pa, pb = xy[:, idx[:, 0]], xy[:, idx[:, 1]]               # [B, L, K, 2]
+    diff = pb[:, :, None] - pa[:, :, :, None]                 # [B, L, K, K, 2]
+    norm = torch.sqrt(diff[..., 0] * diff[..., 0] + diff[..., 1] * diff[..., 1])
+    need = (valid[:, idx[:, 0]][:, :, :, None] & valid[:, idx[:, 1]][:, :, None, :]
+            & (norm > 1e-6))                                  # [B, L, K, K]
+    fs = torch.tensor(float(n_samples))
+    ts = (torch.arange(n_samples, dtype=torch.float32) / fs).reshape(n_samples, 1)
+    loc = torch.floor(pa[:, :, :, None, None] + ts * diff[:, :, :, :, None] + 0.5)
+    x = loc[..., 0].to(torch.int64).clamp(0, w - 1)
+    y = loc[..., 1].to(torch.int64).clamp(0, h - 1)          # [B, L, K, K, S]
+    bl = (torch.arange(b)[:, None] * len(idx) + torch.arange(len(idx))[None])
+    key = (bl[:, :, None, None, None] * h + y) * w + x
+    pixels = int(torch.unique(key[need]).numel())
+    pairs = int(need.sum())
+    total_pairs = b * len(idx) * k * k
+    return {
+        "sampled_pairs": pairs, "pairs": total_pairs, "field_pixels": pixels,
+        "bytes": 8 * pixels + peak_xy.numel() * 4 + peak_valid.numel() + 4 * total_pairs,
+        "operations": pairs * (18 + 18 * n_samples) + (total_pairs - pairs),
+    }
