@@ -29,8 +29,13 @@ time of every int8 conv's two kernels (the quantize pass and the
 implicit-GEMM conv) beside their bounds, the unfused path they replace and
 the bf16 cuDNN convs of the same layers, every int8 conv of a step equal to
 a CPU copy of it on the same input, and the conv kernel held against its
-plain version at every shape of the step. It checks that each
-path went through its kernels. Every phase prints one line; any failure
+plain version at every shape of the step. Then the Resnet18 family:
+painted PoseProposal maps decode to the two people on the card, equal to
+the CPU bit for bit, and the PoseProposal engine (384x384, `fused_decode`)
+and Lightweight-OpenPose on Resnet18 (368x432, the PAF step), batch 8 on
+seeded random weights, run in f32, bf16 and int8 (bf16 activations), each
+held against the CPU. It checks that each path went through its kernels.
+Every phase prints one line; any failure
 exits non-zero before the result line. The last line is
 `{"ok": true, "device": {...}}`. It needs a CUDA device and exits non-zero
 without one; it imports no JAX.
@@ -46,6 +51,7 @@ import shutil
 import subprocess
 import sys
 import time
+from typing import Callable, NamedTuple
 
 import numpy as np
 
@@ -281,6 +287,72 @@ def painted_pifpaf_batch(batch=BATCH):
     frames = [synth_fields([{k: (x + 6 * i, y + 3 * i) for k, (x, y) in person.items()}
                             for person in PIFPAF_TWO_PEOPLE]) for i in range(batch)]
     return {k: np.concatenate([f[k] for f in frames]) for k in frames[0]}
+
+
+# -- PoseProposal: painted grid maps ----------------------------------------------
+
+PPN_HW = (384, 384)     # config_ppn: 384x384 -> a 12x12 grid of 32-pixel cells
+PPN_PERSON = {          # part -> (x, y) in input pixels, Instance (1) the root
+    0: (110, 80), 1: (110, 120), 2: (80, 125), 3: (65, 170), 4: (60, 215),
+    5: (140, 125), 6: (155, 170), 7: (160, 215), 8: (95, 210), 9: (92, 275),
+    10: (90, 340), 11: (125, 210), 12: (128, 275), 13: (130, 340),
+    14: (102, 70), 15: (118, 70), 16: (92, 75), 17: (128, 75)}
+PPN_TWO_PEOPLE = [PPN_PERSON, {k: (x + 180, y + 10) for k, (x, y) in PPN_PERSON.items()}]
+
+
+def paint_ppn(people, grid=(12, 12), in_hw=PPN_HW, n_limbs=17, nei=(9, 9)):
+    """PoseProposal maps of one image (batch 1) painting the given people
+    (dict part -> (x, y) in input pixels), as the decoder takes them: at
+    each part's cell c = i = 0.9, x and y the part's pixel coordinates, w =
+    h = 40 pixels; for each limb, e = 0.9 at the offset of the destination's
+    cell from the source's (e[l, dy + hnei // 2, dx + wnei // 2, sy, sx]);
+    0 elsewhere."""
+    from hyperpose_torch.utils.topology import PPN_LIMBS
+
+    (hout, wout), (hnei, wnei), p = grid, nei, 18
+    cell_h, cell_w = in_hw[0] / hout, in_hw[1] / wout
+    maps = {k: np.zeros((hout, wout, p), np.float32) for k in "cixywh"}
+    e = np.zeros((n_limbs, hnei, wnei, hout, wout), np.float32)
+    for person in people:
+        cells = {k: (int(y // cell_h), int(x // cell_w)) for k, (x, y) in person.items()}
+        for k, (x, y) in person.items():
+            cy, cx = cells[k]
+            for name, v in zip("cixywh", (0.9, 0.9, x, y, 40.0, 40.0)):
+                maps[name][cy, cx, k] = v
+        for li, (a, b) in enumerate(PPN_LIMBS):
+            (sy, sx), (dy, dx) = cells[int(a)], cells[int(b)]
+            assert abs(dy - sy) <= hnei // 2 and abs(dx - sx) <= wnei // 2, (a, b)
+            e[li, dy - sy + hnei // 2, dx - sx + wnei // 2, sy, sx] = 0.9
+    return {**{k: v[None] for k, v in maps.items()}, "e": e[None]}
+
+
+def painted_ppn_batch(batch=BATCH):
+    """[batch] painted two-person PoseProposal maps, frame i's people
+    shifted by (4i, 2i) pixels."""
+    frames = [paint_ppn([{k: (x + 4 * i, y + 2 * i) for k, (x, y) in person.items()}
+                         for person in PPN_TWO_PEOPLE]) for i in range(batch)]
+    return {k: np.concatenate([f[k] for f in frames]) for k in frames[0]}
+
+
+def dense_ppn_maps(seed: int, b: int = 3, levels=None) -> dict:
+    """Dense PoseProposal maps on a 12x12 grid (384x384 input) as random
+    weights give them: every cell's c near 0.5, above the decoder's 0.2
+    thresholds, and x/y/w/h restored to input pixels. With `levels`, c and
+    e take only those values, so top-K, the NMS order and the matching
+    argmax meet exact ties everywhere."""
+    rng = np.random.default_rng(seed)
+    m = {k: rng.uniform(0.3, 0.7, (b, 12, 12, 18)).astype(np.float32) for k in "cixywh"}
+    if levels is None:
+        m["e"] = rng.uniform(0.1, 0.7, (b, 17, 9, 9, 12, 12)).astype(np.float32)
+    else:
+        m["c"] = rng.choice(np.float32(levels), (b, 12, 12, 18))
+        m["e"] = rng.choice(np.float32(levels), (b, 17, 9, 9, 12, 12))
+    g = np.arange(12, dtype=np.float32)
+    m["x"] = (m["x"] + g[:, None]) * np.float32(32)
+    m["y"] = (m["y"] + g[:, None, None]) * np.float32(32)
+    m["w"] = m["w"] * np.float32(384)
+    m["h"] = m["h"] * np.float32(384)
+    return m
 
 
 def humans_of(d, i):
@@ -913,7 +985,10 @@ def phase_end_to_end(frames, card) -> dict:
     import torch
     from hyperpose_torch.ops.image import resize_bilinear
     from hyperpose_torch.ops.paf_decode import paf_decode_batch
+    from hyperpose_torch.models.backbones import VggTiny
+    from hyperpose_torch.models.openpose import LightWeightOpenPose
     from hyperpose_torch.runtime.engine import PoseEngine
+    from torch_measures import conv_operations
 
     batch = torch.from_numpy(
         np.stack([resize_bilinear(f, INPUT_HW) for f in frames])).cuda()
@@ -975,6 +1050,8 @@ def phase_end_to_end(frames, card) -> dict:
     check(d_score <= 1e-3, f"GPU vs CPU human scores differ by {d_score}")
     emit("end_to_end", card=card, input="x".join(map(str, INPUT_HW)), batch=BATCH,
          tf32=False, wall_samples=50, cpu_scores=cpu_scores,
+         conv_gflop_per_batch=conv_operations(LightWeightOpenPose(backbone=VggTiny),
+                                              (BATCH, *INPUT_HW, 3)) / 1e9,
          max_abs_dscore_plain_f32_vs_cpu=d_score, **timing)
     return paths
 
@@ -1067,79 +1144,137 @@ def _pifpaf_engine(weights, dtype, device="cuda", batch=BATCH):
                       topology=PIFPAF_TOPOLOGY, fused_decode=pifpaf_fused_decode(model))
 
 
-def phase_pifpaf_end_to_end(frames, card) -> tuple[dict, dict]:
-    """The ResNet50 PifPaf engine at 368x432, batch 8, in f32 (TF32 off) and
-    bf16 on seeded random weights: the main path once with its kernel
-    counts, then step / network / decode timings. Returns the launches of
-    the f32 path and the f32 network's raw fields (for the grow phase)."""
-    import dataclasses
-
-    import torch
-    from hyperpose_torch.models.pifpaf import Pifpaf
-    from hyperpose_torch.ops.image import resize_bilinear
+def _pifpaf_decode(eng, out, grow_backend="auto"):
     from hyperpose_torch.ops.pifpaf_decode import PifPafDecoderConfig, pifpaf_decode_batch
-    from hyperpose_torch.utils.weights import load_flax_weights, random_flax_weights
 
-    weights = random_flax_weights(Pifpaf(), seed=0)
-    batch = torch.from_numpy(
-        np.stack([resize_bilinear(f, INPUT_HW) for f in frames])).cuda()
-    cfg = PifPafDecoderConfig()
-    timing, paths, fields32 = {}, {}, None
-    for name, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16)):
-        eng = _pifpaf_engine(weights, dtype)
-        warm_s = eng.warmup()
+    return pifpaf_decode_batch(out, PifPafDecoderConfig(grow_backend=grow_backend), 8, INPUT_HW)
+
+
+def _pifpaf_checks(eng, out, key) -> dict:
+    """The decode with the grow kernel equals the plain growth's on the same
+    fields."""
+    got, want = _numpy(_pifpaf_decode(eng, out)), _numpy(_pifpaf_decode(eng, out, "xla"))
+    check(all(np.array_equal(got[k], want[k]) for k in got),
+          f"{key}: the decode with the grow kernel differs from grow_backend='xla'")
+    return {"decode_kernel_equals_plain": True}
+
+
+class Served(NamedTuple):
+    """One model family's serving path, as `phase_serving` drives it."""
+    name: str                # the phase is f"{name}_end_to_end"
+    about: str               # the model, for the phase's line
+    hw: tuple                # the engine's input size
+    model: Callable          # () -> the float32 model (for its weights and conv work)
+    engine: Callable         # (weights, dtype, device="cuda", batch=BATCH) -> PoseEngine
+    decode: Callable         # (engine, network outputs) -> DecodedSkeletons
+    check_decode: Callable   # (engine, outputs on the card, key) -> dict; fails on a mismatch
+    kernels: tuple           # the hand-written kernels its decode launches
+    n_int8: int = 0          # the int8 convs of its network
+
+
+def _pifpaf_model():
+    from hyperpose_torch.models.pifpaf import Pifpaf
+    return Pifpaf()
+
+
+PIFPAF = Served("pifpaf", "Pifpaf (Resnet50, stride 16)", INPUT_HW, _pifpaf_model,
+                _pifpaf_engine, _pifpaf_decode, _pifpaf_checks, ("fused_grow",))
+
+
+def phase_serving(spec: Served, forms, frames, card) -> tuple[dict, dict]:
+    """One model family through `PoseEngine` at full width and depth on
+    seeded random weights (`random_flax_weights(model, 0)`; the repository
+    has no trained checkpoint of these models), batch 8 (the synthetic frame
+    and 7 random frames), in each of `forms`: "f32" (TF32 off), "bf16", and
+    "int8" with bf16 activations (`quantize_engine` calibrated on the
+    batch). For each: the main path once with its kernel counts (its
+    decoder's kernels launched, no other; int8: `int8_quantize` and
+    `int8_conv` once a conv), finite humans and outputs, the f32 outputs of
+    the whole batch against the CPU (max |d| <= 1e-3 max |v| per output),
+    the family's own check of its decode on the card's outputs, every int8
+    conv exact against its plain version and a CPU copy on the card's
+    input, then step / network / decode wall and device timings. Returns
+    the launches of each form and the f32 outputs."""
+    import torch
+    from torch import nn
+    from hyperpose_torch.ops.image import resize_bilinear
+    from hyperpose_torch.quant import quantize_engine
+    from hyperpose_torch.utils.weights import random_flax_weights
+    from torch_measures import conv_operations
+
+    int8_kernels = ("int8_conv", "int8_quantize", "int8_gemm")
+    weights = random_flax_weights(spec.model(), seed=0)
+    batch = torch.from_numpy(np.stack([resize_bilinear(f, spec.hw) for f in frames])).cuda()
+    paths, timing, out32 = {}, {}, None
+    for form in forms:
+        key = f"{spec.name}_{form}"
+        dtype = torch.float32 if form == "f32" else torch.bfloat16
+        eng, row = spec.engine(weights, dtype), {}
+        n_int8 = spec.n_int8 if form == "int8" else 0
+        if form == "int8":
+            t0 = time.perf_counter()
+            eng = quantize_engine(eng, [batch])
+            torch.cuda.synchronize()
+            row["quantize_engine_s"] = time.perf_counter() - t0
+            check(len(eng.quant_scales) == n_int8
+                  and not any(type(m) is nn.Conv2d for m in eng.model.modules()),
+                  f"{key}: {len(eng.quant_scales)} int8 convs, not {n_int8}")
+        row["warmup_s"] = eng.warmup()
         results, launches = drive(eng, frames)
-        paths[name] = launches
-        check(launches["fused_grow"] > 0 and not any(launches[k] for k in PAF_PATH_KERNELS),
-              f"pifpaf {name}: launches {launches}")
+        paths[form] = launches
+        check(launches["int8_conv"] == launches["int8_quantize"] == n_int8
+              and launches["int8_gemm"] == 0
+              and all((n > 0) == (k in spec.kernels)
+                      for k, n in launches.items() if k not in int8_kernels),
+              f"{key}: launches {launches}, not {spec.kernels} and {n_int8} int8 convs")
         for res in results:
             for hm in res:
                 xy = np.array([(p.x, p.y) for p in hm.parts.values()])
                 check(bool(np.isfinite(xy).all() and np.isfinite(hm.score)),
-                      f"pifpaf {name}: non-finite output")
+                      f"{key}: non-finite output")
+        row.update(launches=launches, humans=[len(r) for r in results])
+
+        def network():
+            return eng.model(batch.to(dtype) / 255.0)
+
         with torch.inference_mode():
-            maps = eng.model(batch.to(dtype) / 255.0)
-            check(all(bool(torch.isfinite(v).all()) for v in maps.values()),
-                  f"pifpaf {name}: non-finite fields")
-            # The kernel's decode equals the plain growth's on the same maps.
-            got = _numpy(pifpaf_decode_batch(maps, cfg, 8, INPUT_HW))
-            want = _numpy(pifpaf_decode_batch(
-                maps, dataclasses.replace(cfg, grow_backend="xla"), 8, INPUT_HW))
-        check(all(np.array_equal(got[k], want[k]) for k in got),
-              f"pifpaf {name}: the decode with the grow kernel differs from grow_backend='xla'")
-        row = {"warmup_s": warm_s, "launches": launches,
-               "humans": [len(r) for r in results],
-               "decode_kernel_equals_plain": True}
-        if name == "f32":
-            fields32 = maps
-            cpu = load_flax_weights(Pifpaf(), weights).eval()
-            with torch.inference_mode():
-                ref = cpu(batch[:1].cpu().to(torch.float32) / 255.0)
-            rel = max(float((maps[k][:1].cpu() - ref[k]).abs().max())
-                      / float(ref[k].abs().max()) for k in ref)
-            check(rel <= 1e-3, f"pifpaf f32 fields vs CPU: max |d| / max |v| = {rel}")
-            row["fields_vs_cpu_max_rel"] = rel
-        stages = {
-            "step": lambda: eng.infer_batch_device(batch),
-            "network": lambda: eng.model(batch.to(dtype) / 255.0),
-            "decode": lambda: pifpaf_decode_batch(maps, cfg, 8, INPUT_HW),
-        }
-        for stage, fn in stages.items():
-            with torch.inference_mode():
+            out = network()
+            check(all(bool(torch.isfinite(v).all()) for v in out.values() if torch.is_tensor(v)),
+                  f"{key}: non-finite network outputs")
+            if form == "f32":
+                out32 = out
+                ref = spec.engine(weights, torch.float32, device="cpu").model(
+                    batch.cpu().to(torch.float32) / 255.0)
+                rel = {k: float((out[k].cpu() - v).abs().max() / v.abs().max())
+                       for k, v in ref.items() if torch.is_tensor(v)}
+                check(max(rel.values()) <= 1e-3,
+                      f"{key}: f32 outputs vs CPU, max |d| / max |v|: {rel}")
+                row["outputs_vs_cpu_max_rel"] = rel
+                del ref
+            row.update(spec.check_decode(eng, out, key))
+            if form == "int8":
+                seen = _record_int8_inputs(eng.model, network)
+                check(len(seen) == n_int8, f"{key}: {len(seen)} int8 convs ran in one step")
+                _convs_equal_plain(seen, key)
+                row["convs_equal_to_plain_and_cpu"] = _convs_card_vs_cpu(seen, key)
+                row["conv_couts"] = sorted({c.out_channels for c, _ in seen})
+                del seen
+            stages = {"step": lambda: eng.infer_batch_device(batch), "network": network,
+                      "decode": lambda: spec.decode(eng, out)}
+            for stage, fn in stages.items():
                 row[f"{stage}_ms"], row[f"{stage}_p80_ms"] = wall_ms(fn)
-                busy, kernels = device_busy(fn)
-            row[f"{stage}_device_busy_ms"] = busy
-            row[f"{stage}_kernels"] = kernels
+                row[f"{stage}_device_busy_ms"], row[f"{stage}_kernels"] = device_busy(fn)
         row.update(frames_per_s=1e3 * BATCH / row["step_ms"],
                    device_idle_share=1.0 - row["step_device_busy_ms"] / row["step_ms"])
-        timing[name] = row
-        del eng, maps
+        timing[form] = row
+        del eng, out, results
         torch.cuda.empty_cache()
-    emit("pifpaf_end_to_end", card=card, model="Pifpaf (Resnet50, stride 16), seeded "
-         "random weights", input="x".join(map(str, INPUT_HW)), batch=BATCH, tf32=False,
-         wall_samples=50, fields_tolerance="max |d| <= 1e-3 * max |v| per field",
-         **timing)
-    return paths["f32"], fields32
+    emit(f"{spec.name}_end_to_end", card=card, model=spec.about + ", seeded random weights",
+         input="x".join(map(str, spec.hw)), batch=BATCH, tf32=False, wall_samples=50,
+         int8_activations="bf16", outputs_tolerance="max |d| <= 1e-3 * max |v| per f32 "
+         "output, whole batch", conv_gflop_per_batch=conv_operations(
+             spec.model(), (BATCH, *spec.hw, 3)) / 1e9, **timing)
+    return paths, out32
 
 
 def phase_grow(fields32) -> dict:
@@ -1310,6 +1445,24 @@ def _convs_card_vs_cpu(seen, key: str) -> int:
     return len(seen)
 
 
+def _convs_equal_plain(seen, key: str) -> tuple[list, list]:
+    """`int8_conv` on each conv's own quantized input equals its plain
+    version there. Returns the quantized inputs and the plain outputs."""
+    import torch
+    from hyperpose_torch.ops.kernels.int8_gemm import int8_conv_plain
+
+    xqs, wants = [], []
+    for c, x in seen:
+        xq = c.quantize(x)
+        want = int8_conv_plain(xq, c.w_taps, c.dq, c.bias, *c.taps_geometry, x.dtype)
+        check(bool(torch.equal(c.conv(xq, x.dtype), want)),
+              f"{key}: int8_conv differs from its plain version at {tuple(x.shape)} -> "
+              f"{c.out_channels} ({c.kernel_size}, stride {c.stride})")
+        xqs.append(xq)
+        wants.append(want)
+    return xqs, wants
+
+
 def _unfused_conv(conv, xq, dtype):
     """The conv as the int8 path ran it before the implicit-GEMM kernel, on
     the library's int8 GEMM: the explicit im2col [M, kh*kw*Cp], then
@@ -1400,14 +1553,10 @@ def _main_path_convs(seen, breakdown) -> dict:
     import torch
     from hyperpose_torch.ops.kernels.int8_gemm import int8_conv_plain
 
-    xqs = [c.quantize(x) for c, x in seen]
+    xqs, wants = _convs_equal_plain(seen, "int8 plain_bf16")
     args = [(xq, c.w_taps, c.dq, c.bias, *c.taps_geometry, x.dtype)
             for (c, x), xq in zip(seen, xqs)]
-    for (c, x), xq, a in zip(seen, xqs, args):
-        want = int8_conv_plain(*a)
-        check(bool(torch.equal(c.conv(xq, x.dtype), want)),
-              f"int8_conv differs from its plain version at {tuple(x.shape)} -> "
-              f"{c.out_channels} ({c.kernel_size}, stride {c.stride})")
+    for (c, x), xq, want in zip(seen, xqs, wants):
         check(bool(torch.equal(_unfused_conv(c, xq, x.dtype), want)),
               "the unfused path on torch._int_mm differs from the plain version")
     old_gemm = []
@@ -1572,6 +1721,143 @@ def phase_int8_end_to_end(frames, card) -> tuple[dict, dict]:
                                    "library_ms")}}, timing["plain_bf16"]["launches"]
 
 
+# -- the Resnet18 family: PoseProposal and Lightweight-OpenPose on Resnet18 ---------
+
+def phase_ppn_decode(card) -> None:
+    """Painted two-person PoseProposal maps (a 12x12 grid, batch 8) and maps
+    full of exact ties, decoded on the card and on the CPU: every field
+    equal bit for bit, exactly 2 people with all 18 parts on each painted
+    frame, and no hand-written kernel launched (the JAX decoder has none).
+    Times the card's decode: wall ms and device ms and kernels a call."""
+    import torch
+    from hyperpose_torch.ops.ppn_decode import ppn_decode_batch
+
+    cases = {"painted": painted_ppn_batch(),
+             "ties": dense_ppn_maps(6, b=BATCH, levels=(0.1, 0.5, 0.5, 0.75))}
+    counters = _launch_counters()
+    rows = {}
+    for name, maps in cases.items():
+        cuda = {k: torch.from_numpy(v).cuda() for k, v in maps.items()}
+        for k in counters:
+            k.launches = 0
+        gpu = _numpy(ppn_decode_batch(cuda))
+        launches = {k.__name__: k.launches for k in counters}
+        check(not any(launches.values()), f"ppn decode {name} launched {launches}")
+        cpu = _numpy(ppn_decode_batch(maps))
+        diff = [k for k in gpu if not np.array_equal(gpu[k], cpu[k])]
+        check(not diff, f"ppn decode {name}: {diff} differ between the card and the CPU")
+        humans = gpu["valid"].sum(axis=1)
+        if name == "painted":
+            check(bool((humans == 2).all() and gpu["part_valid"][:, :2].all()),
+                  f"painted ppn maps decoded to {humans.tolist()} humans, not 2 whole ones")
+        row = rows[name] = {"humans": humans.tolist(), "equal_to_cpu": True}
+        row["wall_ms"], row["wall_p80_ms"] = wall_ms(lambda: ppn_decode_batch(cuda))
+        row["device_busy_ms"], row["kernels"] = device_busy(lambda: ppn_decode_batch(cuda), 3)
+    emit("ppn_decode", card=card, maps=f"[{BATCH},12,12,18] c/i/x/y/w/h, "
+         f"e [{BATCH},17,9,9,12,12], in 384x384", wall_samples=50, **rows)
+
+
+def _ppn_engine(weights, dtype, device="cuda", batch=BATCH):
+    from hyperpose_torch.models.pose_proposal import PoseProposal, ppn_fused_decode
+    from hyperpose_torch.runtime.engine import PoseEngine
+    from hyperpose_torch.utils.topology import PPN_TOPOLOGY
+
+    model = PoseProposal(dtype=dtype)
+    return PoseEngine(model, weights, input_hw=PPN_HW, max_batch_size=batch, device=device,
+                      topology=PPN_TOPOLOGY, fused_decode=ppn_fused_decode(model))
+
+
+def _ppn_checks(eng, out, key) -> dict:
+    """The card's decode of its outputs equals the CPU's decode of the same
+    outputs, bit for bit (`restore_coor`, then `ppn_decode_batch`)."""
+    gpu = _numpy(eng.fused_decode.decode(out))
+    cpu = _numpy(eng.fused_decode.decode({k: v.cpu() for k, v in out.items()}))
+    diff = [k for k in gpu if not np.array_equal(gpu[k], cpu[k])]
+    check(not diff, f"{key}: the card's decode of its maps differs from the CPU's in {diff}")
+    return {"decode_equal_to_cpu": True}
+
+
+def _lw_resnet18_engine(weights, dtype, device="cuda", batch=BATCH):
+    from hyperpose_torch.models.backbones import Resnet18
+    from hyperpose_torch.models.openpose import LightWeightOpenPose
+    from hyperpose_torch.runtime.engine import PoseEngine
+
+    return PoseEngine(LightWeightOpenPose(backbone=Resnet18, dtype=dtype), weights,
+                      input_hw=INPUT_HW, max_batch_size=batch, device=device)
+
+
+def _paf_decode(eng, out):
+    from hyperpose_torch.ops.paf_decode import paf_decode_batch
+
+    return paf_decode_batch(out["conf_map"].float(), out["paf_map"].float(), eng.decoder)
+
+
+def _paf_checks(eng, out, key) -> dict:
+    """The PAF decoder on the card's outputs against the CPU on the same
+    outputs: the peaks (`peak_topk` against its plain version on the CPU)
+    equal; on the card's peaks, `limb_scores` equal to its plain version on
+    the card bit for bit, and to the plain version on the CPU in validity
+    and within 1e-6 in value (ROADMAP.md Queue 3); the humans within
+    `phase_decode`'s 1e-5 (coords) and 1e-3 (scores)."""
+    import dataclasses
+
+    import torch
+    from hyperpose_torch.ops import paf_decode as PD
+
+    cfg, pairs = eng.decoder, PD._limb_pairs(eng.topology)
+    plain = dataclasses.replace(cfg, gather_backend="xla")
+    conf, paf = out["conf_map"].float()[..., :cfg.n_parts], out["paf_map"].float()
+    xy, score, valid = PD.find_peaks(conf, cfg)
+    xy_c, score_c, valid_c = PD.find_peaks(conf.cpu(), cfg)
+    d_peak = float((xy.cpu() - xy_c).abs().max())
+    row = {"valid_peaks_per_image": valid.sum((1, 2)).tolist(),
+           "peaks_vs_cpu": {"valid_differ": int((valid.cpu() != valid_c).sum()),
+                            "score_differ": int((score.cpu() != score_c).sum()),
+                            "max_abs_dxy": d_peak}}
+    check(torch.equal(valid.cpu(), valid_c) and torch.equal(score.cpu(), score_c)
+          and d_peak <= 1e-5,
+          f"{key}: the card's peaks differ from the CPU's on the same maps: {row['peaks_vs_cpu']}")
+    cand = PD._limb_pair_scores(paf, xy, valid, pairs, cfg)
+    cand_p = PD._limb_pair_scores(paf, xy, valid, pairs, plain)
+    cand_c = PD._limb_pair_scores(paf.cpu(), xy.cpu(), valid.cpu(), pairs, plain)
+    check(torch.equal(cand, cand_p), f"{key}: limb_scores differs from its plain version on "
+          f"the card in {int((cand != cand_p).sum())} of {cand.numel()} values")
+    cand, ok = cand.cpu(), cand.cpu() > -5e29
+    both = ok & (cand_c > -5e29)
+    d_cand = float((cand - cand_c)[both].abs().max()) if both.any() else 0.0
+    row["limb_scores_vs_cpu_plain"] = {
+        "values": cand.numel(), "valid": int(ok.sum()),
+        "validity_differ": int((ok != (cand_c > -5e29)).sum()),
+        "values_differ": int((both & (cand != cand_c)).sum()), "max_abs_d": d_cand}
+    check(torch.equal(ok, cand_c > -5e29) and d_cand <= 1e-6,
+          f"{key}: limb_scores vs its plain version on the CPU: {row['limb_scores_vs_cpu_plain']}")
+    on_cpu = {k: out[k].cpu() for k in ("conf_map", "paf_map")}
+    d_xy, d_s = human_deltas(_numpy(_paf_decode(eng, out)), _numpy(_paf_decode(eng, on_cpu)))
+    check(d_xy <= 1e-5 and d_s <= 1e-3, f"{key}: decode vs CPU |dxy| {d_xy}, |dscore| {d_s}")
+    row.update(limb_scores_equal_to_plain_on_card=True, decode_vs_cpu_max_abs_dxy=d_xy,
+               decode_vs_cpu_max_abs_dscore=d_s)
+    return row
+
+
+def _ppn_model():
+    from hyperpose_torch.models.pose_proposal import PoseProposal
+    return PoseProposal()
+
+
+def _lw_resnet18_model():
+    from hyperpose_torch.models.backbones import Resnet18
+    from hyperpose_torch.models.openpose import LightWeightOpenPose
+    return LightWeightOpenPose(backbone=Resnet18)
+
+
+PPN = Served("ppn", "PoseProposal (Resnet18, stride 32, 1485-channel head)", PPN_HW,
+             _ppn_model, _ppn_engine, lambda eng, out: eng.fused_decode.decode(out),
+             _ppn_checks, (), n_int8=21)
+LW_RESNET18 = Served("lw_resnet18", "LightWeightOpenPose(backbone=Resnet18), stride 8",
+                     INPUT_HW, _lw_resnet18_model, _lw_resnet18_engine, _paf_decode,
+                     _paf_checks, ("limb_scores", "peak_topk"), n_int8=49)
+
+
 def seeded_rng():
     """The generator of the painted maps, frames and stream frames: seed 0,
     past a [B, 19, 2, 46, 54] normal draw and two [B, 19, 2560] integer
@@ -1613,13 +1899,18 @@ def main() -> None:
     paths = phase_end_to_end(frames, card)
     phase_stream(rng, card)
     phase_pifpaf_decode(card)
-    pifpaf, fields32 = phase_pifpaf_end_to_end(frames, card)
+    pifpaf, fields32 = phase_serving(PIFPAF, ("f32", "bf16"), frames, card)
     rows.append(phase_grow(fields32))
     t_int8 = time.perf_counter()
     phase_int8_gemm()
     int8_row, int8_path = phase_int8_end_to_end(frames, card)
     rows.append(int8_row)
     t_int8 = time.perf_counter() - t_int8
+    t_r18 = time.perf_counter()
+    phase_ppn_decode(card)
+    phase_serving(PPN, ("f32", "bf16", "int8"), frames, card)
+    lw_r18, _ = phase_serving(LW_RESNET18, ("f32", "bf16", "int8"), frames, card)
+    t_r18 = time.perf_counter() - t_r18
     # Each kernel's launches on its own path: the plain-stem f32 engine for
     # the PAF decoder kernels, the bf16 fused-stem engine for conv1_pool, the
     # use_pallas_peaks decode for peak_candidates, the f32 PifPaf engine for
@@ -1629,13 +1920,14 @@ def main() -> None:
     launches = {**paths["plain_f32"],
                 "conv1_pool": paths["fused_bf16"]["conv1_pool"],
                 "peak_candidates": pallas_peaks["peak_candidates"],
-                "grow": pifpaf["fused_grow"], "stem_gemm": gemm_launches,
+                "grow": pifpaf["f32"]["fused_grow"], "stem_gemm": gemm_launches,
                 "int8_gemm": int8_path["int8_conv"]}
     for row in rows:
         row["launches"] = launches[row["name"]]
         check(row["launches"] > 0, f"{row['name']} was not launched on its path")
     check(len(rows) == 7, f"{len(rows)} kernel rows")
-    emit("total", seconds=time.perf_counter() - t0, int8_phases_seconds=t_int8)
+    emit("total", seconds=time.perf_counter() - t0, int8_phases_seconds=t_int8,
+         resnet18_phases_seconds=t_r18, lw_resnet18_f32_launches=lw_r18["f32"])
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

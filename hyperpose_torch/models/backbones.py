@@ -1,16 +1,19 @@
 """Backbones in PyTorch: the flagship's TinyVGG and its two exact serving
-forms, the dilated MobileNet of Lightweight-OpenPose, and the ResNet50 trunk
-of PifPaf.
+forms, the dilated MobileNet of Lightweight-OpenPose, the ResNet50 trunk
+of PifPaf and the ResNet18 trunk of PoseProposal.
 
 Counterpart of `hyperpose_tpu/models/backbones.py` `ConvBN`, `VggTiny`,
 `VggTinyS2DStem`, `VggTinyFusedStem`, `Bottleneck`, `Resnet50`,
-`DepthwiseConv`, `SeparableBlock` and `MobilenetDilated`, with the numpy
-remaps that turn a VggTiny checkpoint into either serving form (reference:
-hyperpose/Model/backbones.py:201-232, 343-391, 587-697). Modules run NCHW;
+`ResBlock18`, `Resnet18`, `DepthwiseConv`, `SeparableBlock` and
+`MobilenetDilated`, with the numpy remaps that turn a VggTiny checkpoint
+into either serving form (reference: hyperpose/Model/backbones.py:201-232,
+343-391, 512-586, 587-697). Modules run NCHW;
 the submodule names follow the flax module names, so the flat weight layout
 maps one to one (`utils/weights.py`).
 """
 from __future__ import annotations
+
+from typing import Callable
 
 import numpy as np
 import torch
@@ -38,8 +41,10 @@ def same_pads(hw, kernel: int, stride: int) -> tuple[int, int, int, int]:
 
 
 class ConvBN(nn.Module):
-    """Conv2d (no bias) + BatchNorm + optional ReLU, with flax's SAME
-    padding. BN eps is the flax module's 1e-5.
+    """Conv2d + BatchNorm + activation, with flax's SAME padding. BN eps is
+    the flax module's 1e-5. `act` is the activation (ReLU by default, None
+    for none, any callable: PoseProposal's leaky ReLU); `bias` gives the conv
+    a bias, as flax's `use_bias` does.
 
     At stride 1 an odd kernel's SAME padding is `padding=kernel // 2` on
     both sides; at a larger stride it depends on the input size
@@ -47,19 +52,20 @@ class ConvBN(nn.Module):
 
     def __init__(self, in_features: int, features: int,
                  dtype: torch.dtype = torch.float32, kernel: int = 3,
-                 stride: int = 1, act: bool = True):
+                 stride: int = 1, act: Callable | None = torch.relu,
+                 bias: bool = False):
         super().__init__()
         self.kernel, self.stride, self.act = kernel, stride, act
         self.conv = nn.Conv2d(in_features, features, kernel, stride=stride,
                               padding=kernel // 2 if stride == 1 else 0,
-                              bias=False, dtype=dtype)
+                              bias=bias, dtype=dtype)
         self.bn = nn.BatchNorm2d(features, eps=1e-5, dtype=dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.stride > 1:
             x = F.pad(x, same_pads(x.shape[-2:], self.kernel, self.stride))
         x = self.bn(self.conv(x))
-        return torch.relu(x) if self.act else x
+        return x if self.act is None else self.act(x)
 
 
 def _add_blocks(module: nn.Module, cfg, cin: int, first: int,
@@ -194,9 +200,9 @@ class Bottleneck(nn.Module):
         out = 4 * features
         self.cb1 = ConvBN(in_features, features, dtype, kernel=1)
         self.cb2 = ConvBN(features, features, dtype, kernel=3, stride=stride)
-        self.cb3 = ConvBN(features, out, dtype, kernel=1, act=False)
+        self.cb3 = ConvBN(features, out, dtype, kernel=1, act=None)
         self.ds = (ConvBN(in_features, out, dtype, kernel=1, stride=stride,
-                          act=False)
+                          act=None)
                    if stride != 1 or in_features != out else None)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -232,8 +238,62 @@ class Resnet50(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = self.stem(x)
         if self.use_pool:
-            x = F.max_pool2d(F.pad(x, same_pads(x.shape[-2:], 3, 2),
-                                   value=float("-inf")), 3, 2)
+            x = _stem_pool(x)
+        for name in self._blocks:
+            x = getattr(self, name)(x)
+        return x
+
+
+def _stem_pool(x: torch.Tensor) -> torch.Tensor:
+    """flax `nn.max_pool(x, (3, 3), (2, 2), padding="SAME")`: padded with
+    -inf as XLA pads, asymmetrically on even sizes (`same_pads`)."""
+    return F.max_pool2d(F.pad(x, same_pads(x.shape[-2:], 3, 2), value=float("-inf")), 3, 2)
+
+
+class ResBlock18(nn.Module):
+    """ResNet18 basic block: two 3x3 ConvBNs (the first carrying the
+    stride, the second without ReLU) plus the identity or, with
+    `down_sample`, the 1x1 projection `ds`; ReLU after the sum."""
+
+    def __init__(self, in_features: int, features: int, stride: int = 1,
+                 down_sample: bool = False, dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.cb1 = ConvBN(in_features, features, dtype, stride=stride)
+        self.cb2 = ConvBN(features, features, dtype, act=None)
+        self.ds = (ConvBN(in_features, features, dtype, kernel=1, stride=stride, act=None)
+                   if down_sample else None)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = self.cb2(self.cb1(x))
+        return torch.relu(y + (x if self.ds is None else self.ds(x)))
+
+
+class Resnet18(nn.Module):
+    """ResNet18 trunk ending at `b5_1`: the 7x7 stride-2 stem, the 3x3
+    stride-2 max pool, then `b2_1`, `b2_2` (64), `b3_1` (128, stride 2),
+    `b3_2`, `b4_1` (256), `b4_2`, `b5_1` (512), the first block of each
+    width with the projection `ds`. With `scale_size=32`, `b4_1` and `b5_1`
+    also stride 2 (PoseProposal: 384x384 -> 12x12); at 8 the trunk has
+    stride 8. The pretraining head of the flax module is not ported (it
+    belongs to training)."""
+
+    out_channels = 512
+
+    def __init__(self, scale_size: int = 8, dtype: torch.dtype = torch.float32):
+        super().__init__()
+        s = 2 if scale_size == 32 else 1
+        self.stem = ConvBN(3, 64, dtype, kernel=7, stride=2)
+        self._blocks, cin = [], 64
+        for name, f, st, ds in (("b2_1", 64, 1, False), ("b2_2", 64, 1, False),
+                                ("b3_1", 128, 2, True), ("b3_2", 128, 1, False),
+                                ("b4_1", 256, s, True), ("b4_2", 256, 1, False),
+                                ("b5_1", 512, s, True)):
+            self.add_module(name, ResBlock18(cin, f, st, ds, dtype))
+            self._blocks.append(name)
+            cin = f
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = _stem_pool(self.stem(x))
         for name in self._blocks:
             x = getattr(self, name)(x)
         return x

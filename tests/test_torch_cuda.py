@@ -28,7 +28,15 @@ exactly, bf16 within the float32 sum-order slack at its depth
 versions exactly (exact s32 sums, the same float32 epilogue operations);
 Int8Conv2d on the card equals the CPU; the int8
 engines agree with the CPU within their int8 noise (chip_smoke.INT8_TOL;
-see the test).
+see the test). The Resnet18 family (PoseProposal, Lightweight-OpenPose on
+Resnet18): the PoseProposal decode equals the CPU's bit for bit on the same
+maps; f32 outputs within 1e-3 of their largest value of the CPU's; the
+card's decode of its maps against the CPU's decode of the same maps, bit
+for bit for PoseProposal; for the PAF decoder the peaks equal, the
+limb-pair scores equal to their plain version on the card bit for bit and
+within 1e-6 of the plain version on the CPU, and the humans within the
+decode tolerances above; every int8 conv equal to its plain version and to
+a CPU copy on the card's input.
 """
 import numpy as np
 import pytest
@@ -37,9 +45,10 @@ import torch
 from torch_parity import FLAGSHIP_NPZ, SYNTH_NPZ, tie_maps
 from torch_measures import SUM_ORDER, bf16_ulps, sum_order
 from chip_smoke import (
-    INT8_TOL, TWO_PEOPLE, _numpy, _peak_maps as serving_peak_maps, find_people,
+    INT8_TOL, LW_RESNET18, PPN, TWO_PEOPLE, _convs_card_vs_cpu, _convs_equal_plain, _numpy,
+    _peak_maps as serving_peak_maps, _record_int8_inputs, dense_ppn_maps, find_people,
     human_deltas, limb_scores_inputs, make_synthetic_maps, painted_pifpaf_batch,
-    peak_candidates_cases, peak_topk_cases,
+    painted_ppn_batch, peak_candidates_cases, peak_topk_cases,
 )
 from hyperpose_torch.models.backbones import (
     VggTiny, VggTinyFusedStem, remap_vggtiny_to_fused,
@@ -61,7 +70,8 @@ from hyperpose_torch.ops.kernels.peak_topk import (
     peak_candidates, peak_candidates_plain, peak_topk, peak_topk_plain,
 )
 from hyperpose_torch.ops.paf_decode import PafDecoderConfig, paf_decode_batch
-from hyperpose_torch.quant import Int8Conv2d, calibrate_engine
+from hyperpose_torch.ops.ppn_decode import ppn_decode_batch
+from hyperpose_torch.quant import Int8Conv2d, calibrate_engine, quantize_engine
 from hyperpose_torch.runtime.engine import PoseEngine
 from hyperpose_torch.utils.topology import COCO_TOPOLOGY, PIFPAF_TOPOLOGY
 from hyperpose_torch.utils.weights import random_flax_weights
@@ -760,3 +770,87 @@ def test_pifpaf_engine_on_card_matches_cpu(cuda):
     assert out["cpu"]["valid"].sum() > 0
     d_xy, d_s = human_deltas(out["cuda"], out["cpu"])
     assert d_xy <= 1e-4 and d_s <= 1e-4
+
+
+# -- the Resnet18 family: PoseProposal and Lightweight-OpenPose on Resnet18 ------
+
+@pytest.mark.parametrize("case", ["painted", "ties"])
+def test_ppn_decode_on_card_matches_cpu(cuda, case):
+    """Bit for bit: the ties case has equal c in many cells (the stable
+    top-K decides) and equal match values (the first maximum decides)."""
+    maps = (painted_ppn_batch(2) if case == "painted"
+            else dense_ppn_maps(6, b=2, levels=(0.1, 0.5, 0.5, 0.75)))
+    gpu = _numpy(ppn_decode_batch({k: torch.from_numpy(v).to(cuda) for k, v in maps.items()}))
+    cpu = _numpy(ppn_decode_batch(maps))
+    for k in gpu:
+        np.testing.assert_array_equal(gpu[k], cpu[k], err_msg=k)
+    assert gpu["valid"].sum(axis=1).tolist() == ([2, 2] if case == "painted"
+                                                 else cpu["valid"].sum(axis=1).tolist())
+
+
+SERVED = {"ppn": PPN, "lw_resnet18": LW_RESNET18}
+
+
+def _r18_setup(kind):
+    spec = SERVED[kind]
+    rng = np.random.default_rng(13)
+    batch = np.stack([resize_bilinear(np.load(SYNTH_NPZ)["rgb"], spec.hw),
+                      rng.integers(0, 256, (*spec.hw, 3), dtype=np.uint8)])
+    return spec, random_flax_weights(spec.model(), seed=0), batch
+
+
+@pytest.mark.parametrize("kind", ["ppn", "lw_resnet18"])
+def test_resnet18_engines_on_card_match_cpu(cuda, kind):
+    """f32 (TF32 off), seeded random weights, full size, batch 2: the
+    outputs within 1e-3 of their largest value of the CPU's, and
+    `chip_smoke.py`'s check of the card's decode of the card's maps
+    (PoseProposal: equal to the CPU's decode of the same maps bit for bit;
+    PAF: peaks equal to the CPU's, `limb_scores` equal to its plain version
+    on the card bit for bit and within 1e-6 of the CPU's, the humans within
+    1e-5 in coords and 1e-3 in scores). The Lightweight-OpenPose step
+    launches `peak_topk` and `limb_scores` once each, the PoseProposal step
+    neither."""
+    spec, weights, batch = _r18_setup(kind)
+    eng = spec.engine(weights, torch.float32, device=cuda, batch=2)
+    cpu = spec.engine(weights, torch.float32, device="cpu", batch=2)
+    before = (peak_topk.launches, limb_scores.launches)
+    eng.infer_batch_device(batch)
+    n = 0 if kind == "ppn" else 1
+    assert (peak_topk.launches, limb_scores.launches) == (before[0] + n, before[1] + n)
+    x = torch.from_numpy(batch).to(torch.float32) / 255.0
+    with torch.inference_mode():
+        out, ref = eng.model(x.to(cuda)), cpu.model(x)
+        for k, v in ref.items():
+            if torch.is_tensor(v):
+                rel = float((out[k].cpu() - v).abs().max() / v.abs().max())
+                assert rel <= 1e-3, (k, rel)
+        row = spec.check_decode(eng, out, kind)   # exits non-zero on a mismatch
+    if kind == "ppn":
+        assert row["decode_equal_to_cpu"]
+        assert int(_numpy(spec.decode(eng, out))["valid"].sum()) > 0
+    else:
+        assert row["limb_scores_equal_to_plain_on_card"]
+        assert row["limb_scores_vs_cpu_plain"]["valid"] > 0
+
+
+@pytest.mark.parametrize("kind,n_convs", [("ppn", 21), ("lw_resnet18", 49)])
+def test_resnet18_int8_engines_on_card(cuda, kind, n_convs):
+    """int8 with bf16 activations (`quantize_engine` on the batch): a step
+    launches `int8_quantize` and `int8_conv` once a conv, and every conv, on
+    the card's input, equals its plain version on the card and a CPU copy of
+    it (the 7x7 stem folded, add1 / add2 with their bias, the 1485-channel
+    PoseProposal head)."""
+    spec, weights, batch = _r18_setup(kind)
+    eng = quantize_engine(spec.engine(weights, torch.bfloat16, device=cuda, batch=2), [batch])
+    assert len(eng.quant_scales) == n_convs
+    before = (int8_conv.launches, int8_quantize.launches)
+    eng.infer_batch_device(batch)
+    assert (int8_conv.launches, int8_quantize.launches) == (before[0] + n_convs,
+                                                            before[1] + n_convs)
+    x = torch.from_numpy(batch).to(cuda, torch.bfloat16) / 255.0
+    with torch.inference_mode():
+        seen = _record_int8_inputs(eng.model, lambda: eng.model(x))
+        assert len(seen) == n_convs
+        _convs_equal_plain(seen, kind)        # both exit non-zero on a mismatch
+        assert _convs_card_vs_cpu(seen, kind) == n_convs
+    assert 1485 in {c.out_channels for c, _ in seen} or kind != "ppn"

@@ -1,7 +1,8 @@
 """Measures shared by the port's tests and chip_smoke.py: bf16 distances in
 units in the last place, the slack of float32 sums taken in another order,
-and the work that PifPaf growth and the PAF limb scoring need on given
-inputs (the evaluations and bytes behind those kernels' bounds).
+the work that PifPaf growth and the PAF limb scoring need on given inputs
+(the evaluations and bytes behind those kernels' bounds), and a network's
+conv operations.
 
 It imports torch and the port only, and has no side effects at import, so
 chip_smoke.py can use it on the card as it is.
@@ -185,3 +186,29 @@ def limb_scores_work(paf_shape, peak_xy, peak_valid, limbs, n_samples: int = 10)
         "bytes": 8 * pixels + peak_xy.numel() * 4 + peak_valid.numel() + 4 * total_pairs,
         "operations": pairs * (18 + 18 * n_samples) + (total_pairs - pairs),
     }
+
+
+def conv_operations(model: torch.nn.Module, images_shape) -> int:
+    """2 x the multiply-adds of every `nn.Conv2d` in one forward of a copy
+    of `model` on NHWC images of `images_shape`, counted on the meta device
+    (no data, no compute): for each conv, 2 * output elements * (input
+    channels / groups) * kh * kw."""
+    import copy
+
+    meta = copy.deepcopy(model).to("meta")
+    total = 0
+
+    def count(conv, _args, out):
+        nonlocal total
+        kh, kw = conv.kernel_size
+        total += 2 * out.numel() * (conv.in_channels // conv.groups) * kh * kw
+
+    hooks = [m.register_forward_hook(count) for m in meta.modules()
+             if isinstance(m, torch.nn.Conv2d)]
+    try:
+        with torch.no_grad():
+            meta(torch.zeros(images_shape, device="meta"))
+    finally:
+        for h in hooks:
+            h.remove()
+    return total
