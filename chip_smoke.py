@@ -5,7 +5,7 @@ Run from the repository root with no arguments:
 
     python3 chip_smoke.py
 
-It builds the seven CUDA kernels from `hyperpose_torch/csrc/` (counting the
+It builds the eight CUDA kernels from `hyperpose_torch/csrc/` (counting the
 tensor-core and TMA instructions in their machine code), holds each against
 its plain PyTorch version at the serving shapes and times both (`peak_topk`
 at K = 1, 16 and 128, and exactly on edge cases; `stem_gemm`, the stem's
@@ -34,7 +34,16 @@ painted PoseProposal maps decode to the two people on the card, equal to
 the CPU bit for bit, and the PoseProposal engine (384x384, `fused_decode`)
 and Lightweight-OpenPose on Resnet18 (368x432, the PAF step), batch 8 on
 seeded random weights, run in f32, bf16 and int8 (bf16 activations), each
-held against the CPU. It checks that each path went through its kernels.
+held against the CPU. Then the rest of the OpenPose family through the same
+serving phase, batch 8 on seeded random weights, in f32, bf16 and int8:
+Lightweight-OpenPose on its default MobilenetDilated (368x432), CMU
+OpenPose on VGG19 with PReLU (368x656, the reference's size), MobileNet-Thin
+and MobileNet-Small OpenPose (368x432; Small's maps are 92x108); and the
+`int8_dwconv` phase holds the int8 depthwise conv kernel bit for bit against
+its plain version at every depthwise shape of those four int8 steps and of
+MobilenetV1 and MobilenetV2 at 368x432, timed beside its bound and cuDNN's
+bf16 depthwise convs of the same layers. It checks that each path went
+through its kernels.
 Every phase prints one line; any failure
 exits non-zero before the result line. The last line is
 `{"ok": true, "device": {...}}`. It needs a CUDA device and exits non-zero
@@ -164,11 +173,13 @@ def wall_ms(fn, iters: int = 50, warmup: int = 3) -> tuple[float, float]:
 
 def device_busy(fn, iters: int = 5) -> tuple[float, float]:
     """(device ms, kernels launched) per call, summed over every kernel in a
-    torch.profiler trace of `iters` calls."""
+    torch.profiler trace of `iters` calls. The trace records the device's
+    activity alone: the host's ops add nothing to these sums, and turning
+    their events into `key_averages` took most of each trace's time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
@@ -960,12 +971,14 @@ def phase_decode(limbs, **cfg) -> dict:
 def _launch_counters():
     from hyperpose_torch.ops.kernels.conv1_pool import conv1_pool, stem_gemm
     from hyperpose_torch.ops.kernels.grow import fused_grow
-    from hyperpose_torch.ops.kernels.int8_gemm import int8_conv, int8_gemm, int8_quantize
+    from hyperpose_torch.ops.kernels.int8_gemm import (
+        int8_conv, int8_dwconv, int8_gemm, int8_quantize,
+    )
     from hyperpose_torch.ops.kernels.line_gather import limb_scores
     from hyperpose_torch.ops.kernels.peak_topk import peak_candidates, peak_topk
 
     return (limb_scores, peak_topk, peak_candidates, conv1_pool, fused_grow, stem_gemm,
-            int8_gemm, int8_quantize, int8_conv)
+            int8_gemm, int8_quantize, int8_conv, int8_dwconv)
 
 
 def drive(engine, frames) -> tuple[list, dict]:
@@ -1170,6 +1183,24 @@ class Served(NamedTuple):
     check_decode: Callable   # (engine, outputs on the card, key) -> dict; fails on a mismatch
     kernels: tuple           # the hand-written kernels its decode launches
     n_int8: int = 0          # the int8 convs of its network
+    n_dw: int = 0            # of which depthwise (`int8_dwconv`)
+    cpu_frames: int = BATCH  # the frames whose f32 outputs are held against the CPU
+    raised_biases: tuple = ()    # weight leaves raised by 1 (`served_weights`)
+
+
+def served_weights(spec: Served) -> dict:
+    """The weights a served model runs on: `random_flax_weights(model, 0)`
+    (the repository has no trained checkpoint of these models), with each
+    leaf of `spec.raised_biases` (the last stage's output biases) raised by
+    1, so that its maps hold peaks and limbs above the PAF decoder's
+    thresholds and the decode assembles people, as the CPU parity tests do
+    (tests/test_torch_openpose_family.py)."""
+    from hyperpose_torch.utils.weights import random_flax_weights
+
+    weights = random_flax_weights(spec.model(), seed=0)
+    for leaf in spec.raised_biases:
+        weights[f"params/{leaf}"] += np.float32(1.0)
+    return weights
 
 
 def _pifpaf_model():
@@ -1181,36 +1212,38 @@ PIFPAF = Served("pifpaf", "Pifpaf (Resnet50, stride 16)", INPUT_HW, _pifpaf_mode
                 _pifpaf_engine, _pifpaf_decode, _pifpaf_checks, ("fused_grow",))
 
 
-def phase_serving(spec: Served, forms, frames, card) -> tuple[dict, dict]:
+def phase_serving(spec: Served, forms, frames, card) -> tuple[dict, dict, list]:
     """One model family through `PoseEngine` at full width and depth on
-    seeded random weights (`random_flax_weights(model, 0)`; the repository
-    has no trained checkpoint of these models), batch 8 (the synthetic frame
+    seeded random weights (`served_weights`; the repository has no trained
+    checkpoint of these models), batch 8 (the synthetic frame
     and 7 random frames), in each of `forms`: "f32" (TF32 off), "bf16", and
     "int8" with bf16 activations (`quantize_engine` calibrated on the
     batch). For each: the main path once with its kernel counts (its
-    decoder's kernels launched, no other; int8: `int8_quantize` and
-    `int8_conv` once a conv), finite humans and outputs, the f32 outputs of
-    the whole batch against the CPU (max |d| <= 1e-3 max |v| per output),
-    the family's own check of its decode on the card's outputs, every int8
-    conv exact against its plain version and a CPU copy on the card's
-    input, then step / network / decode wall and device timings. Returns
-    the launches of each form and the f32 outputs."""
+    decoder's kernels launched, no other; int8: `int8_quantize` once a conv,
+    and `int8_conv` once a dense conv and `int8_dwconv` once a depthwise
+    one), finite humans and outputs, the f32 outputs of the first
+    `spec.cpu_frames` frames against the CPU (max |d| <= 1e-3 max |v| per
+    output), the family's own check of its decode on the card's outputs,
+    every int8 conv exact against its plain version and a CPU copy on the
+    card's input, then step / network / decode wall and device timings.
+    Returns the launches of each form, the f32 outputs, and (spec.name,
+    conv, quantized input, activation dtype) of every depthwise int8 conv
+    of the int8 step (for `phase_int8_dwconv`)."""
     import torch
     from torch import nn
     from hyperpose_torch.ops.image import resize_bilinear
     from hyperpose_torch.quant import quantize_engine
-    from hyperpose_torch.utils.weights import random_flax_weights
     from torch_measures import conv_operations
 
-    int8_kernels = ("int8_conv", "int8_quantize", "int8_gemm")
-    weights = random_flax_weights(spec.model(), seed=0)
+    int8_kernels = ("int8_conv", "int8_quantize", "int8_gemm", "int8_dwconv")
+    weights = served_weights(spec)
     batch = torch.from_numpy(np.stack([resize_bilinear(f, spec.hw) for f in frames])).cuda()
-    paths, timing, out32 = {}, {}, None
+    paths, timing, out32, dw = {}, {}, None, []
     for form in forms:
         key = f"{spec.name}_{form}"
         dtype = torch.float32 if form == "f32" else torch.bfloat16
         eng, row = spec.engine(weights, dtype), {}
-        n_int8 = spec.n_int8 if form == "int8" else 0
+        n_int8, n_dw = (spec.n_int8, spec.n_dw) if form == "int8" else (0, 0)
         if form == "int8":
             t0 = time.perf_counter()
             eng = quantize_engine(eng, [batch])
@@ -1222,11 +1255,12 @@ def phase_serving(spec: Served, forms, frames, card) -> tuple[dict, dict]:
         row["warmup_s"] = eng.warmup()
         results, launches = drive(eng, frames)
         paths[form] = launches
-        check(launches["int8_conv"] == launches["int8_quantize"] == n_int8
-              and launches["int8_gemm"] == 0
+        check(launches["int8_quantize"] == n_int8 and launches["int8_dwconv"] == n_dw
+              and launches["int8_conv"] == n_int8 - n_dw and launches["int8_gemm"] == 0
               and all((n > 0) == (k in spec.kernels)
                       for k, n in launches.items() if k not in int8_kernels),
-              f"{key}: launches {launches}, not {spec.kernels} and {n_int8} int8 convs")
+              f"{key}: launches {launches}, not {spec.kernels} and {n_int8} int8 convs "
+              f"({n_dw} depthwise)")
         for res in results:
             for hm in res:
                 xy = np.array([(p.x, p.y) for p in hm.parts.values()])
@@ -1242,10 +1276,10 @@ def phase_serving(spec: Served, forms, frames, card) -> tuple[dict, dict]:
             check(all(bool(torch.isfinite(v).all()) for v in out.values() if torch.is_tensor(v)),
                   f"{key}: non-finite network outputs")
             if form == "f32":
-                out32 = out
+                out32, n = out, spec.cpu_frames
                 ref = spec.engine(weights, torch.float32, device="cpu").model(
-                    batch.cpu().to(torch.float32) / 255.0)
-                rel = {k: float((out[k].cpu() - v).abs().max() / v.abs().max())
+                    batch[:n].cpu().to(torch.float32) / 255.0)
+                rel = {k: float((out[k][:n].cpu() - v).abs().max() / v.abs().max())
                        for k, v in ref.items() if torch.is_tensor(v)}
                 check(max(rel.values()) <= 1e-3,
                       f"{key}: f32 outputs vs CPU, max |d| / max |v|: {rel}")
@@ -1255,10 +1289,12 @@ def phase_serving(spec: Served, forms, frames, card) -> tuple[dict, dict]:
             if form == "int8":
                 seen = _record_int8_inputs(eng.model, network)
                 check(len(seen) == n_int8, f"{key}: {len(seen)} int8 convs ran in one step")
-                _convs_equal_plain(seen, key)
+                xqs, _ = _convs_equal_plain(seen, key)
                 row["convs_equal_to_plain_and_cpu"] = _convs_card_vs_cpu(seen, key)
                 row["conv_couts"] = sorted({c.out_channels for c, _ in seen})
-                del seen
+                dw = [(spec.name, c, xq, x.dtype)
+                      for (c, x), xq in zip(seen, xqs) if c.depthwise]
+                del seen, xqs
             stages = {"step": lambda: eng.infer_batch_device(batch), "network": network,
                       "decode": lambda: spec.decode(eng, out)}
             for stage, fn in stages.items():
@@ -1272,9 +1308,9 @@ def phase_serving(spec: Served, forms, frames, card) -> tuple[dict, dict]:
     emit(f"{spec.name}_end_to_end", card=card, model=spec.about + ", seeded random weights",
          input="x".join(map(str, spec.hw)), batch=BATCH, tf32=False, wall_samples=50,
          int8_activations="bf16", outputs_tolerance="max |d| <= 1e-3 * max |v| per f32 "
-         "output, whole batch", conv_gflop_per_batch=conv_operations(
+         "output", cpu_frames=spec.cpu_frames, conv_gflop_per_batch=conv_operations(
              spec.model(), (BATCH, *spec.hw, 3)) / 1e9, **timing)
-    return paths, out32
+    return paths, out32, dw
 
 
 def phase_grow(fields32) -> dict:
@@ -1446,18 +1482,19 @@ def _convs_card_vs_cpu(seen, key: str) -> int:
 
 
 def _convs_equal_plain(seen, key: str) -> tuple[list, list]:
-    """`int8_conv` on each conv's own quantized input equals its plain
-    version there. Returns the quantized inputs and the plain outputs."""
+    """Each conv's kernel (`int8_conv`, or `int8_dwconv` for a depthwise
+    conv) on its own quantized input equals its plain version there.
+    Returns the quantized inputs and the plain outputs."""
     import torch
-    from hyperpose_torch.ops.kernels.int8_gemm import int8_conv_plain
 
     xqs, wants = [], []
     for c, x in seen:
         xq = c.quantize(x)
-        want = int8_conv_plain(xq, c.w_taps, c.dq, c.bias, *c.taps_geometry, x.dtype)
+        want = c.conv_plain(xq, x.dtype)
         check(bool(torch.equal(c.conv(xq, x.dtype), want)),
-              f"{key}: int8_conv differs from its plain version at {tuple(x.shape)} -> "
-              f"{c.out_channels} ({c.kernel_size}, stride {c.stride})")
+              f"{key}: {'int8_dwconv' if c.depthwise else 'int8_conv'} differs from its "
+              f"plain version at {tuple(x.shape)} -> {c.out_channels} ({c.kernel_size}, "
+              f"stride {c.stride}, dilation {c.dilation})")
         xqs.append(xq)
         wants.append(want)
     return xqs, wants
@@ -1777,15 +1814,6 @@ def _ppn_checks(eng, out, key) -> dict:
     return {"decode_equal_to_cpu": True}
 
 
-def _lw_resnet18_engine(weights, dtype, device="cuda", batch=BATCH):
-    from hyperpose_torch.models.backbones import Resnet18
-    from hyperpose_torch.models.openpose import LightWeightOpenPose
-    from hyperpose_torch.runtime.engine import PoseEngine
-
-    return PoseEngine(LightWeightOpenPose(backbone=Resnet18, dtype=dtype), weights,
-                      input_hw=INPUT_HW, max_batch_size=batch, device=device)
-
-
 def _paf_decode(eng, out):
     from hyperpose_torch.ops.paf_decode import paf_decode_batch
 
@@ -1844,18 +1872,136 @@ def _ppn_model():
     return PoseProposal()
 
 
-def _lw_resnet18_model():
-    from hyperpose_torch.models.backbones import Resnet18
-    from hyperpose_torch.models.openpose import LightWeightOpenPose
-    return LightWeightOpenPose(backbone=Resnet18)
+def _paf_model(name: str, backbone: str | None = None):
+    """() -> a factory of the PAF-family model `name` of
+    `hyperpose_torch.models.openpose` (on `backbone` of `models.backbones`)
+    in a dtype, float32 when none is given."""
+    def make(dtype=None):
+        import torch
+        from hyperpose_torch.models import backbones, openpose
+
+        kw = {} if backbone is None else {"backbone": getattr(backbones, backbone)}
+        return getattr(openpose, name)(dtype=dtype or torch.float32, **kw)
+    return make
+
+
+def paf_served(name: str, about: str, hw, make, n_int8: int, n_dw: int = 0,
+               **options) -> Served:
+    """A model served by the PAF step (`PoseEngine`'s own decoder, which
+    launches `limb_scores` and `peak_topk`); `make(dtype)` builds it;
+    `options` are `Served`'s last fields."""
+    def engine(weights, dtype, device="cuda", batch=BATCH):
+        from hyperpose_torch.runtime.engine import PoseEngine
+
+        return PoseEngine(make(dtype), weights, input_hw=hw, max_batch_size=batch,
+                          device=device)
+    return Served(name, about, hw, make, engine, _paf_decode, _paf_checks,
+                  ("limb_scores", "peak_topk"), n_int8, n_dw, **options)
 
 
 PPN = Served("ppn", "PoseProposal (Resnet18, stride 32, 1485-channel head)", PPN_HW,
              _ppn_model, _ppn_engine, lambda eng, out: eng.fused_decode.decode(out),
              _ppn_checks, (), n_int8=21)
-LW_RESNET18 = Served("lw_resnet18", "LightWeightOpenPose(backbone=Resnet18), stride 8",
-                     INPUT_HW, _lw_resnet18_model, _lw_resnet18_engine, _paf_decode,
-                     _paf_checks, ("limb_scores", "peak_topk"), n_int8=49)
+LW_RESNET18 = paf_served("lw_resnet18", "LightWeightOpenPose(backbone=Resnet18), stride 8",
+                         INPUT_HW, _paf_model("LightWeightOpenPose", "Resnet18"), n_int8=49)
+# The rest of the OpenPose family, at the JAX bench_all.py rows' sizes.
+OPENPOSE_HW = (368, 656)   # openpose_vgg19_656x368, the reference's OpenPose size
+LW_MOBILENET = paf_served(
+    "lw_mobilenet", "LightWeightOpenPose() (MobilenetDilated, stride 8)", INPUT_HW,
+    _paf_model("LightWeightOpenPose"), n_int8=54, n_dw=11,
+    raised_biases=("ref_heads/conf2/bias", "ref_heads/paf2/bias"))
+OPENPOSE_VGG19 = paf_served(
+    "openpose_vgg19", "OpenPose() (Vgg19, PReLU, 5 refinements, stride 8)", OPENPOSE_HW,
+    _paf_model("OpenPose"), n_int8=92, cpu_frames=2,
+    raised_biases=("ref4_conf/out/conv/bias", "ref4_paf/out/conv/bias"))
+MBTHIN_OPENPOSE = paf_served(
+    "mbthin_openpose", "MobilenetThinOpenpose() (MobilenetThin, 1152 channels, stride 8)",
+    INPUT_HW, _paf_model("MobilenetThinOpenpose"), n_int8=143, n_dw=71,
+    raised_biases=("ref4_conf/out/bn2/bias", "ref4_paf/out/bn2/bias"))
+MBSMALL_OPENPOSE = paf_served(
+    "mbsmall_openpose", "MobilenetSmallOpenpose() (MobilenetSmall, stride 4, 92x108 maps; "
+    "its SeparableConvs float in int8, as in JAX)", INPUT_HW,
+    _paf_model("MobilenetSmallOpenpose"), n_int8=15, n_dw=7,
+    raised_biases=("ref3_conf/out/bn/bias", "ref3_paf/out/bn/bias"))
+OPENPOSE_FAMILY = (LW_MOBILENET, OPENPOSE_VGG19, MBTHIN_OPENPOSE, MBSMALL_OPENPOSE)
+
+# int32 multiply-adds outside the tensor cores: 64 int32 lanes an SM (half the
+# 128 float32 lanes of H100_F32_OPS_PER_S), 132 SMs, 1.98 GHz, 2 operations each.
+H100_INT32_OPS_PER_S = 33.5e12
+
+
+def backbone_dw_convs(name: str, frames) -> list:
+    """(name, conv, quantized input, dtype) of every depthwise int8 conv of
+    the bf16 backbone `name` of `models.backbones` (seeded random weights,
+    calibrated on the batch) on the 8 frames at 368x432."""
+    import torch
+    from hyperpose_torch import quant
+    from hyperpose_torch.models import backbones
+    from hyperpose_torch.ops.image import resize_bilinear
+    from hyperpose_torch.utils.weights import load_flax_weights, random_flax_weights
+
+    flat = random_flax_weights(getattr(backbones, name)(), seed=0)
+    model = load_flax_weights(getattr(backbones, name)(dtype=torch.bfloat16), flat)
+    model = model.cuda().eval().to(memory_format=torch.channels_last)
+    x = torch.from_numpy(np.stack([resize_bilinear(f, INPUT_HW) for f in frames])).cuda()
+    x = (x.to(torch.bfloat16) / 255.0).permute(0, 3, 1, 2)
+    quant.quantize_model(model, quant.calibrate(model, [x]), weights=flat)
+    with torch.inference_mode():
+        seen = _record_int8_inputs(model, lambda: model(x))
+        return [(name, c, c.quantize(xin), xin.dtype) for c, xin in seen if c.depthwise]
+
+
+def phase_int8_dwconv(records, card) -> dict:
+    """`int8_dwconv` at every depthwise shape of `records` ((model, conv,
+    quantized input, activation dtype), the int8 steps' own inputs): equal
+    to its plain version bit for bit; then, per model, its convs timed
+    together (one CUDA graph of all of them) beside the plain version,
+    cuDNN's bf16 depthwise convs of the same layers (weights s_w * w_q, the
+    input's first C channels in bf16, channels-last) and the bound of the
+    work they need (`torch_measures.int8_dwconv_work`: bytes over
+    H100_BYTES_PER_S or integer operations over H100_INT32_OPS_PER_S, the
+    larger). Returns the rows by model."""
+    import torch
+    import torch.nn.functional as F
+    from torch_measures import int8_dwconv_work
+
+    rows = {}
+    for name in dict.fromkeys(r[0] for r in records):
+        mine = [(c, xq, dt) for n, c, xq, dt in records if n == name]
+        for c, xq, dt in mine:
+            check(bool(torch.equal(c.conv(xq, dt), c.conv_plain(xq, dt))),
+                  f"int8_dwconv {name}: differs from its plain version at {tuple(xq.shape)} "
+                  f"({c.kernel_size}, stride {c.stride}, dilation {c.dilation}, {dt})")
+        work = [int8_dwconv_work(tuple(xq.shape), c.kernel_size, c.stride, c.padding,
+                                 c.dilation, c.out_channels, dt.itemsize)
+                for c, xq, dt in mine]
+        nbytes, ops = sum(w["bytes"] for w in work), sum(w["operations"] for w in work)
+        t_bytes, t_ops = nbytes / H100_BYTES_PER_S, ops / H100_INT32_OPS_PER_S
+        cudnn = [(xq[..., :c.out_channels].to(torch.bfloat16).permute(0, 3, 1, 2),
+                  (c.w_taps[..., :c.out_channels].float() * c.s_w).permute(2, 0, 1)[:, None]
+                  .to(torch.bfloat16).contiguous(memory_format=torch.channels_last), c)
+                 for c, xq, _ in mine]
+        row = rows[name] = {
+            "convs": len(mine), "equal_to_plain": True,
+            "shapes_bhwc_k_stride_pad_dil": sorted({(*xq.shape[:3], c.out_channels,
+                                                     c.kernel_size[0], c.stride[0],
+                                                     c.padding[0], c.dilation[0])
+                                                    for c, xq, _ in mine}),
+            "kernel_ms": device_ms(lambda: [c.conv(xq, dt) for c, xq, dt in mine],
+                                   reps=2, replays=3),
+            "plain_ms": device_ms(lambda: [c.conv_plain(xq, dt) for c, xq, dt in mine],
+                                  reps=1, replays=2),
+            "cudnn_bf16_ms": device_ms(lambda: [
+                F.conv2d(x, w, None, c.stride, c.padding, c.dilation, c.out_channels)
+                for x, w, c in cudnn], reps=2, replays=3),
+            "bytes": nbytes, "operations": ops, "bound_ms": 1e3 * max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+        }
+        row["share_of_bound"] = row["bound_ms"] / row["kernel_ms"]
+        del cudnn
+    emit("int8_dwconv", card=card, input="the int8 steps' own quantized inputs, batch 8",
+         int32_ops_per_s=H100_INT32_OPS_PER_S, **rows)
+    return rows
 
 
 def seeded_rng():
@@ -1899,7 +2045,7 @@ def main() -> None:
     paths = phase_end_to_end(frames, card)
     phase_stream(rng, card)
     phase_pifpaf_decode(card)
-    pifpaf, fields32 = phase_serving(PIFPAF, ("f32", "bf16"), frames, card)
+    pifpaf, fields32, _ = phase_serving(PIFPAF, ("f32", "bf16"), frames, card)
     rows.append(phase_grow(fields32))
     t_int8 = time.perf_counter()
     phase_int8_gemm()
@@ -1909,8 +2055,25 @@ def main() -> None:
     t_r18 = time.perf_counter()
     phase_ppn_decode(card)
     phase_serving(PPN, ("f32", "bf16", "int8"), frames, card)
-    lw_r18, _ = phase_serving(LW_RESNET18, ("f32", "bf16", "int8"), frames, card)
+    lw_r18, _, _ = phase_serving(LW_RESNET18, ("f32", "bf16", "int8"), frames, card)
     t_r18 = time.perf_counter() - t_r18
+    t_family, family, dw = time.perf_counter(), {}, []
+    for spec in OPENPOSE_FAMILY:
+        family[spec.name], _, spec_dw = phase_serving(spec, ("f32", "bf16", "int8"), frames,
+                                                      card)
+        dw += spec_dw
+    for name in ("MobilenetV1", "MobilenetV2"):
+        dw += backbone_dw_convs(name, frames)
+    dw_rows = phase_int8_dwconv(dw, card)
+    del dw
+    t_family = time.perf_counter() - t_family
+    # The depthwise kernel's own path: the 11 depthwise convs of the int8
+    # LightWeightOpenPose() step (bf16 activations).
+    lw = dw_rows["lw_mobilenet"]
+    int8_row.update(dwconv_device_ms=lw["kernel_ms"], dwconv_bound_ms=lw["bound_ms"],
+                    dwconv_cudnn_bf16_ms=lw["cudnn_bf16_ms"],
+                    dwconv_launches=family["lw_mobilenet"]["int8"]["int8_dwconv"])
+    check(int8_row["dwconv_launches"] > 0, "int8_dwconv was not launched on its path")
     # Each kernel's launches on its own path: the plain-stem f32 engine for
     # the PAF decoder kernels, the bf16 fused-stem engine for conv1_pool, the
     # use_pallas_peaks decode for peak_candidates, the f32 PifPaf engine for
@@ -1927,7 +2090,8 @@ def main() -> None:
         check(row["launches"] > 0, f"{row['name']} was not launched on its path")
     check(len(rows) == 7, f"{len(rows)} kernel rows")
     emit("total", seconds=time.perf_counter() - t0, int8_phases_seconds=t_int8,
-         resnet18_phases_seconds=t_r18, lw_resnet18_f32_launches=lw_r18["f32"])
+         resnet18_phases_seconds=t_r18, openpose_family_phases_seconds=t_family,
+         lw_resnet18_f32_launches=lw_r18["f32"])
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

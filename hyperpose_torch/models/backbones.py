@@ -1,11 +1,15 @@
 """Backbones in PyTorch: the flagship's TinyVGG and its two exact serving
-forms, the dilated MobileNet of Lightweight-OpenPose, the ResNet50 trunk
-of PifPaf and the ResNet18 trunk of PoseProposal.
+forms, VGG16 and VGG19, the MobileNets (V1, V2, the dilated one of
+Lightweight-OpenPose, Thin and Small), the ResNet50 trunk of PifPaf and the
+ResNet18 trunk of PoseProposal.
 
 Counterpart of `hyperpose_tpu/models/backbones.py` `ConvBN`, `VggTiny`,
-`VggTinyS2DStem`, `VggTinyFusedStem`, `Bottleneck`, `Resnet50`,
-`ResBlock18`, `Resnet18`, `DepthwiseConv`, `SeparableBlock` and
-`MobilenetDilated`, with the numpy remaps that turn a VggTiny checkpoint
+`VggTinyS2DStem`, `VggTinyFusedStem`, `Vgg16`, `Vgg19`, `Bottleneck`,
+`Resnet50`, `ResBlock18`, `Resnet18`, `DepthwiseConv`, `SeparableBlock`,
+`MobilenetV1`, `InvertedResidual`, `MobilenetV2`, `MobilenetDilated`,
+`MobilenetThin`, `MobilenetSmall` and `jax_resize_nearest` (the
+`pretraining` classifier heads belong to training and are not ported), with
+the numpy remaps that turn a VggTiny checkpoint
 into either serving form (reference: hyperpose/Model/backbones.py:201-232,
 343-391, 512-586, 587-697). Modules run NCHW;
 the submodule names follow the flax module names, so the flat weight layout
@@ -362,6 +366,222 @@ class MobilenetDilated(nn.Module):
         for name in self._blocks:
             x = getattr(self, name)(x)
         return x
+
+
+def _max_pool(x: torch.Tensor) -> torch.Tensor:
+    """flax `nn.max_pool((2, 2), (2, 2), padding="SAME")`."""
+    return F.max_pool2d(x, 2, 2, ceil_mode=True)
+
+
+class _VggTrunk(nn.Module):
+    """Plain VGG: 3x3 convs `conv_<b>` with bias and ReLU (no BN) and 2x2
+    SAME max pools, on RGB input. `cfg` holds (features, count) and
+    "pool"."""
+
+    out_channels = 512
+
+    def __init__(self, cfg, dtype: torch.dtype):
+        super().__init__()
+        self._plan, cin, b = [], 3, 0
+        for item in cfg:
+            if item == "pool":
+                self._plan.append(None)
+                continue
+            f, n = item
+            for _ in range(n):
+                self.add_module(f"conv_{b}", nn.Conv2d(cin, f, 3, padding=1, dtype=dtype))
+                self._plan.append(f"conv_{b}")
+                cin, b = f, b + 1
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        for name in self._plan:
+            x = _max_pool(x) if name is None else torch.relu(getattr(self, name)(x))
+        return x
+
+
+class Vgg16(_VggTrunk):
+    """VGG16's conv trunk at stride 8 (64x2 / 128x2 / 256x3 / 512x3, three
+    pools); with `scale_size=32`, a pool, 512x3 and a pool more."""
+
+    def __init__(self, scale_size: int = 8, dtype: torch.dtype = torch.float32):
+        cfg = [(64, 2), "pool", (128, 2), "pool", (256, 3), "pool", (512, 3)]
+        if scale_size == 32:
+            cfg += ["pool", (512, 3), "pool"]
+        super().__init__(cfg, dtype)
+
+
+class Vgg19(_VggTrunk):
+    """VGG19's trunk up to conv4_2 at stride 8 (64x2 / 128x2 / 256x4 /
+    512x2, three pools), the CMU OpenPose backbone; with `scale_size=32`,
+    512x2, a pool, 512x4 and a pool more. It first subtracts the BGR means
+    / 255 from the image in the compute dtype, as the flax module does
+    (its input is RGB in [0, 1]: the reference's order, kept)."""
+
+    def __init__(self, scale_size: int = 8, dtype: torch.dtype = torch.float32):
+        cfg = [(64, 2), "pool", (128, 2), "pool", (256, 4), "pool", (512, 2)]
+        if scale_size == 32:
+            cfg += [(512, 2), "pool", (512, 4), "pool"]
+        super().__init__(cfg, dtype)
+        mean = np.array([103.939, 116.779, 123.68], np.float32) / 255.0
+        self.register_buffer("mean", torch.from_numpy(mean).to(dtype).view(1, 3, 1, 1),
+                             persistent=False)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return super().forward(x - self.mean)
+
+
+class MobilenetV1(nn.Module):
+    """MobileNetV1 at stride 8: the 3x3 stride-2 `stem` ConvBN (32), then
+    separable blocks `sep_0` .. `sep_8` (64, 128/2, 128, 256/2, 256, 512
+    x 4); with `scale_size=32`, 512/2, 512, 1024/2, 1024 more."""
+
+    def __init__(self, scale_size: int = 8, dtype: torch.dtype = torch.float32):
+        super().__init__()
+        plan = [(64, 1), (128, 2), (128, 1), (256, 2), (256, 1),
+                (512, 1), (512, 1), (512, 1), (512, 1)]
+        if scale_size == 32:
+            plan += [(512, 2), (512, 1), (1024, 2), (1024, 1)]
+        self.out_channels = plan[-1][0]
+        self.stem = ConvBN(3, 32, dtype, stride=2)
+        self._blocks, cin = [], 32
+        for i, (f, st) in enumerate(plan):
+            self.add_module(f"sep_{i}", SeparableBlock(cin, f, st, dtype=dtype))
+            self._blocks.append(f"sep_{i}")
+            cin = f
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = self.stem(x)
+        for name in self._blocks:
+            x = getattr(self, name)(x)
+        return x
+
+
+class InvertedResidual(nn.Module):
+    """MobileNetV2's inverted residual: the 1x1 `expand` conv + BN `bn0` +
+    ReLU6 (none at expansion 1), the 3x3 depthwise `dw` (carrying the
+    stride) + `bn1` + ReLU6, the 1x1 `project` conv + `bn2` with no
+    activation; plus the identity only where the stride is 1 and the widths
+    are equal."""
+
+    def __init__(self, in_features: int, features: int, stride: int = 1,
+                 exp_ratio: int = 6, dtype: torch.dtype = torch.float32):
+        super().__init__()
+        hidden = in_features * exp_ratio
+        self.identity = stride == 1 and in_features == features
+        self.expand = self.bn0 = None
+        if exp_ratio != 1:
+            self.expand = nn.Conv2d(in_features, hidden, 1, bias=False, dtype=dtype)
+            self.bn0 = nn.BatchNorm2d(hidden, eps=1e-5, dtype=dtype)
+        self.dw = DepthwiseConv(hidden, stride=stride, dtype=dtype)
+        self.bn1 = nn.BatchNorm2d(hidden, eps=1e-5, dtype=dtype)
+        self.project = nn.Conv2d(hidden, features, 1, bias=False, dtype=dtype)
+        self.bn2 = nn.BatchNorm2d(features, eps=1e-5, dtype=dtype)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = x if self.expand is None else F.relu6(self.bn0(self.expand(x)))
+        y = F.relu6(self.bn1(self.dw(y)))
+        y = self.bn2(self.project(y))
+        return x + y if self.identity else y
+
+
+class MobilenetV2(nn.Module):
+    """MobileNetV2 at stride 8: the 3x3 stride-2 `stem` ConvBN (32, ReLU6),
+    then inverted residuals `ir_0` .. `ir_9` (16/e1, 24/2, 24, 32/2, 32 x 2,
+    64 x 4, expansion 6); with `scale_size=32`, 96/2, 96 x 2, 160/2, 160 x
+    2, 320 more."""
+
+    def __init__(self, scale_size: int = 8, dtype: torch.dtype = torch.float32):
+        super().__init__()
+        plan = [(16, 1, 1), (24, 2, 6), (24, 1, 6), (32, 2, 6), (32, 1, 6),
+                (32, 1, 6), (64, 1, 6), (64, 1, 6), (64, 1, 6), (64, 1, 6)]
+        if scale_size == 32:
+            plan += [(96, 2, 6), (96, 1, 6), (96, 1, 6),
+                     (160, 2, 6), (160, 1, 6), (160, 1, 6), (320, 1, 6)]
+        self.out_channels = plan[-1][0]
+        self.stem = ConvBN(3, 32, dtype, stride=2, act=F.relu6)
+        self._blocks, cin = [], 32
+        for i, (f, st, e) in enumerate(plan):
+            self.add_module(f"ir_{i}", InvertedResidual(cin, f, st, e, dtype))
+            self._blocks.append(f"ir_{i}")
+            cin = f
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = self.stem(x)
+        for name in self._blocks:
+            x = getattr(self, name)(x)
+        return x
+
+
+class MobilenetThin(nn.Module):
+    """MobileNet-Thin, the backbone of MobilenetThinOpenpose: the stride-2
+    `stem` ConvBN (32) and separable blocks `sep_0` .. `sep_10` (64, 128/2,
+    128, 256/2, 256, 512 x 6); its features are the concat of `sep_2`
+    max-pooled to stride 8, `sep_6` and the last block: 128 + 512 + 512 =
+    1152 channels. `scale_size=32` strides `sep_5` and `sep_8` as the flax
+    module does (whose concat then fails in both packages)."""
+
+    out_channels = 1152
+
+    def __init__(self, scale_size: int = 8, dtype: torch.dtype = torch.float32):
+        super().__init__()
+        s = 2 if scale_size == 32 else 1
+        self.stem = ConvBN(3, 32, dtype, stride=2)
+        plan = [(64, 1), (128, 2), (128, 1), (256, 2), (256, 1), (512, s),
+                (512, 1), (512, 1), (512, s), (512, 1), (512, 1)]
+        self._blocks, cin = [], 32
+        for i, (f, st) in enumerate(plan):
+            self.add_module(f"sep_{i}", SeparableBlock(cin, f, st, dtype=dtype))
+            self._blocks.append(f"sep_{i}")
+            cin = f
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x, feats = self.stem(x), []
+        for i, name in enumerate(self._blocks):
+            x = getattr(self, name)(x)
+            if i == 2:
+                feats.append(_max_pool(x))
+            elif i == 6:
+                feats.append(x)
+        return torch.cat(feats + [x], dim=1)
+
+
+class MobilenetSmall(nn.Module):
+    """MobileNet-Small, the backbone of MobilenetSmallOpenpose, at stride 4:
+    the stride-2 `stem` ConvBN (32) and separable blocks `sep_0` (64),
+    `sep_1` (128/2), `sep_2` (128), `sep_3` (256/2), `sep_4` (256), `sep_5`
+    and `sep_6` (512, strided at `scale_size=32`); its features are the
+    concat of `sep_0` max-pooled, `sep_2`, and `sep_6` resized x2 by
+    nearest neighbour: 64 + 128 + 512 = 704 channels (368x432 -> 92x108)."""
+
+    out_channels = 704
+
+    def __init__(self, scale_size: int = 8, dtype: torch.dtype = torch.float32):
+        super().__init__()
+        s = 2 if scale_size == 32 else 1
+        self.stem = ConvBN(3, 32, dtype, stride=2)
+        plan = [(64, 1), (128, 2), (128, 1), (256, 2), (256, 1), (512, s), (512, s)]
+        cin = 32
+        for i, (f, st) in enumerate(plan):
+            self.add_module(f"sep_{i}", SeparableBlock(cin, f, st, dtype=dtype))
+            cin = f
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = self.sep_0(self.stem(x))
+        feats = [_max_pool(x)]
+        x = self.sep_2(self.sep_1(x))
+        feats.append(x)
+        x = self.sep_6(self.sep_5(self.sep_4(self.sep_3(x))))
+        feats.append(jax_resize_nearest(x, (2 * x.shape[2], 2 * x.shape[3])))
+        return torch.cat(feats, dim=1)
+
+
+def jax_resize_nearest(x: torch.Tensor, out_hw) -> torch.Tensor:
+    """NCHW x resized to `out_hw` by nearest neighbour as
+    `jax.image.resize(..., "nearest")` resizes: output pixel i reads input
+    floor((i + 0.5) * in / out), which is `F.interpolate`'s "nearest-exact"
+    (its "nearest", floor(i * in / out), differs at ratios that are not
+    whole numbers)."""
+    return F.interpolate(x, size=tuple(out_hw), mode="nearest-exact")
 
 
 # -- checkpoint remaps (numpy, on the flat flax layout) ------------------------

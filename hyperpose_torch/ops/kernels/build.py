@@ -21,7 +21,8 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parents[2] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "hyperpose_torch"
-KERNELS = ("line_gather", "peak_topk", "conv1_pool", "stem_gemm", "grow", "int8_gemm")
+KERNELS = ("line_gather", "peak_topk", "conv1_pool", "stem_gemm", "grow", "int8_gemm",
+           "int8_dwconv")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",

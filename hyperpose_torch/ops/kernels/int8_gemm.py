@@ -1,5 +1,6 @@
-"""The int8 convolution and the TPU int8 probe's GEMM: wrappers of
-`csrc/int8_gemm.cu` and their plain PyTorch versions.
+"""The int8 convolutions and the TPU int8 probe's GEMM: wrappers of
+`csrc/int8_gemm.cu` and `csrc/int8_dwconv.cu` and their plain PyTorch
+versions.
 
 Replaces the Pallas TPU kernel `scripts/probe_int8_pallas.py` `make_matmul`
 (a tiled matmul in s8 -> s32 and bf16 -> f32), which on the TPU stands for
@@ -15,6 +16,9 @@ launches:
   weights [Np, kh, kw, Cp] int8, the dequantize (s32 -> f32, * dq, + bias)
   and the cast fused into its epilogue; it writes [M, cout] once in the
   activation dtype, rows (b, y, x).
+- `int8_dwconv`: the depthwise conv (one filter a channel) on the same
+  buffer, taps [kh, kw, Cp] int8, s32 sums, the same epilogue and output
+  layout (`csrc/int8_dwconv.cu`).
 
 `int8_gemm` is the probe's contract on the same mainloop: `a` [M, K] @
 `bt` [N, K]^T, raw s32 (s8) or f32 (bf16) sums; K a multiple of 32 for s8
@@ -34,10 +38,13 @@ import torch.nn.functional as F
 from . import build
 
 _P, _I, _I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
+# entry point -> (its library, i.e. its source in csrc/, and its argument types)
 _SIGS = {
-    "hp_int8_gemm": [_P] * 3 + [_I64, _I, _I, _I, _P],
-    "hp_int8_quantize": [_P, _P] + [_I] * 4 + [_I64] * 4 + [_I] * 9 + [ctypes.c_float, _I, _P],
-    "hp_int8_conv": [_P] * 5 + [_I] * 15 + [_P],
+    "hp_int8_gemm": ("int8_gemm", [_P] * 3 + [_I64, _I, _I, _I, _P]),
+    "hp_int8_quantize": ("int8_gemm", [_P, _P] + [_I] * 4 + [_I64] * 4 + [_I] * 9
+                         + [ctypes.c_float, _I, _P]),
+    "hp_int8_conv": ("int8_gemm", [_P] * 5 + [_I] * 15 + [_P]),
+    "hp_int8_dwconv": ("int8_dwconv", [_P] * 5 + [_I] * 14 + [_P]),
 }
 _K_STEP = {torch.int8: 32, torch.bfloat16: 16}
 _CHUNK = 1 << 25   # float64 elements of `a` in one chunk of the plain GEMM
@@ -45,8 +52,9 @@ _ACT_TYPES = (torch.float32, torch.bfloat16)
 
 
 def _fn(name: str):
-    fn = getattr(build.load("int8_gemm"), name)
-    fn.argtypes = _SIGS[name]
+    lib, argtypes = _SIGS[name]
+    fn = getattr(build.load(lib), name)
+    fn.argtypes = argtypes
     fn.restype = ctypes.c_int
     return fn
 
@@ -277,3 +285,85 @@ def int8_conv(xq: torch.Tensor, w: torch.Tensor, dq: torch.Tensor, bias, stride,
 
 
 int8_conv.launches = 0
+
+
+# -- the depthwise conv -----------------------------------------------------------------
+
+def dw_channels(c: int) -> int:
+    """Cp of a depthwise conv's quantized buffer and taps: c rounded up to
+    a multiple of 32 (the quantize pass's unit; the kernel reads 16
+    channels a thread)."""
+    return -(-c // 32) * 32
+
+
+def int8_dwconv_sums_plain(xq: torch.Tensor, w: torch.Tensor, stride, padding, dilation
+                           ) -> torch.Tensor:
+    """The depthwise conv's exact s32 sums [B*Ho*Wo, Cp]: xq [B, H, W, Cp]
+    int8 zero-padded, then for each tap (dy, dx) the strided view of the
+    input it reads times w[dy, dx] (w [kh, kw, Cp] int8), summed in int32."""
+    (sh, sw), (ph, pw), (dh, dw) = stride, padding, dilation
+    b, h, wd, cp = xq.shape
+    kh, kw = w.shape[:2]
+    ho, wo = conv_out_hw(h, wd, (kh, kw), stride, padding, dilation)
+    xp = F.pad(xq.to(torch.int32), (0, 0, pw, pw, ph, ph))
+    w32 = w.to(torch.int32)
+    acc = torch.zeros((b, ho, wo, cp), dtype=torch.int32, device=xq.device)
+    for dy in range(kh):
+        for dx in range(kw):
+            y0, x0 = dy * dh, dx * dw
+            acc += xp[:, y0:y0 + sh * (ho - 1) + 1:sh, x0:x0 + sw * (wo - 1) + 1:sw] * w32[dy, dx]
+    return acc.view(b * ho * wo, cp)
+
+
+def int8_dwconv_plain(xq, w, dq, bias, stride, padding, dilation, dtype) -> torch.Tensor:
+    """[B*Ho*Wo, C] in `dtype`, C = len(dq): the s32 sums (of
+    `int8_dwconv_sums_plain`), times dq, plus bias, in float32, then the
+    cast (JAX `_quantized_conv` with feature_group_count = C)."""
+    y = int8_dwconv_sums_plain(xq, w, stride, padding, dilation)[:, :dq.shape[0]]
+    y = y.to(torch.float32).mul_(dq)
+    if bias is not None:
+        y.add_(bias)
+    return y.to(dtype)
+
+
+def int8_dwconv(xq: torch.Tensor, w: torch.Tensor, dq: torch.Tensor, bias, stride,
+                padding, dilation, dtype: torch.dtype) -> torch.Tensor:
+    """`int8_dwconv_plain`'s contract: xq [B, H, W, Cp] int8 (from
+    `int8_quantize`), w [kh, kw, Cp] int8 (kh * kw <= 64), dq and bias (or
+    None) float32 [C], C <= Cp, symmetric zero padding. CPU tensors take the
+    plain version; CUDA tensors launch `hp_int8_dwconv`, which takes
+    contiguous, 16-byte aligned tensors on one card and raises on anything
+    else."""
+    if not _on_card("int8_dwconv", xq):
+        return int8_dwconv_plain(xq, w, dq, bias, stride, padding, dilation, dtype)
+    if xq.ndim != 4 or w.ndim != 3 or xq.shape[3] != w.shape[2]:
+        raise ValueError(f"int8_dwconv: xq must be [B, H, W, Cp] and w [kh, kw, Cp], "
+                         f"got {tuple(xq.shape)} and {tuple(w.shape)}")
+    if xq.dtype != torch.int8 or w.dtype != torch.int8:
+        raise TypeError(f"int8_dwconv: xq and w must be int8, got {xq.dtype} and {w.dtype}")
+    if dq.dtype != torch.float32 or (bias is not None and bias.dtype != torch.float32):
+        raise TypeError("int8_dwconv: dq and bias must be float32")
+    if dtype not in _ACT_TYPES:
+        raise TypeError(f"int8_dwconv: output dtype must be float32 or bfloat16, got {dtype}")
+    others = [w, dq] + ([] if bias is None else [bias])
+    if any(t.device != xq.device for t in others):
+        raise ValueError("int8_dwconv: inputs on different devices")
+    b, h, wd, cp = xq.shape
+    kh, kw = w.shape[:2]
+    c = dq.shape[0]
+    if cp % 32 or not 0 < c <= cp or dq.ndim != 1 or kh * kw > 64 \
+            or (bias is not None and tuple(bias.shape) != (c,)):
+        raise ValueError(f"int8_dwconv: Cp={cp} must be a multiple of 32, dq / bias "
+                         f"[C <= Cp], and kh * kw <= 64")
+    if not _aligned(xq, *others):
+        raise ValueError("int8_dwconv: inputs must be contiguous and 16-byte aligned")
+    ho, wo = conv_out_hw(h, wd, (kh, kw), stride, padding, dilation)
+    out = torch.empty((b * ho * wo, c), dtype=dtype, device=xq.device)
+    _run("int8_dwconv", "hp_int8_dwconv", xq.device, xq.data_ptr(), w.data_ptr(),
+         dq.data_ptr(), 0 if bias is None else bias.data_ptr(), out.data_ptr(),
+         b, h, wd, cp, c, kh, kw, *stride, *padding, *dilation, int(dtype == torch.bfloat16))
+    int8_dwconv.launches += 1
+    return out
+
+
+int8_dwconv.launches = 0

@@ -6,8 +6,8 @@ per-tensor activation scale and a per-output-channel weight scale, every
 calibrated convolution run as s8 x s8 -> s32. PyTorch has no int8
 convolution on CUDA, so `Int8Conv2d` runs each one as two hand-written
 kernels (`ops/kernels/int8_gemm.py`): a one-pass quantize into int8 NHWC,
-then an implicit-GEMM conv whose epilogue dequantizes, adds the bias and
-casts to the activation dtype.
+then an implicit-GEMM conv (a depthwise conv: `int8_dwconv`) whose epilogue
+dequantizes, adds the bias and casts to the activation dtype.
 
 Scale tables are keyed by the flax module path of each conv, which is the
 port's module name with "." -> "/" (the weight bridge relies on the names
@@ -29,7 +29,10 @@ import numpy as np
 import torch
 from torch import nn
 
-from .ops.kernels.int8_gemm import conv_out_hw, int8_conv, int8_quantize, padded_channels
+from .ops.kernels.int8_gemm import (
+    conv_out_hw, dw_channels, int8_conv, int8_conv_plain, int8_dwconv, int8_dwconv_plain,
+    int8_quantize, padded_channels,
+)
 from .utils.weights import read_flax_weights, state_dict_to_flax
 
 Skip = Callable[[str], bool]
@@ -41,8 +44,9 @@ def _pair(v) -> tuple[int, int]:
 
 
 def weight_scales(kernel) -> tuple[np.ndarray, np.ndarray]:
-    """A float32 HWIO kernel [kh, kw, cin, cout] -> (w_q int8 HWIO, s_w
-    float32 [cout]): s_w = max(max |k| over H, W, I, 1e-8) / 127 and
+    """A float32 HWIO kernel [kh, kw, cin, cout] (depthwise: [kh, kw, 1, C])
+    -> (w_q int8 HWIO, s_w float32 [cout]): s_w = max(max |k| over H, W, I,
+    1e-8) / 127 and
     w_q = clip(round(k / s_w), -127, 127), in float32 with ties to even, as
     the JAX package quantizes (`quant.py:133-137`, `:227-230`)."""
     k = np.asarray(kernel, np.float32)
@@ -73,14 +77,25 @@ class Int8Conv2d(nn.Module):
        [B*Ho*Wo, cout] (`int8_conv`), returned as its NCHW view
        (channels-last memory, no transposing copy).
 
+    A depthwise conv (`depthwise`: one filter a channel, w_q [kh, kw, 1, C])
+    holds its taps as [kh * kw, Cp] (`w_q`; `w_taps` [kh, kw, Cp]), Cp = C
+    rounded up to 32, and its stage 2 is `int8_dwconv` on the same buffer,
+    with the same epilogue and output.
+
     On a CUDA tensor each stage runs its kernel or raises: there is no float
     fallback. `int8_conv_sums_plain(xq, q.w_taps, *q.taps_geometry)` gives
-    the exact s32 sums of stage 2."""
+    the exact s32 sums of stage 2 (`int8_dwconv_sums_plain` where
+    depthwise)."""
 
     def __init__(self, w_q: np.ndarray, s_w: np.ndarray, bias, s_in: float,
-                 stride=1, padding=0, dilation=1):
+                 stride=1, padding=0, dilation=1, depthwise: bool = False):
         super().__init__()
         kh, kw, cin, cout = w_q.shape
+        self.depthwise = depthwise
+        if depthwise:
+            if cin != 1:
+                raise ValueError(f"a depthwise kernel is [kh, kw, 1, C], got {w_q.shape}")
+            cin = cout
         self.kernel_size, self.in_channels, self.out_channels = (kh, kw), cin, cout
         self.stride, self.padding = _pair(stride), _pair(padding)
         self.dilation = _pair(dilation)
@@ -90,17 +105,20 @@ class Int8Conv2d(nn.Module):
         # taps into the quantized buffer's channels and runs as 1x1: the
         # conv kernel then loads one wide box per tile instead of kh * kw
         # boxes of 32 bytes that hold cin values each.
-        self.folded = (kh, kw) != (1, 1) and cin <= _FOLD_CIN
+        self.folded = (kh, kw) != (1, 1) and cin <= _FOLD_CIN and not depthwise
         np_ = -(-cout // 8) * 8
         w_t = np.asarray(w_q, np.int8).transpose(3, 0, 1, 2)  # [cout, kh, kw, cin]
-        if self.folded:
+        if depthwise:
+            w = np.zeros((kh * kw, dw_channels(cout)), np.int8)
+            w[:, :cout] = np.asarray(w_q, np.int8).reshape(kh * kw, cout)
+        elif self.folded:
             w = np.zeros((np_, 1, 1, padded_channels(kh * kw * cin)), np.int8)
             w[:cout, 0, 0, :kh * kw * cin] = w_t.reshape(cout, -1)
         else:
             w = np.zeros((np_, kh, kw, padded_channels(cin)), np.int8)
             w[:cout, :, :, :cin] = w_t
         s_w = np.asarray(s_w, np.float32)
-        self.register_buffer("w_q", torch.from_numpy(w.reshape(np_, -1)))
+        self.register_buffer("w_q", torch.from_numpy(w.reshape(w.shape[0], -1)))
         self.register_buffer("s_w", torch.from_numpy(s_w.copy()))
         self.register_buffer("dq", torch.from_numpy(s_w * np.float32(self.s_in)))
         self.register_buffer("bias", None if bias is None else
@@ -110,10 +128,12 @@ class Int8Conv2d(nn.Module):
     def from_conv(cls, conv: nn.Conv2d, kernel, bias, s_abs: float) -> "Int8Conv2d":
         """Replace `conv`, whose float32 weights are `kernel` (flax HWIO)
         and `bias` (or None), calibrated to input abs-max `s_abs`."""
-        if conv.groups != 1:
+        depthwise = conv.groups == conv.in_channels == conv.out_channels > 1
+        if conv.groups != 1 and not depthwise:
             raise NotImplementedError(
-                "grouped and depthwise int8 convolutions are not ported yet; "
-                "they come with the rest of the OpenPose family: ROADMAP Queue 1 #2")
+                f"grouped int8 convolutions with 1 < groups < channels ({conv.groups} "
+                f"groups on {conv.in_channels} channels) are not ported yet: ROADMAP "
+                "Queue 1 #3; depthwise convs (groups = channels) are")
         if isinstance(conv.padding, str) or conv.padding_mode != "zeros":
             raise NotImplementedError(
                 f"Int8Conv2d takes explicit zero padding, not {conv.padding!r} "
@@ -124,13 +144,16 @@ class Int8Conv2d(nn.Module):
                              f"weight {tuple(conv.weight.shape)}")
         w_q, s_w = weight_scales(kernel)
         q = cls(w_q, s_w, bias, s_abs / 127.0, conv.stride, conv.padding,
-                conv.dilation)
+                conv.dilation, depthwise)
         return q.to(conv.weight.device)
 
     @property
     def w_taps(self) -> torch.Tensor:
         """The int8 weights as [Np, kh, kw, Cp], a view of `w_q` (folded:
-        [Np, 1, 1, Cp], Cp >= kh * kw * cin in (dy, dx, c) order)."""
+        [Np, 1, 1, Cp], Cp >= kh * kw * cin in (dy, dx, c) order; depthwise:
+        [kh, kw, Cp])."""
+        if self.depthwise:
+            return self.w_q.view(*self.kernel_size, -1)
         taps = (1, 1) if self.folded else self.kernel_size
         return self.w_q.view(self.w_q.shape[0], *taps, -1)
 
@@ -159,11 +182,17 @@ class Int8Conv2d(nn.Module):
         if x.shape[1] != self.in_channels:
             raise ValueError(f"Int8Conv2d: {x.shape[1]} input channels, "
                              f"expected {self.in_channels}")
-        return int8_quantize(x, self.inv_s, self.w_taps.shape[3], self.fold)
+        return int8_quantize(x, self.inv_s, self.w_taps.shape[-1], self.fold)
 
     def conv(self, xq: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
         """The quantized buffer -> [B*Ho*Wo, cout] in `dtype`."""
-        return int8_conv(xq, self.w_taps, self.dq, self.bias, *self.taps_geometry, dtype)
+        fn = int8_dwconv if self.depthwise else int8_conv
+        return fn(xq, self.w_taps, self.dq, self.bias, *self.taps_geometry, dtype)
+
+    def conv_plain(self, xq: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+        """Stage 2's plain version, on any device."""
+        fn = int8_dwconv_plain if self.depthwise else int8_conv_plain
+        return fn(xq, self.w_taps, self.dq, self.bias, *self.taps_geometry, dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         b, _, h, w = x.shape

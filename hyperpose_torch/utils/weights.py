@@ -13,6 +13,10 @@ so a path maps to a `state_dict` key by renaming its last part:
     batch_stats/<p>/var  -> <p>.running_var
     params/<p>/w1p, b1p -> <p>.w1p, <p>.b1p  (VggTinyFusedStem's bare
                                                parameters, as they are)
+    params/<p>/alpha    -> <p>.alpha          (PRelu, as it is)
+    params/<p>/dw_kernel, pw_kernel -> <p>.dw_kernel, <p>.pw_kernel
+                                              (SeparableConv's bare kernels,
+                                               HWIO -> OIHW)
 
 Both directions are exact, so each package reads the other's weights.
 """
@@ -27,7 +31,8 @@ from torch import nn
 
 _PARAM_LEAVES = {"kernel": "weight", "scale": "weight", "bias": "bias"}
 _STAT_LEAVES = {"mean": "running_mean", "var": "running_var"}
-_BARE_PARAMS = ("w1p", "b1p")
+_BARE_PARAMS = ("w1p", "b1p", "alpha")
+_BARE_KERNELS = ("dw_kernel", "pw_kernel")
 
 
 def _flatten(tree: Mapping, prefix: str = "") -> dict[str, np.ndarray]:
@@ -56,7 +61,9 @@ def flax_to_state_dict(src) -> dict[str, torch.Tensor]:
     out = {}
     for name, arr in read_flax_weights(src).items():
         coll, *path, leaf = name.split("/")
-        if coll == "params" and leaf in _BARE_PARAMS:
+        if coll == "params" and leaf in _BARE_PARAMS + _BARE_KERNELS:
+            if leaf in _BARE_KERNELS:
+                arr = arr.transpose(3, 2, 0, 1)
             out[".".join(path + [leaf])] = torch.from_numpy(np.ascontiguousarray(arr))
             continue
         table = {"params": _PARAM_LEAVES, "batch_stats": _STAT_LEAVES}.get(coll)
@@ -106,6 +113,9 @@ def state_dict_to_flax(state_dict: Mapping[str, torch.Tensor]) -> dict[str, np.n
         p = "/".join(path)
         if leaf in _BARE_PARAMS:
             out["/".join(["params", *path, leaf])] = arr
+        elif leaf in _BARE_KERNELS:
+            out["/".join(["params", *path, leaf])] = np.ascontiguousarray(
+                arr.transpose(2, 3, 1, 0))
         elif leaf == "weight" and arr.ndim == 4:
             out[f"params/{p}/kernel"] = np.ascontiguousarray(
                 arr.transpose(2, 3, 1, 0))
@@ -130,20 +140,24 @@ def save_flax_npz(model: nn.Module, path) -> None:
 def random_flax_weights(shapes, seed: int) -> dict[str, np.ndarray]:
     """Seeded random float32 weights in the flat flax layout, drawn with
     numpy in the order of `shapes` (a mapping of flax key -> shape, or a
-    model, whose keys and shapes are taken): kernels normal with std
-    sqrt(1 / fan_in), BN scales and variances uniform in [0.5, 1.5], biases
-    and means 0.1 * normal. Both packages load the result, so it stands in
-    for a checkpoint where none is committed."""
+    model, whose keys and shapes are taken): kernels (and SeparableConv's
+    `dw_kernel` and `pw_kernel`) normal with std sqrt(1 / fan_in), BN scales
+    and variances uniform in [0.5, 1.5], PReLU slopes `alpha` uniform in
+    [0.05, 0.5] (non-zero, so the negative branch is used), biases and means
+    0.1 * normal. Both packages load the result, so it stands in for a
+    checkpoint where none is committed."""
     if isinstance(shapes, nn.Module):
         shapes = {k: v.shape for k, v in state_dict_to_flax(shapes.state_dict()).items()}
     rng = np.random.default_rng(seed)
     out = {}
     for name, shape in shapes.items():
         leaf = name.rsplit("/", 1)[1]
-        if leaf == "kernel":
+        if leaf in ("kernel",) + _BARE_KERNELS:
             arr = rng.standard_normal(shape) * np.sqrt(1.0 / np.prod(shape[:-1]))
         elif leaf in ("scale", "var"):
             arr = rng.uniform(0.5, 1.5, shape)
+        elif leaf == "alpha":
+            arr = rng.uniform(0.05, 0.5, shape)
         else:
             arr = 0.1 * rng.standard_normal(shape)
         out[name] = arr.astype(np.float32)

@@ -36,7 +36,11 @@ for bit for PoseProposal; for the PAF decoder the peaks equal, the
 limb-pair scores equal to their plain version on the card bit for bit and
 within 1e-6 of the plain version on the CPU, and the humans within the
 decode tolerances above; every int8 conv equal to its plain version and to
-a CPU copy on the card's input.
+a CPU copy on the card's input. The rest of the OpenPose family
+(Lightweight-OpenPose on MobilenetDilated, OpenPose on VGG19,
+MobileNet-Thin and -Small OpenPose) is held as the Resnet18 family is;
+`int8_dwconv` equals its plain version exactly (exact s32 sums, the same
+float32 epilogue operations).
 """
 import numpy as np
 import pytest
@@ -45,10 +49,11 @@ import torch
 from torch_parity import FLAGSHIP_NPZ, SYNTH_NPZ, tie_maps
 from torch_measures import SUM_ORDER, bf16_ulps, sum_order
 from chip_smoke import (
-    INT8_TOL, LW_RESNET18, PPN, TWO_PEOPLE, _convs_card_vs_cpu, _convs_equal_plain, _numpy,
+    INT8_TOL, LW_MOBILENET, LW_RESNET18, MBSMALL_OPENPOSE, MBTHIN_OPENPOSE, OPENPOSE_VGG19,
+    PPN, TWO_PEOPLE, _convs_card_vs_cpu, _convs_equal_plain, _numpy,
     _peak_maps as serving_peak_maps, _record_int8_inputs, dense_ppn_maps, find_people,
     human_deltas, limb_scores_inputs, make_synthetic_maps, painted_pifpaf_batch,
-    painted_ppn_batch, peak_candidates_cases, peak_topk_cases,
+    painted_ppn_batch, peak_candidates_cases, peak_topk_cases, served_weights,
 )
 from hyperpose_torch.models.backbones import (
     VggTiny, VggTinyFusedStem, remap_vggtiny_to_fused,
@@ -62,8 +67,8 @@ from hyperpose_torch.ops.kernels.conv1_pool import (
 )
 from hyperpose_torch.ops.kernels.grow import fused_grow, fused_grow_plain
 from hyperpose_torch.ops.kernels.int8_gemm import (
-    int8_conv, int8_conv_plain, int8_gemm, int8_gemm_plain, int8_quantize, int8_quantize_plain,
-    padded_channels,
+    int8_conv, int8_conv_plain, int8_dwconv, int8_dwconv_plain, int8_gemm, int8_gemm_plain,
+    int8_quantize, int8_quantize_plain, padded_channels,
 )
 from hyperpose_torch.ops.kernels.line_gather import limb_scores, limb_scores_plain
 from hyperpose_torch.ops.kernels.peak_topk import (
@@ -788,7 +793,9 @@ def test_ppn_decode_on_card_matches_cpu(cuda, case):
                                                  else cpu["valid"].sum(axis=1).tolist())
 
 
-SERVED = {"ppn": PPN, "lw_resnet18": LW_RESNET18}
+SERVED = {"ppn": PPN, "lw_resnet18": LW_RESNET18, "lw_mobilenet": LW_MOBILENET,
+          "openpose_vgg19": OPENPOSE_VGG19, "mbthin_openpose": MBTHIN_OPENPOSE,
+          "mbsmall_openpose": MBSMALL_OPENPOSE}
 
 
 def _r18_setup(kind):
@@ -796,7 +803,7 @@ def _r18_setup(kind):
     rng = np.random.default_rng(13)
     batch = np.stack([resize_bilinear(np.load(SYNTH_NPZ)["rgb"], spec.hw),
                       rng.integers(0, 256, (*spec.hw, 3), dtype=np.uint8)])
-    return spec, random_flax_weights(spec.model(), seed=0), batch
+    return spec, served_weights(spec), batch
 
 
 @pytest.mark.parametrize("kind", ["ppn", "lw_resnet18"])
@@ -854,3 +861,123 @@ def test_resnet18_int8_engines_on_card(cuda, kind, n_convs):
         _convs_equal_plain(seen, kind)        # both exit non-zero on a mismatch
         assert _convs_card_vs_cpu(seen, kind) == n_convs
     assert 1485 in {c.out_channels for c, _ in seen} or kind != "ppn"
+
+
+# -- the rest of the OpenPose family and the int8 depthwise conv --------------------------
+
+# channels, kernel, stride, padding, dilation, batch, H, W: 3x3 and 1x1 (and
+# 7x7, 49 taps) taps, both strides, dilation 2, channel counts that are not
+# multiples of 16 or 32 (Cp 32, 64, 192, 1216), the widths of the family.
+INT8_DWCONV_GRID = [
+    (32, 3, 1, 1, 1, 2, 23, 29), (64, 3, 2, 0, 1, 2, 46, 54), (48, 3, 2, 1, 1, 1, 37, 45),
+    (512, 3, 1, 2, 2, 1, 23, 29), (19, 1, 1, 0, 1, 2, 9, 11), (185, 3, 1, 1, 1, 2, 13, 17),
+    (1209, 3, 1, 1, 1, 1, 11, 13), (1152, 1, 1, 0, 1, 1, 46, 54), (40, 7, 1, 3, 1, 1, 15, 17),
+    (16, 3, 2, 1, 2, 2, 21, 19),
+]
+
+
+def _dw_operands(cuda, c, k, stride, pad, dil, b, h, w, seed=0):
+    rng = np.random.default_rng(seed)
+    cp = -(-c // 32) * 32
+    xq = np.zeros((b, h, w, cp), np.int8)
+    xq[..., :c] = rng.integers(-127, 128, (b, h, w, c))
+    wq = np.zeros((k, k, cp), np.int8)
+    wq[..., :c] = rng.integers(-127, 128, (k, k, c))
+    dq = rng.uniform(1e-5, 1e-3, c).astype(np.float32)
+    bias = rng.normal(0, 0.1, c).astype(np.float32)
+    t = lambda a: torch.from_numpy(a).to(cuda)  # noqa: E731
+    return t(xq), t(wq), t(dq), t(bias), (stride, stride), (pad, pad), (dil, dil)
+
+
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", INT8_DWCONV_GRID)
+def test_int8_dwconv_matches_plain(cuda, shape, out_dtype):
+    """The depthwise kernel equals its plain version exactly, with and
+    without a bias, one launch each."""
+    args = _dw_operands(cuda, *shape, seed=sum(shape))
+    before = int8_dwconv.launches
+    got = int8_dwconv(*args, out_dtype)
+    want = int8_dwconv_plain(*args, out_dtype)
+    torch.cuda.synchronize()
+    assert int8_dwconv.launches == before + 1
+    assert got.dtype == out_dtype and got.shape == want.shape
+    assert torch.equal(got, want)
+    no_bias = args[:3] + (None,) + args[4:]
+    assert torch.equal(int8_dwconv(*no_bias, out_dtype), int8_dwconv_plain(*no_bias, out_dtype))
+
+
+def test_int8_dwconv_refuses_what_it_does_not_take(cuda):
+    xq, wq, dq, bias, *geo = _dw_operands(cuda, 40, 3, 1, 1, 1, 1, 8, 8)
+    with pytest.raises(TypeError):
+        int8_dwconv(xq.float(), wq, dq, bias, *geo, torch.float32)
+    with pytest.raises(TypeError):
+        int8_dwconv(xq, wq, dq, bias, *geo, torch.float16)
+    odd = torch.empty(xq.numel() + 1, dtype=torch.int8, device=cuda)[1:].view(xq.shape)
+    with pytest.raises(ValueError, match="aligned"):
+        int8_dwconv(odd, wq, dq, bias, *geo, torch.float32)
+    with pytest.raises(ValueError, match="different devices"):
+        int8_dwconv(xq, wq.cpu(), dq, bias, *geo, torch.float32)
+    with pytest.raises(ValueError):
+        int8_dwconv(xq, wq[..., :32].contiguous(), dq, bias, *geo, torch.float32)
+    big = torch.zeros((9, 9, 64), dtype=torch.int8, device=cuda)
+    with pytest.raises(ValueError, match="64"):
+        int8_dwconv(xq, big, dq, bias, *geo, torch.float32)
+
+
+@pytest.mark.parametrize("c,k,stride,dil,dtype", [
+    (32, 3, 1, 1, torch.float32), (128, 3, 2, 1, torch.bfloat16),
+    (512, 3, 1, 2, torch.bfloat16), (1209, 1, 1, 1, torch.float32)])
+def test_depthwise_int8_conv_on_card_equals_cpu(cuda, c, k, stride, dil, dtype):
+    """A depthwise Int8Conv2d and channels-last input on the card and on
+    the CPU give equal outputs; the card runs one quantize and one
+    `int8_dwconv` launch, no dense conv."""
+    rng = np.random.default_rng(c + k)
+    kernel = (rng.normal(0, 1, (k, k, 1, c)) / k).astype(np.float32)
+    conv = torch.nn.Conv2d(c, c, k, stride=stride, dilation=dil, groups=c, bias=False,
+                           padding=dil * (k // 2) if stride == 1 else 0)
+    q = Int8Conv2d.from_conv(conv, kernel, None, 2.5)
+    assert q.depthwise
+    x = torch.from_numpy(rng.normal(0, 1, (2, c, 23, 27)).astype(np.float32)).to(dtype)
+    before = int8_quantize.launches, int8_conv.launches, int8_dwconv.launches
+    with torch.inference_mode():
+        got = q.to(cuda)(x.to(cuda).contiguous(memory_format=torch.channels_last))
+        want = q.cpu()(x.contiguous(memory_format=torch.channels_last))
+    torch.cuda.synchronize()
+    assert (int8_quantize.launches, int8_conv.launches, int8_dwconv.launches) == (
+        before[0] + 1, before[1], before[2] + 1)
+    assert got.dtype == dtype and got.shape == want.shape
+    assert torch.equal(got.cpu(), want)
+
+
+FAMILY = ["lw_mobilenet", "openpose_vgg19", "mbthin_openpose", "mbsmall_openpose"]
+
+
+@pytest.mark.parametrize("kind", FAMILY)
+def test_family_engines_on_card_match_cpu(cuda, kind):
+    """f32 (TF32 off), seeded random weights, full size (OpenPose at
+    368x656, MobileNet-Small's 92x108 maps), batch 2, as
+    `test_resnet18_engines_on_card_match_cpu`: the outputs within 1e-3 of
+    their largest value of the CPU's and the PAF decode's checks; the step
+    launches `peak_topk` and `limb_scores` once each."""
+    test_resnet18_engines_on_card_match_cpu(cuda, kind)
+
+
+@pytest.mark.parametrize("kind", FAMILY)
+def test_family_int8_engines_on_card(cuda, kind):
+    """int8 with bf16 activations: a step launches `int8_quantize` once a
+    conv, `int8_dwconv` once a depthwise conv and `int8_conv` once a dense
+    one; every conv equals its plain version on the card and a CPU copy of
+    it on the card's input."""
+    spec, weights, batch = _r18_setup(kind)
+    eng = quantize_engine(spec.engine(weights, torch.bfloat16, device=cuda, batch=2), [batch])
+    assert len(eng.quant_scales) == spec.n_int8
+    before = (int8_conv.launches, int8_dwconv.launches, int8_quantize.launches)
+    eng.infer_batch_device(batch)
+    assert (int8_conv.launches, int8_dwconv.launches, int8_quantize.launches) == (
+        before[0] + spec.n_int8 - spec.n_dw, before[1] + spec.n_dw, before[2] + spec.n_int8)
+    x = torch.from_numpy(batch).to(cuda, torch.bfloat16) / 255.0
+    with torch.inference_mode():
+        seen = _record_int8_inputs(eng.model, lambda: eng.model(x))
+        assert len(seen) == spec.n_int8 and sum(c.depthwise for c, _ in seen) == spec.n_dw
+        _convs_equal_plain(seen, kind)        # both exit non-zero on a mismatch
+        assert _convs_card_vs_cpu(seen, kind) == spec.n_int8

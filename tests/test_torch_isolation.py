@@ -41,7 +41,8 @@ def test_port_has_sources():
     for rel in ("ops/paf_decode.py", "ops/kernels/conv1_pool.py",
                 "runtime/stream.py", "runtime/native/__init__.py",
                 "models/pifpaf.py", "ops/pifpaf_decode.py", "ops/kernels/grow.py",
-                "quant.py", "ops/kernels/int8_gemm.py"):
+                "quant.py", "ops/kernels/int8_gemm.py", "models/openpose.py",
+                "models/backbones.py"):
         assert f"hyperpose_torch/{rel}" in PORT_FILES
     assert len(PORT_FILES) >= 23
 

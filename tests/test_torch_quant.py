@@ -36,13 +36,14 @@ from hyperpose_tpu.models import backbones as JB
 from hyperpose_tpu.models.openpose import LightWeightOpenPose as JaxLwOpenPose
 from hyperpose_torch import quant
 from hyperpose_torch.models.backbones import (
-    VggTiny, VggTinyFusedStem, VggTinyS2DStem, remap_vggtiny_to_fused,
+    DepthwiseConv, VggTiny, VggTinyFusedStem, VggTinyS2DStem, remap_vggtiny_to_fused,
     remap_vggtiny_to_s2d, same_pads,
 )
 from hyperpose_torch.models.openpose import LightWeightOpenPose
 from hyperpose_torch.ops.image import resize_bilinear
 from hyperpose_torch.ops.kernels.int8_gemm import (
-    int8_conv_sums_plain, int8_gemm, int8_gemm_plain, int8_quantize_plain,
+    int8_conv_sums_plain, int8_dwconv, int8_dwconv_plain, int8_dwconv_sums_plain, int8_gemm,
+    int8_gemm_plain, int8_quantize_plain,
 )
 from hyperpose_torch.utils.weights import load_flax_weights
 
@@ -244,10 +245,152 @@ def test_int8_conv_output_is_a_channels_last_view():
 
 
 def test_grouped_int8_conv_raises():
+    """1 < groups < channels stays unported (no model of the package has
+    such a conv); depthwise convs (groups = channels) are ported."""
     conv = torch.nn.Conv2d(8, 8, 3, padding=1, groups=4)
     kernel = np.zeros((3, 3, 2, 8), np.float32)
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 #2"):
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 #3"):
         quant.Int8Conv2d.from_conv(conv, kernel, None, 1.0)
+
+
+# -- the depthwise Int8Conv2d against _quantized_conv(feature_group_count=C) -----------
+
+class _OneDwConv(fnn.Module):
+    kernel: int
+    strides: int = 1
+    dilation: int = 1
+    use_bias: bool = False
+    dtype: jnp.dtype = jnp.float32
+
+    @fnn.compact
+    def __call__(self, x):
+        c = x.shape[-1]
+        return fnn.Conv(c, (self.kernel, self.kernel), strides=self.strides,
+                        kernel_dilation=self.dilation, padding="SAME", feature_group_count=c,
+                        use_bias=self.use_bias, dtype=self.dtype, name="dwconv")(x)
+
+
+DW_CASES = {   # channels, kernel, stride, dilation, input dtype, bias, batch, (H, W)
+    "3x3_c32": (32, 3, 1, 1, "float32", False, 2, HW),
+    "3x3_c64_stride2": (64, 3, 2, 1, "float32", False, 2, HW),     # pads 0 and 1
+    "3x3_c48_stride2_odd": (48, 3, 2, 1, "bfloat16", False, 1, (37, 45)),
+    "3x3_c512_dil2": (512, 3, 1, 2, "float32", False, 1, (23, 29)),  # MobilenetDilated.sep_6
+    "1x1_c128": (128, 1, 1, 1, "float32", False, 2, HW),           # a thin stage's out block
+    "1x1_c19_bias": (19, 1, 1, 1, "float32", True, 2, (9, 11)),
+    "3x3_c1209_bf16": (1209, 3, 1, 1, "bfloat16", False, 1, (11, 13)),  # Cp = 1216
+    "3x3_c1152": (1152, 3, 1, 1, "float32", False, 1, (9, 11)),
+    "3x3_c185_stride2_dil2_bias_bf16": (185, 3, 2, 2, "bfloat16", True, 2, (19, 25)),
+}
+
+
+def _dw_run(case):
+    c, k, stride, dil, dt, use_bias, batch, hw = DW_CASES[case]
+    rng = np.random.default_rng(c * 5 + k + stride)
+    x = rng.normal(0, 1, (batch, *hw, c)).astype(np.float32)
+    kernel = (rng.normal(0, 1, (k, k, 1, c)) / k).astype(np.float32)
+    params = {"kernel": kernel}
+    if use_bias:
+        params["bias"] = rng.normal(0, 0.1, c).astype(np.float32)
+    jdt = jnp.bfloat16 if dt == "bfloat16" else jnp.float32
+    xj = jnp.asarray(x, jdt)
+    s_abs = float(jnp.max(jnp.abs(xj.astype(jnp.float32))))
+    jmod = _OneDwConv(k, stride, dil, use_bias, jdt)
+    want = jquant.quantized_apply(jmod, {"dwconv": s_abs})({"params": {"dwconv": params}}, xj)
+    # JAX's s32 sums, from _quantized_conv's own formulas (quant.py:130-153).
+    s_w = jnp.maximum(jnp.max(jnp.abs(kernel), axis=(0, 1, 2)), 1e-8) / 127.0
+    w_q = jnp.clip(jnp.round(kernel / s_w), -127, 127).astype(jnp.int8)
+    x_q = jnp.clip(jnp.round(xj.astype(jnp.float32) * (1.0 / (s_abs / 127.0))), -127, 127
+                   ).astype(jnp.int8)
+    dn = lax.conv_dimension_numbers(x_q.shape, w_q.shape, ("NHWC", "HWIO", "NHWC"))
+    acc_want = lax.conv_general_dilated(x_q, w_q, (stride, stride), "SAME",
+                                        rhs_dilation=(dil, dil), dimension_numbers=dn,
+                                        feature_group_count=c,
+                                        preferred_element_type=jnp.int32)
+    tdt = getattr(torch, dt)
+    model = DepthwiseConv(c, k, stride, dil, tdt).eval()
+    if use_bias:
+        model.dwconv.bias = torch.nn.Parameter(torch.zeros(c, dtype=tdt))
+    quant.quantize_model(model, {"dwconv": s_abs},
+                         weights={f"params/dwconv/{n}": v for n, v in params.items()})
+    xt = torch.from_numpy(x).to(tdt).permute(0, 3, 1, 2)
+    with torch.inference_mode():
+        got = model(xt)
+        q = model.dwconv
+        span = dil * (k - 1) + 1
+        xin = F.pad(xt, same_pads(xt.shape[-2:], span, stride)) if stride > 1 else xt
+        acc = int8_dwconv_sums_plain(q.quantize(xin), q.w_taps, *q.taps_geometry)[:, :c]
+    return q, got, np.asarray(want.astype(jnp.float32)), acc, np.asarray(acc_want)
+
+
+@pytest.mark.parametrize("case", list(DW_CASES))
+def test_int8_dwconv_matches_jax_quantized_conv(case):
+    """A depthwise `Int8Conv2d` (taps [kh, kw, Cp], Cp = C rounded up to
+    32): its s32 sums equal JAX's int8 conv with feature_group_count = C
+    exactly, and its output equals `_quantized_conv`'s bit for bit; 3x3 and
+    1x1 taps, stride 1 and 2 (padded first, as `DepthwiseConv` pads),
+    dilation 2, channel counts that are not multiples of 32, a bias."""
+    q, got, want, acc, acc_want = _dw_run(case)
+    assert isinstance(q, quant.Int8Conv2d) and q.depthwise and not q.folded
+    c = q.out_channels
+    assert q.w_taps.shape == (*q.kernel_size, -(-c // 32) * 32)
+    b, ho, wo, _ = acc_want.shape
+    np.testing.assert_array_equal(acc.numpy().reshape(b, ho, wo, c), acc_want)
+    got = got.permute(0, 2, 3, 1).float().numpy()
+    assert got.shape == want.shape
+    np.testing.assert_array_equal(got, want)
+
+
+def test_int8_dwconv_weight_scales_are_per_channel():
+    """`weight_scales` of a [kh, kw, 1, C] kernel: JAX's s_w, the max over
+    axes 0, 1 and 2, one scale a channel."""
+    k = np.random.default_rng(21).normal(0, 1, (3, 3, 1, 40)).astype(np.float32)
+    w_q, s_w = quant.weight_scales(k)
+    want = jnp.maximum(jnp.max(jnp.abs(k), axis=(0, 1, 2)), 1e-8) / 127.0
+    assert s_w.shape == (40,) and w_q.shape == k.shape
+    np.testing.assert_array_equal(s_w, np.asarray(want))
+
+
+@pytest.mark.parametrize("name", ["hp_int8_gemm", "hp_int8_quantize", "hp_int8_conv",
+                                  "hp_int8_dwconv"])
+def test_ctypes_signatures_match_the_sources(name):
+    """Each entry point's ctypes argument list has one entry per parameter
+    of its C declaration in its library's source, pointers where the
+    source has pointers (ctypes would pass a pointer given as an int as 32
+    bits)."""
+    import ctypes
+    import re
+
+    from hyperpose_torch.ops.kernels import build
+    from hyperpose_torch.ops.kernels.int8_gemm import _SIGS
+
+    lib, argtypes = _SIGS[name]
+    src = (build.CSRC / f"{lib}.cu").read_text()
+    params = re.search(rf'extern "C" int {name}\(([^)]*)\)', src).group(1).split(",")
+    assert len(params) == len(argtypes)
+    for p, t in zip(params, argtypes):
+        assert ("*" in p) == (t is ctypes.c_void_p), (p, t)
+
+
+def test_int8_dwconv_cpu_takes_the_plain_version():
+    """On CPU tensors the wrapper is its plain version and counts no
+    launch; the plain sums equal a float64 grouped conv of the same
+    integers."""
+    rng = np.random.default_rng(22)
+    xq = torch.from_numpy(rng.integers(-127, 128, (2, 9, 11, 64), dtype=np.int8))
+    w = torch.from_numpy(rng.integers(-127, 128, (3, 3, 64), dtype=np.int8))
+    dq = torch.from_numpy(rng.uniform(1e-4, 1e-3, 50).astype(np.float32))
+    geom = ((2, 1), (1, 1), (1, 2))
+    before = int8_dwconv.launches
+    got = int8_dwconv(xq, w, dq, None, *geom, torch.float32)
+    assert int8_dwconv.launches == before
+    assert torch.equal(got, int8_dwconv_plain(xq, w, dq, None, *geom, torch.float32))
+    ref = F.conv2d(xq.permute(0, 3, 1, 2).double(), w.permute(2, 0, 1)[:, None].double(),
+                   stride=geom[0], padding=geom[1], dilation=geom[2], groups=64)
+    sums = int8_dwconv_sums_plain(xq, w, *geom)
+    assert got.shape == (2 * ref.shape[2] * ref.shape[3], 50)
+    assert torch.equal(sums, ref.permute(0, 2, 3, 1).reshape(-1, 64).to(torch.int32))
+    with pytest.raises(ValueError, match="unsupported device"):
+        int8_dwconv(xq.to("meta"), w.to("meta"), dq.to("meta"), None, *geom, torch.float32)
 
 
 # -- calibration ---------------------------------------------------------------------

@@ -112,3 +112,78 @@ def test_bf16_model_takes_f32_weights():
     ref = torch.from_numpy(
         flagship_flat()["params/backbone/block_0/conv/kernel"].transpose(3, 2, 0, 1))
     assert torch.equal(w, ref.to(torch.bfloat16))
+
+
+# -- the leaves of the OpenPose family: PReLU slopes, SeparableConv's bare kernels -----
+
+def _family_models():
+    from hyperpose_torch.models.openpose import MobilenetSmallOpenpose, OpenPose
+
+    return {"openpose": OpenPose(n_refinements=1), "mbsmall": MobilenetSmallOpenpose()}
+
+
+@pytest.mark.parametrize("name", ["openpose", "mbsmall"])
+def test_family_leaves_round_trip_bit_exact(name, tmp_path):
+    """`params/<p>/prelu/alpha` lands on `<p>.prelu.alpha` as it is;
+    `params/<p>/sep/dw_kernel` [kh, kw, 1, cin] and `pw_kernel` [1, 1, cin,
+    f] land on OIHW `<p>.sep.dw_kernel` [cin, 1, kh, kw] and `pw_kernel`
+    [f, cin, 1, 1], `sep/bias` on `<p>.sep.bias`; back to flax and through
+    an npz bit for bit."""
+    from hyperpose_torch.utils.weights import random_flax_weights
+
+    model = _family_models()[name]
+    flat = random_flax_weights(model, seed=3)
+    load_flax_weights(model, flat)
+    if name == "openpose":
+        key = "params/ref0_conf/l0/prelu/alpha"
+        assert flat[key].shape == (128,)
+        assert torch.equal(model.ref0_conf.l0.prelu.alpha, torch.from_numpy(flat[key]))
+    else:
+        dw = flat["params/ref0_conf/l0/sep/dw_kernel"]
+        pw = flat["params/ref0_conf/l0/sep/pw_kernel"]
+        assert dw.shape == (7, 7, 1, 761) and pw.shape == (1, 1, 761, 128)
+        sep = model.ref0_conf.l0.sep
+        assert torch.equal(sep.dw_kernel, torch.from_numpy(dw.transpose(3, 2, 0, 1)))
+        assert torch.equal(sep.pw_kernel, torch.from_numpy(pw.transpose(3, 2, 0, 1)))
+        assert torch.equal(sep.bias, torch.from_numpy(flat["params/ref0_conf/l0/sep/bias"]))
+    back = state_dict_to_flax(model.state_dict())
+    assert sorted(back) == sorted(flat)
+    for k, v in flat.items():
+        assert back[k].dtype == v.dtype and back[k].shape == v.shape, k
+        assert np.array_equal(back[k], v), k
+    path = tmp_path / "w.npz"
+    save_flax_npz(model, path)
+    again = _family_models()[name]
+    load_flax_weights(again, str(path))
+    for k, v in model.state_dict().items():
+        assert torch.equal(again.state_dict()[k], v), k
+
+
+def test_random_weights_rules_for_the_family_leaves():
+    """PReLU slopes are drawn uniform in [0.05, 0.5] (never 0, so the
+    negative branch runs); `dw_kernel` and `pw_kernel` normal with std
+    sqrt(1 / fan_in), fan_in = kh * kw * 1 and cin."""
+    from hyperpose_torch.utils.weights import random_flax_weights
+
+    shapes = {"params/a/prelu/alpha": (4096,), "params/s/dw_kernel": (7, 7, 1, 4096),
+              "params/s/pw_kernel": (1, 1, 256, 4096)}
+    w = random_flax_weights(shapes, seed=0)
+    a = w["params/a/prelu/alpha"]
+    assert a.dtype == np.float32 and a.min() >= 0.05 and a.max() <= 0.5
+    assert abs(float(w["params/s/dw_kernel"].std()) * 7 - 1) < 0.02
+    assert abs(float(w["params/s/pw_kernel"].std()) * 16 - 1) < 0.02
+
+
+def test_random_weights_of_existing_models_are_unchanged():
+    """The draws of the models that existed before the family leaves came
+    (whose times PERF.md quotes) stay as they were: the first values of
+    the flagship-shaped and default Lightweight-OpenPose draws at seed 0."""
+    from hyperpose_torch.utils.weights import random_flax_weights
+
+    w = random_flax_weights(LightWeightOpenPose(), seed=0)
+    assert not any(k.endswith(("alpha", "dw_kernel", "pw_kernel")) for k in w)
+    rng = np.random.default_rng(0)
+    first = next(iter(w))
+    shape = w[first].shape
+    want = (rng.standard_normal(shape) * np.sqrt(1.0 / np.prod(shape[:-1]))).astype(np.float32)
+    assert first.endswith("/kernel") and np.array_equal(w[first], want)

@@ -1,8 +1,8 @@
 """Measures shared by the port's tests and chip_smoke.py: bf16 distances in
 units in the last place, the slack of float32 sums taken in another order,
-the work that PifPaf growth and the PAF limb scoring need on given inputs
-(the evaluations and bytes behind those kernels' bounds), and a network's
-conv operations.
+the work that PifPaf growth, the PAF limb scoring and an int8 depthwise
+conv need on given inputs (the evaluations, operations and bytes behind
+those kernels' bounds), and a network's conv operations.
 
 It imports torch and the port only, and has no side effects at import, so
 chip_smoke.py can use it on the card as it is.
@@ -188,12 +188,41 @@ def limb_scores_work(paf_shape, peak_xy, peak_valid, limbs, n_samples: int = 10)
     }
 
 
+def _taps_inside(n: int, out: int, k: int, stride: int, pad: int, dil: int) -> int:
+    """Along one axis: the filter taps that fall inside the image, summed
+    over the `out` output positions (the others read the zero border)."""
+    return sum(sum(0 <= o * stride - pad + t * dil < n for t in range(k)) for o in range(out))
+
+
+def int8_dwconv_work(xq_shape, kernel_size, stride, padding, dilation, channels: int,
+                     out_itemsize: int) -> dict:
+    """The bytes and integer operations that one int8 depthwise conv
+    (`int8_dwconv`) needs: the C channels of its quantized input
+    [B, H, W, Cp] read once (the zero channels up to Cp are layout, not
+    work), the C channels' taps [kh, kw], dq and bias read once, the output
+    [B*Ho*Wo, C] written once at `out_itemsize` bytes a value; 2 operations
+    (a multiply and an add) for each of the C channels' taps that fall
+    inside the image, the border's taps needing none. The rate to set them
+    against is the card's integer rate outside the tensor cores."""
+    b, h, w, _ = xq_shape
+    (kh, kw), (sh, sw), (ph, pw), (dh, dw) = kernel_size, stride, padding, dilation
+    ho = (h + 2 * ph - dh * (kh - 1) - 1) // sh + 1
+    wo = (w + 2 * pw - dw * (kw - 1) - 1) // sw + 1
+    taps = _taps_inside(h, ho, kh, sh, ph, dh) * _taps_inside(w, wo, kw, sw, pw, dw)
+    nbytes = (b * h * w + kh * kw + 8) * channels + b * ho * wo * channels * out_itemsize
+    return {"bytes": nbytes, "operations": 2 * b * taps * channels}
+
+
 def conv_operations(model: torch.nn.Module, images_shape) -> int:
-    """2 x the multiply-adds of every `nn.Conv2d` in one forward of a copy
-    of `model` on NHWC images of `images_shape`, counted on the meta device
-    (no data, no compute): for each conv, 2 * output elements * (input
-    channels / groups) * kh * kw."""
+    """2 x the multiply-adds of every conv in one forward of a copy of
+    `model` on NHWC images of `images_shape`, counted on the meta device
+    (no data, no compute): for each `nn.Conv2d`, 2 * output elements *
+    (input channels / groups) * kh * kw; for each `SeparableConv` (two convs
+    on bare parameters, no `nn.Conv2d`), its depthwise conv and its 1x1
+    conv alike."""
     import copy
+
+    from hyperpose_torch.models.openpose import SeparableConv
 
     meta = copy.deepcopy(model).to("meta")
     total = 0
@@ -203,8 +232,15 @@ def conv_operations(model: torch.nn.Module, images_shape) -> int:
         kh, kw = conv.kernel_size
         total += 2 * out.numel() * (conv.in_channels // conv.groups) * kh * kw
 
+    def count_separable(sep, args, out):
+        nonlocal total
+        b, cin, h, w = args[0].shape
+        total += 2 * b * h * w * cin * sep.dw_kernel[0, 0].numel() + 2 * out.numel() * cin
+
     hooks = [m.register_forward_hook(count) for m in meta.modules()
              if isinstance(m, torch.nn.Conv2d)]
+    hooks += [m.register_forward_hook(count_separable) for m in meta.modules()
+              if isinstance(m, SeparableConv)]
     try:
         with torch.no_grad():
             meta(torch.zeros(images_shape, device="meta"))
