@@ -39,11 +39,13 @@ serving phase, batch 8 on seeded random weights, in f32, bf16 and int8:
 Lightweight-OpenPose on its default MobilenetDilated (368x432), CMU
 OpenPose on VGG19 with PReLU (368x656, the reference's size), MobileNet-Thin
 and MobileNet-Small OpenPose (368x432; Small's maps are 92x108); and the
-`int8_dwconv` phase holds the int8 depthwise conv kernel bit for bit against
-its plain version at every depthwise shape of those four int8 steps and of
-MobilenetV1 and MobilenetV2 at 368x432, timed beside its bound and cuDNN's
-bf16 depthwise convs of the same layers. It checks that each path went
-through its kernels.
+`int8_dwconv` phase holds the fused quantize-and-depthwise kernel bit for
+bit against its plain version, in bf16 and float32, at every depthwise
+shape of those four int8 steps and of MobilenetV1 and MobilenetV2 at
+368x432, timed per set and per shape beside its bound and cuDNN's bf16
+depthwise convs of the same layers. The peak phases include maps with NaN
+pixels. It checks that each path went through its kernels.
+
 Every phase prints one line; any failure
 exits non-zero before the result line. The last line is
 `{"ok": true, "device": {...}}`. It needs a CUDA device and exits non-zero
@@ -578,8 +580,9 @@ def peak_topk_cases(maps, device):
     plane, a plane with no survivor, the densest lattice of survivors
     (non-adjacent pixels at even (y, x): 23 x 27 = 621 per 46 x 54 plane,
     more than the kernel's 512 threads) with distinct and with equal values,
-    plateaus of equal values, and a batch-strided view. `maps` holds the
-    [B, 46, 54, 18] "painted" and "random" arrays."""
+    plateaus of equal values, a batch-strided view, and maps with NaN
+    pixels (`nan_peak_maps`: no peak with a NaN in its window survives).
+    `maps` holds the [B, 46, 54, 18] "painted" and "random" arrays."""
     import torch
 
     rng = np.random.default_rng(7)
@@ -599,6 +602,8 @@ def peak_topk_cases(maps, device):
         ("no_survivor", np.zeros((2, h, w, 18), np.float32), 16),
         ("plateaus", plateaus, 16), ("small_k_hw", small, 6 * 9),
         ("small_sparse_k_hw", np.where(small > 0.9, small, 0).astype(np.float32), 6 * 9),
+        ("nan_painted", nan_peak_maps(maps["painted"]), 16),
+        ("nan_random", nan_peak_maps(maps["random"]), 16),
     ]
     out = [(name, _decoder_view(m, device), k) for name, m, k in cases]
     full = torch.from_numpy(np.concatenate([maps["random"]] * 2)).to(device)
@@ -653,8 +658,9 @@ def phase_peak_topk(cases) -> dict:
             got = peak_topk(x, kk, ks, sg, thresh, border)
             want = peak_topk_plain(x, kk, ks, sg, thresh, border)
             torch.cuda.synchronize()
-            err = max([err] + [float((g - w_).abs().max()) for g, w_ in zip(got, want)])
-            check(all(torch.equal(g, w_) for g, w_ in zip(got, want)),
+            err = max([err] + [float((g - w_).nan_to_num(0.0).abs().max())
+                               for g, w_ in zip(got, want)])
+            check(all(_equal_nan(g, w_) for g, w_ in zip(got, want)),
                   f"peak_topk {name}/{border} K={kk}: differs from its plain version: "
                   f"|dxy| {float((got[0] - want[0]).abs().max())}, "
                   f"|draw| {float((got[1] - want[1]).abs().max())}, "
@@ -704,9 +710,39 @@ def peak_candidates_cases(maps, device):
     return out
 
 
+def nan_peak_maps(maps: np.ndarray) -> np.ndarray:
+    """A copy of [B, H, W, P] maps with NaN pixels: in each image a lone NaN
+    three columns right of its first peak with room (the zero-border ksize-5
+    smooth keeps the peak's own value finite and makes its right
+    neighbour's NaN, so JAX's NMS, whose 3x3 maximum carries NaN, drops
+    the peak), and in image 0 a whole NaN part plane (part 1)."""
+    import torch
+    from hyperpose_torch.ops.kernels.peak_topk import peak_candidates_plain
+
+    out = maps.copy()
+    ranked, _ = peak_candidates_plain(torch.from_numpy(maps))
+    b, p, y, x = np.nonzero(ranked.numpy() > -5e29)
+    for i in range(maps.shape[0]):
+        room = np.flatnonzero((b == i) & (x + 3 < maps.shape[2]))
+        if room.size:
+            k = room[0]
+            out[i, y[k], x[k] + 3, p[k]] = np.nan
+    out[0, :, :, 1] = np.nan
+    return out
+
+
+def _equal_nan(a, b) -> bool:
+    """Equal values, NaN in the same places."""
+    import torch
+
+    return a.shape == b.shape and bool(torch.equal(a.isnan(), b.isnan())) and bool(
+        torch.equal(a.nan_to_num(0.0), b.nan_to_num(0.0)))
+
+
 def phase_peak_candidates(cases) -> dict:
     """peak_candidates equal, bit for bit, to its plain version on the
-    serving maps and `peak_candidates_cases`; timed on the decoder's view."""
+    serving maps and `peak_candidates_cases`, and on maps with NaN pixels
+    with NaN in the same places; timed on the decoder's view."""
     import torch
     from hyperpose_torch.ops.kernels.peak_topk import (
         peak_candidates, peak_candidates_plain,
@@ -726,7 +762,20 @@ def phase_peak_candidates(cases) -> dict:
               f"peak_candidates {name}: values differ, ranked "
               f"{float((got[0] - want[0]).abs().max())}, smoothed "
               f"{float((got[1] - want[1]).abs().max())}")
-
+    # NaN pixels: NaN in the same places, and the peaks beside them dropped
+    # as JAX's NMS drops them (its 3x3 maximum carries NaN).
+    nan_cases = []
+    for name in ("painted", "random"):
+        for ks, sg in ((5, 0.75),) + OTHER_SMOOTHS:
+            conf = _decoder_view(nan_peak_maps(cases[name]))
+            got = peak_candidates(conf, ks, sg, thresh, neg)
+            want = peak_candidates_plain(conf, ks, sg, thresh, neg)
+            torch.cuda.synchronize()
+            check(bool(got[1].isnan().any()) and _equal_nan(got[0], want[0])
+                  and _equal_nan(got[1], want[1]),
+                  f"peak_candidates nan_{name}_ksize{ks}: differs from its plain version "
+                  f"(NaN places or values)")
+            nan_cases.append(f"nan_{name}_ksize{ks}")
     conf = _decoder_view(cases["painted"])
     b, h, w, p = conf.shape
     r = ksize // 2
@@ -748,7 +797,8 @@ def phase_peak_candidates(cases) -> dict:
     nchw = torch.from_numpy(cases["painted"]).cuda().permute(0, 3, 1, 2).contiguous()
     emit("peak_candidates", shapes=f"conf [{b},{h},{w},{p}] f32 view -> "
          f"2 x [{b},{p},{h},{w}]", bytes=nbytes, operations=ops,
-         equal_cases=[r_[0] for r_ in runs], kernel_ms=row["ms"],
+         equal_cases=[r_[0] for r_ in runs], equal_nan_cases=nan_cases,
+         kernel_ms=row["ms"],
          kernel_ms_nchw_view=device_ms(lambda: peak_candidates(
              nchw.permute(0, 2, 3, 1), ksize, sigma, thresh, neg)),
          call_ms=call_ms(lambda: peak_candidates(conf, ksize, sigma, thresh, neg)),
@@ -1219,16 +1269,16 @@ def phase_serving(spec: Served, forms, frames, card) -> tuple[dict, dict, list]:
     and 7 random frames), in each of `forms`: "f32" (TF32 off), "bf16", and
     "int8" with bf16 activations (`quantize_engine` calibrated on the
     batch). For each: the main path once with its kernel counts (its
-    decoder's kernels launched, no other; int8: `int8_quantize` once a conv,
-    and `int8_conv` once a dense conv and `int8_dwconv` once a depthwise
-    one), finite humans and outputs, the f32 outputs of the first
+    decoder's kernels launched, no other; int8: `int8_quantize` and
+    `int8_conv` once a dense conv, `int8_dwconv` once a depthwise one and
+    no quantize pass before it), finite humans and outputs, the f32 outputs of the first
     `spec.cpu_frames` frames against the CPU (max |d| <= 1e-3 max |v| per
     output), the family's own check of its decode on the card's outputs,
     every int8 conv exact against its plain version and a CPU copy on the
     card's input, then step / network / decode wall and device timings.
     Returns the launches of each form, the f32 outputs, and (spec.name,
-    conv, quantized input, activation dtype) of every depthwise int8 conv
-    of the int8 step (for `phase_int8_dwconv`)."""
+    conv, its input) of every depthwise int8 conv of the int8 step (for
+    `phase_int8_dwconv`)."""
     import torch
     from torch import nn
     from hyperpose_torch.ops.image import resize_bilinear
@@ -1255,7 +1305,7 @@ def phase_serving(spec: Served, forms, frames, card) -> tuple[dict, dict, list]:
         row["warmup_s"] = eng.warmup()
         results, launches = drive(eng, frames)
         paths[form] = launches
-        check(launches["int8_quantize"] == n_int8 and launches["int8_dwconv"] == n_dw
+        check(launches["int8_quantize"] == n_int8 - n_dw and launches["int8_dwconv"] == n_dw
               and launches["int8_conv"] == n_int8 - n_dw and launches["int8_gemm"] == 0
               and all((n > 0) == (k in spec.kernels)
                       for k, n in launches.items() if k not in int8_kernels),
@@ -1289,12 +1339,11 @@ def phase_serving(spec: Served, forms, frames, card) -> tuple[dict, dict, list]:
             if form == "int8":
                 seen = _record_int8_inputs(eng.model, network)
                 check(len(seen) == n_int8, f"{key}: {len(seen)} int8 convs ran in one step")
-                xqs, _ = _convs_equal_plain(seen, key)
+                _convs_equal_plain(seen, key)
                 row["convs_equal_to_plain_and_cpu"] = _convs_card_vs_cpu(seen, key)
                 row["conv_couts"] = sorted({c.out_channels for c, _ in seen})
-                dw = [(spec.name, c, xq, x.dtype)
-                      for (c, x), xq in zip(seen, xqs) if c.depthwise]
-                del seen, xqs
+                dw = [(spec.name, c, x) for c, x in seen if c.depthwise]
+                del seen
             stages = {"step": lambda: eng.infer_batch_device(batch), "network": network,
                       "decode": lambda: spec.decode(eng, out)}
             for stage, fn in stages.items():
@@ -1482,16 +1531,24 @@ def _convs_card_vs_cpu(seen, key: str) -> int:
 
 
 def _convs_equal_plain(seen, key: str) -> tuple[list, list]:
-    """Each conv's kernel (`int8_conv`, or `int8_dwconv` for a depthwise
-    conv) on its own quantized input equals its plain version there.
-    Returns the quantized inputs and the plain outputs."""
+    """Each conv's kernels equal their plain version on its own input: a
+    dense conv's `int8_conv` on its quantized input, a depthwise conv's
+    fused `int8_dwconv` on the float input (against the quantize's and the
+    conv's plain versions in turn). Returns the quantized inputs (a
+    depthwise conv's from the plain quantize) and the plain outputs."""
     import torch
+    from hyperpose_torch.ops.kernels.int8_gemm import int8_quantize_plain
 
     xqs, wants = [], []
     for c, x in seen:
-        xq = c.quantize(x)
+        if c.depthwise:
+            xq = int8_quantize_plain(x, c.inv_s, c.w_taps.shape[-1])
+            got = c.rows(x)
+        else:
+            xq = c.quantize(x)
+            got = c.conv(xq, x.dtype)
         want = c.conv_plain(xq, x.dtype)
-        check(bool(torch.equal(c.conv(xq, x.dtype), want)),
+        check(bool(torch.equal(got, want)),
               f"{key}: {'int8_dwconv' if c.depthwise else 'int8_conv'} differs from its "
               f"plain version at {tuple(x.shape)} -> {c.out_channels} ({c.kernel_size}, "
               f"stride {c.stride}, dilation {c.dilation})")
@@ -1931,8 +1988,8 @@ H100_INT32_OPS_PER_S = 33.5e12
 
 
 def backbone_dw_convs(name: str, frames) -> list:
-    """(name, conv, quantized input, dtype) of every depthwise int8 conv of
-    the bf16 backbone `name` of `models.backbones` (seeded random weights,
+    """(name, conv, its input) of every depthwise int8 conv of the bf16
+    backbone `name` of `models.backbones` (seeded random weights,
     calibrated on the batch) on the 8 frames at 368x432."""
     import torch
     from hyperpose_torch import quant
@@ -1948,58 +2005,87 @@ def backbone_dw_convs(name: str, frames) -> list:
     quant.quantize_model(model, quant.calibrate(model, [x]), weights=flat)
     with torch.inference_mode():
         seen = _record_int8_inputs(model, lambda: model(x))
-        return [(name, c, c.quantize(xin), xin.dtype) for c, xin in seen if c.depthwise]
+        return [(name, c, xin) for c, xin in seen if c.depthwise]
+
+
+def _dw_work(convs) -> dict:
+    """The bytes and operations the fused kernel needs for `convs` ((conv,
+    input) pairs), the input read at its own width (`int8_dwconv_work`),
+    and the bound: bytes over H100_BYTES_PER_S or integer operations over
+    H100_INT32_OPS_PER_S, the larger."""
+    from torch_measures import int8_dwconv_work
+
+    work = [int8_dwconv_work((x.shape[0], *x.shape[2:], x.shape[1]), c.kernel_size, c.stride,
+                             c.padding, c.dilation, c.out_channels, x.element_size(),
+                             x.element_size()) for c, x in convs]
+    nbytes, ops = sum(w["bytes"] for w in work), sum(w["operations"] for w in work)
+    t_bytes, t_ops = nbytes / H100_BYTES_PER_S, ops / H100_INT32_OPS_PER_S
+    return {"bytes": nbytes, "operations": ops, "bound_ms": 1e3 * max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
+def _dw_times(convs, plain: bool) -> dict:
+    """Device ms of `convs` together (one CUDA graph each): the fused
+    kernel, cuDNN's bf16 depthwise convs of the same layers (weights
+    s_w * w_q, the bf16 input, channels-last) and, if `plain`, the plain
+    version."""
+    import torch
+    import torch.nn.functional as F
+    from hyperpose_torch.ops.kernels.int8_gemm import int8_dwconv_fused_plain
+
+    cudnn = [(x.to(torch.bfloat16).contiguous(memory_format=torch.channels_last),
+              (c.w_taps[..., :c.out_channels].float() * c.s_w).permute(2, 0, 1)[:, None]
+              .to(torch.bfloat16).contiguous(memory_format=torch.channels_last), c)
+             for c, x in convs]
+    out = {"kernel_ms": device_ms(lambda: [c.rows(x) for c, x in convs], reps=2, replays=3),
+           "cudnn_bf16_ms": device_ms(lambda: [
+               F.conv2d(x, w, None, c.stride, c.padding, c.dilation, c.out_channels)
+               for x, w, c in cudnn], reps=2, replays=3)}
+    if plain:
+        out["plain_ms"] = device_ms(lambda: [int8_dwconv_fused_plain(
+            x, c.inv_s, c.w_taps, c.dq, c.bias, *c.taps_geometry) for c, x in convs],
+            reps=1, replays=2)
+    return out
 
 
 def phase_int8_dwconv(records, card) -> dict:
-    """`int8_dwconv` at every depthwise shape of `records` ((model, conv,
-    quantized input, activation dtype), the int8 steps' own inputs): equal
-    to its plain version bit for bit; then, per model, its convs timed
-    together (one CUDA graph of all of them) beside the plain version,
-    cuDNN's bf16 depthwise convs of the same layers (weights s_w * w_q, the
-    input's first C channels in bf16, channels-last) and the bound of the
-    work they need (`torch_measures.int8_dwconv_work`: bytes over
-    H100_BYTES_PER_S or integer operations over H100_INT32_OPS_PER_S, the
-    larger). Returns the rows by model."""
+    """`int8_dwconv`, the fused quantize and depthwise conv, at every
+    depthwise shape of `records` ((set, conv, its input): the int8 steps'
+    own bf16 inputs): equal to its plain version bit for bit on that input
+    and on its float32 copy; then, per set and per distinct shape,
+    the device times of `_dw_times` beside the bound of the work
+    (`_dw_work`) and its share. A set's times are one graph of all its
+    convs; its plain time is the sum of its shapes'. Returns the rows by
+    set."""
     import torch
-    import torch.nn.functional as F
-    from torch_measures import int8_dwconv_work
+    from hyperpose_torch.ops.kernels.int8_gemm import int8_dwconv_fused_plain
 
     rows = {}
     for name in dict.fromkeys(r[0] for r in records):
-        mine = [(c, xq, dt) for n, c, xq, dt in records if n == name]
-        for c, xq, dt in mine:
-            check(bool(torch.equal(c.conv(xq, dt), c.conv_plain(xq, dt))),
-                  f"int8_dwconv {name}: differs from its plain version at {tuple(xq.shape)} "
-                  f"({c.kernel_size}, stride {c.stride}, dilation {c.dilation}, {dt})")
-        work = [int8_dwconv_work(tuple(xq.shape), c.kernel_size, c.stride, c.padding,
-                                 c.dilation, c.out_channels, dt.itemsize)
-                for c, xq, dt in mine]
-        nbytes, ops = sum(w["bytes"] for w in work), sum(w["operations"] for w in work)
-        t_bytes, t_ops = nbytes / H100_BYTES_PER_S, ops / H100_INT32_OPS_PER_S
-        cudnn = [(xq[..., :c.out_channels].to(torch.bfloat16).permute(0, 3, 1, 2),
-                  (c.w_taps[..., :c.out_channels].float() * c.s_w).permute(2, 0, 1)[:, None]
-                  .to(torch.bfloat16).contiguous(memory_format=torch.channels_last), c)
-                 for c, xq, _ in mine]
-        row = rows[name] = {
-            "convs": len(mine), "equal_to_plain": True,
-            "shapes_bhwc_k_stride_pad_dil": sorted({(*xq.shape[:3], c.out_channels,
-                                                     c.kernel_size[0], c.stride[0],
-                                                     c.padding[0], c.dilation[0])
-                                                    for c, xq, _ in mine}),
-            "kernel_ms": device_ms(lambda: [c.conv(xq, dt) for c, xq, dt in mine],
-                                   reps=2, replays=3),
-            "plain_ms": device_ms(lambda: [c.conv_plain(xq, dt) for c, xq, dt in mine],
-                                  reps=1, replays=2),
-            "cudnn_bf16_ms": device_ms(lambda: [
-                F.conv2d(x, w, None, c.stride, c.padding, c.dilation, c.out_channels)
-                for x, w, c in cudnn], reps=2, replays=3),
-            "bytes": nbytes, "operations": ops, "bound_ms": 1e3 * max(t_bytes, t_ops),
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-        }
+        mine = [(c, x) for n, c, x in records if n == name]
+        groups = {}
+        for c, x in mine:
+            for xin in (x, x.float().contiguous(memory_format=torch.channels_last)):
+                got = c.rows(xin)
+                check(bool(torch.equal(got, int8_dwconv_fused_plain(
+                          xin, c.inv_s, c.w_taps, c.dq, c.bias, *c.taps_geometry))),
+                      f"int8_dwconv {name}: differs from its plain version at "
+                      f"{tuple(xin.shape)} ({c.kernel_size}, stride {c.stride}, dilation "
+                      f"{c.dilation}, {xin.dtype})")
+            key = (*x.shape[2:], x.shape[1], c.kernel_size[0], c.stride[0], c.padding[0],
+                   c.dilation[0])
+            groups.setdefault(key, []).append((c, x))
+        shapes = []
+        for key, convs in groups.items():
+            shape = {"h_w_c_k_stride_pad_dil": key, "convs": len(convs),
+                     **_dw_times(convs, plain=True), **_dw_work(convs)}
+            shape["share_of_bound"] = shape["bound_ms"] / shape["kernel_ms"]
+            shapes.append(shape)
+        row = rows[name] = {"convs": len(mine), "equal_to_plain": True, "dtypes": "bf16, f32",
+                            **_dw_times(mine, plain=False), **_dw_work(mine),
+                            "plain_ms": sum(sh["plain_ms"] for sh in shapes), "shapes": shapes}
         row["share_of_bound"] = row["bound_ms"] / row["kernel_ms"]
-        del cudnn
-    emit("int8_dwconv", card=card, input="the int8 steps' own quantized inputs, batch 8",
+    emit("int8_dwconv", card=card, input="the int8 steps' own bf16 inputs, batch 8",
          int32_ops_per_s=H100_INT32_OPS_PER_S, **rows)
     return rows
 

@@ -210,7 +210,9 @@ __device__ __forceinline__ void smooth_nms(const float* __restrict__ src, int H,
 
   // NMS + threshold: candidates hold their own pixel index, others -1. A
   // neighbour inside the plane must not exceed v; one outside reads as 0
-  // with zero borders and is absent with reflect borders (-inf padding).
+  // with zero borders and is absent with reflect borders (-inf padding). A
+  // NaN anywhere in the window fails a compare (v > thresh where v is NaN),
+  // so that pixel is no peak, as the Pallas kernel's NMS rules.
   for_pixels(H, W, [&](int i, int y, int x) {
     const float v = sm[i];
     const bool up = y > 0, down = y + 1 < H, left = x > 0, right = x + 1 < W;
@@ -393,8 +395,10 @@ __global__ void __launch_bounds__(kThreads) peak_topk_kernel(
 // Steps 2 and 3 read what the step before left in shared memory, after a
 // barrier. The taps sit in registers; every product and sum is rounded on
 // its own, centre first, as in smooth_nms. Only the plane's own edges are
-// zero borders: a band's inner edge reads its halo. The maxima equal
-// smooth_nms's eight compares for finite maps. kMaxR = 2 serves ksize 3 and
+// zero borders: a band's inner edge reads its halo. The maxima carry NaN
+// (max_nan), as jnp.maximum does in the Pallas kernel's NMS, so a pixel
+// with a NaN in its window fails `v >= max`, as it fails one of
+// smooth_nms's eight compares. kMaxR = 2 serves ksize 3 and
 // 5 (the decoder's), kMaxR = 15 every ksize up to 31. The launch picks G
 // and, by the shared memory, shrinks G and then kRows until the planes fit:
 // every shape the wrapper accepts runs on this kernel.
@@ -416,6 +420,13 @@ inline size_t band_smem(const Band& g) {
 }
 
 constexpr int kBandThreads = 256;  // threads a block at most: a thread may use 255 registers
+
+// The larger of a and b, NaN if either is NaN (fmaxf drops a NaN operand).
+__device__ __forceinline__ float max_nan(float a, float b) {
+  float d;
+  asm("max.NaN.f32 %0, %1, %2;" : "=f"(d) : "f"(a), "f"(b));
+  return d;
+}
 
 template <int kRows, int kMaxR>
 __global__ void __launch_bounds__(kBandThreads) peak_candidates_kernel(
@@ -515,11 +526,11 @@ __global__ void __launch_bounds__(kBandThreads) peak_candidates_kernel(
 #pragma unroll
     for (int j = 0; j < kT; ++j) {
       const float* row = s + j * ws;
-      const float m = fmaxf(row[-1], row[0]);
-      const float p = fmaxf(row[0], row[1]);
-      hmax[0][j] = fmaxf(row[-2], m);
-      hmax[1][j] = fmaxf(m, row[1]);
-      hmax[2][j] = fmaxf(p, row[2]);
+      const float m = max_nan(row[-1], row[0]);
+      const float p = max_nan(row[0], row[1]);
+      hmax[0][j] = max_nan(row[-2], m);
+      hmax[1][j] = max_nan(m, row[1]);
+      hmax[2][j] = max_nan(p, row[2]);
     }
     int cand[3][kRows + 2];
 #pragma unroll
@@ -530,7 +541,7 @@ __global__ void __launch_bounds__(kBandThreads) peak_candidates_kernel(
         const int y = y0 - 1 + j;
         const float v = s[(j + 1) * ws + o - 1];
         const bool pk = xo >= 0 && xo < W && y >= 0 && y < H && v > thresh &&
-                        v >= fmaxf(fmaxf(hmax[o][j], hmax[o][j + 1]), hmax[o][j + 2]);
+                        v >= max_nan(max_nan(hmax[o][j], hmax[o][j + 1]), hmax[o][j + 2]);
         cand[o][j] = pk ? y * W + xo : -1;
       }
     }

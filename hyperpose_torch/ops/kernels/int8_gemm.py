@@ -4,8 +4,8 @@ versions.
 
 Replaces the Pallas TPU kernel `scripts/probe_int8_pallas.py` `make_matmul`
 (a tiled matmul in s8 -> s32 and bf16 -> f32), which on the TPU stands for
-the GEMM that XLA's int8 conv runs. On the card one int8 conv is two
-launches:
+the GEMM that XLA's int8 conv runs. On the card a dense int8 conv is two
+launches, a depthwise one a single launch:
 
 - `int8_quantize`: NCHW x (any strides, f32 or bf16) -> int8 NHWC
   [B, H, W, Cp] with Cp >= C a multiple of 32 (`padded_channels`), channels
@@ -16,9 +16,11 @@ launches:
   weights [Np, kh, kw, Cp] int8, the dequantize (s32 -> f32, * dq, + bias)
   and the cast fused into its epilogue; it writes [M, cout] once in the
   activation dtype, rows (b, y, x).
-- `int8_dwconv`: the depthwise conv (one filter a channel) on the same
-  buffer, taps [kh, kw, Cp] int8, s32 sums, the same epilogue and output
-  layout (`csrc/int8_dwconv.cu`).
+- `int8_dwconv`: the depthwise conv (one filter a channel) from the float
+  activation itself: the quantize, the exact sums against taps [kh, kw, Cp]
+  int8 and the same epilogue in one kernel, the same output layout; the
+  int8 buffer is never written (`csrc/int8_dwconv.cu`). Its plain version is
+  the two stages' (`int8_quantize_plain`, then `int8_dwconv_plain`).
 
 `int8_gemm` is the probe's contract on the same mainloop: `a` [M, K] @
 `bt` [N, K]^T, raw s32 (s8) or f32 (bf16) sums; K a multiple of 32 for s8
@@ -44,7 +46,8 @@ _SIGS = {
     "hp_int8_quantize": ("int8_gemm", [_P, _P] + [_I] * 4 + [_I64] * 4 + [_I] * 9
                          + [ctypes.c_float, _I, _P]),
     "hp_int8_conv": ("int8_gemm", [_P] * 5 + [_I] * 15 + [_P]),
-    "hp_int8_dwconv": ("int8_dwconv", [_P] * 5 + [_I] * 14 + [_P]),
+    "hp_int8_dwconv": ("int8_dwconv", [_P] * 5 + [_I] * 4 + [_I64] * 4 + [_I] * 9
+                       + [ctypes.c_float, _I, _P]),
 }
 _K_STEP = {torch.int8: 32, torch.bfloat16: 16}
 _CHUNK = 1 << 25   # float64 elements of `a` in one chunk of the plain GEMM
@@ -290,9 +293,8 @@ int8_conv.launches = 0
 # -- the depthwise conv -----------------------------------------------------------------
 
 def dw_channels(c: int) -> int:
-    """Cp of a depthwise conv's quantized buffer and taps: c rounded up to
-    a multiple of 32 (the quantize pass's unit; the kernel reads 16
-    channels a thread)."""
+    """Cp of a depthwise conv's taps (and of its plain version's quantized
+    buffer): c rounded up to a multiple of 32, the kernel's channel slice."""
     return -(-c // 32) * 32
 
 
@@ -326,42 +328,56 @@ def int8_dwconv_plain(xq, w, dq, bias, stride, padding, dilation, dtype) -> torc
     return y.to(dtype)
 
 
-def int8_dwconv(xq: torch.Tensor, w: torch.Tensor, dq: torch.Tensor, bias, stride,
-                padding, dilation, dtype: torch.dtype) -> torch.Tensor:
-    """`int8_dwconv_plain`'s contract: xq [B, H, W, Cp] int8 (from
-    `int8_quantize`), w [kh, kw, Cp] int8 (kh * kw <= 64), dq and bias (or
-    None) float32 [C], C <= Cp, symmetric zero padding. CPU tensors take the
-    plain version; CUDA tensors launch `hp_int8_dwconv`, which takes
-    contiguous, 16-byte aligned tensors on one card and raises on anything
-    else."""
-    if not _on_card("int8_dwconv", xq):
-        return int8_dwconv_plain(xq, w, dq, bias, stride, padding, dilation, dtype)
-    if xq.ndim != 4 or w.ndim != 3 or xq.shape[3] != w.shape[2]:
-        raise ValueError(f"int8_dwconv: xq must be [B, H, W, Cp] and w [kh, kw, Cp], "
-                         f"got {tuple(xq.shape)} and {tuple(w.shape)}")
-    if xq.dtype != torch.int8 or w.dtype != torch.int8:
-        raise TypeError(f"int8_dwconv: xq and w must be int8, got {xq.dtype} and {w.dtype}")
+def int8_dwconv_fused_plain(x, inv_s, w, dq, bias, stride, padding, dilation
+                            ) -> torch.Tensor:
+    """`int8_dwconv`'s plain version: NCHW x -> [B*Ho*Wo, C] in x's dtype,
+    the two stages in turn, `int8_quantize_plain` into [B, H, W, Cp] and
+    `int8_dwconv_plain` (Cp = w.shape[-1])."""
+    xq = int8_quantize_plain(x, inv_s, w.shape[-1])
+    return int8_dwconv_plain(xq, w, dq, bias, stride, padding, dilation, x.dtype)
+
+
+def int8_dwconv(x: torch.Tensor, inv_s: float, w: torch.Tensor, dq: torch.Tensor, bias,
+                stride, padding, dilation) -> torch.Tensor:
+    """`int8_dwconv_fused_plain`'s contract: x NCHW [B, C, H, W] float32 or
+    bfloat16, inv_s the float32 value of 1 / s_in, w [kh, kw, Cp] int8
+    (Cp a multiple of 32, kh * kw <= 64), dq and bias (or None) float32
+    [C], symmetric zero padding. CPU tensors take the plain version; CUDA
+    tensors launch `hp_int8_dwconv`, which reads x through its strides (a
+    channels-last view is the fast path), and raise on anything it does not
+    take: w, dq and bias not contiguous, 16-byte aligned and on x's card, or
+    a filter larger than the padded image."""
+    if not _on_card("int8_dwconv", x):
+        return int8_dwconv_fused_plain(x, inv_s, w, dq, bias, stride, padding, dilation)
+    if x.ndim != 4 or w.ndim != 3:
+        raise ValueError(f"int8_dwconv: x must be NCHW and w [kh, kw, Cp], got "
+                         f"{tuple(x.shape)} and {tuple(w.shape)}")
+    if x.dtype not in _ACT_TYPES:
+        raise TypeError(f"int8_dwconv: x must be float32 or bfloat16, got {x.dtype}")
+    if w.dtype != torch.int8:
+        raise TypeError(f"int8_dwconv: w must be int8, got {w.dtype}")
     if dq.dtype != torch.float32 or (bias is not None and bias.dtype != torch.float32):
         raise TypeError("int8_dwconv: dq and bias must be float32")
-    if dtype not in _ACT_TYPES:
-        raise TypeError(f"int8_dwconv: output dtype must be float32 or bfloat16, got {dtype}")
     others = [w, dq] + ([] if bias is None else [bias])
-    if any(t.device != xq.device for t in others):
+    if any(t.device != x.device for t in others):
         raise ValueError("int8_dwconv: inputs on different devices")
-    b, h, wd, cp = xq.shape
-    kh, kw = w.shape[:2]
-    c = dq.shape[0]
-    if cp % 32 or not 0 < c <= cp or dq.ndim != 1 or kh * kw > 64 \
+    b, c, h, wd = x.shape
+    kh, kw, cp = w.shape
+    if cp % 32 or not 0 < c <= cp or tuple(dq.shape) != (c,) or kh * kw > 64 \
             or (bias is not None and tuple(bias.shape) != (c,)):
-        raise ValueError(f"int8_dwconv: Cp={cp} must be a multiple of 32, dq / bias "
-                         f"[C <= Cp], and kh * kw <= 64")
-    if not _aligned(xq, *others):
-        raise ValueError("int8_dwconv: inputs must be contiguous and 16-byte aligned")
+        raise ValueError(f"int8_dwconv: x's C={c} must equal len(dq) (and bias), C <= Cp={cp}, "
+                         f"Cp a multiple of 32, and kh * kw <= 64")
+    if not _aligned(*others):
+        raise ValueError("int8_dwconv: w, dq and bias must be contiguous and 16-byte aligned")
     ho, wo = conv_out_hw(h, wd, (kh, kw), stride, padding, dilation)
-    out = torch.empty((b * ho * wo, c), dtype=dtype, device=xq.device)
-    _run("int8_dwconv", "hp_int8_dwconv", xq.device, xq.data_ptr(), w.data_ptr(),
+    if ho <= 0 or wo <= 0:
+        raise ValueError(f"int8_dwconv: the {kh}x{kw} filter (dilation {dilation}) is larger "
+                         f"than the padded {h}x{wd} image")
+    out = torch.empty((b * ho * wo, c), dtype=x.dtype, device=x.device)
+    _run("int8_dwconv", "hp_int8_dwconv", x.device, x.data_ptr(), w.data_ptr(),
          dq.data_ptr(), 0 if bias is None else bias.data_ptr(), out.data_ptr(),
-         b, h, wd, cp, c, kh, kw, *stride, *padding, *dilation, int(dtype == torch.bfloat16))
+         b, c, h, wd, *x.stride(), cp, kh, kw, *stride, *padding, *dilation, float(inv_s),
+         int(x.dtype == torch.bfloat16))
     int8_dwconv.launches += 1
     return out
 

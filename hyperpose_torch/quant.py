@@ -4,10 +4,11 @@ Counterpart of `hyperpose_tpu/quant.py` (reference: export_tflite.py:29-41,
 int8 TFLite calibrated on a representative dataset): symmetric int8 with a
 per-tensor activation scale and a per-output-channel weight scale, every
 calibrated convolution run as s8 x s8 -> s32. PyTorch has no int8
-convolution on CUDA, so `Int8Conv2d` runs each one as two hand-written
-kernels (`ops/kernels/int8_gemm.py`): a one-pass quantize into int8 NHWC,
-then an implicit-GEMM conv (a depthwise conv: `int8_dwconv`) whose epilogue
-dequantizes, adds the bias and casts to the activation dtype.
+convolution on CUDA, so `Int8Conv2d` runs each one on hand-written kernels
+(`ops/kernels/int8_gemm.py`): a one-pass quantize into int8 NHWC, then an
+implicit-GEMM conv whose epilogue dequantizes, adds the bias and casts to
+the activation dtype; a depthwise conv is one kernel, `int8_dwconv`, which
+quantizes its input as it reads it.
 
 Scale tables are keyed by the flax module path of each conv, which is the
 port's module name with "." -> "/" (the weight bridge relies on the names
@@ -66,8 +67,8 @@ class Int8Conv2d(nn.Module):
     s_w; dq = s_w * float32(s_in); the float32 bias; the conv's stride,
     padding and dilation. A conv on at most 16 input channels with a filter
     larger than 1x1 is `folded`: its weights are [Np, 1, 1, Cp] with the
-    taps along K. The forward runs two stages, each a method, so a caller
-    can time them:
+    taps along K. The forward of a dense conv runs two stages, each a
+    method, so a caller can time them:
 
     1. `quantize`: x * float32(1 / s_in), rounded half to even, clipped to
        +-127, written as int8 [B, H, W, Cp] (`int8_quantize`; folded, the
@@ -79,8 +80,10 @@ class Int8Conv2d(nn.Module):
 
     A depthwise conv (`depthwise`: one filter a channel, w_q [kh, kw, 1, C])
     holds its taps as [kh * kw, Cp] (`w_q`; `w_taps` [kh, kw, Cp]), Cp = C
-    rounded up to 32, and its stage 2 is `int8_dwconv` on the same buffer,
-    with the same epilogue and output.
+    rounded up to 32, and its forward is one launch of `int8_dwconv`, which
+    quantizes x as it reads it (no int8 buffer), with the same epilogue and
+    output. Its two stages stay for the tests and the exact sums: `quantize`
+    and `conv_plain` are its plain version, step by step.
 
     On a CUDA tensor each stage runs its kernel or raises: there is no float
     fallback. `int8_conv_sums_plain(xq, q.w_taps, *q.taps_geometry)` gives
@@ -185,20 +188,33 @@ class Int8Conv2d(nn.Module):
         return int8_quantize(x, self.inv_s, self.w_taps.shape[-1], self.fold)
 
     def conv(self, xq: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
-        """The quantized buffer -> [B*Ho*Wo, cout] in `dtype`."""
-        fn = int8_dwconv if self.depthwise else int8_conv
-        return fn(xq, self.w_taps, self.dq, self.bias, *self.taps_geometry, dtype)
+        """A dense conv's stage 2: the quantized buffer -> [B*Ho*Wo, cout] in
+        `dtype` (`int8_conv`). A depthwise conv has no such stage."""
+        if self.depthwise:
+            raise TypeError("Int8Conv2d.conv: a depthwise conv runs fused from x "
+                            "(`rows`); its stage 2 is `conv_plain`")
+        return int8_conv(xq, self.w_taps, self.dq, self.bias, *self.taps_geometry, dtype)
 
     def conv_plain(self, xq: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
         """Stage 2's plain version, on any device."""
         fn = int8_dwconv_plain if self.depthwise else int8_conv_plain
         return fn(xq, self.w_taps, self.dq, self.bias, *self.taps_geometry, dtype)
 
+    def rows(self, x: torch.Tensor) -> torch.Tensor:
+        """NCHW x -> [B*Ho*Wo, cout] in x's dtype on the kernels: one
+        `int8_dwconv` where depthwise, else `quantize` then `conv`."""
+        if not self.depthwise:
+            return self.conv(self.quantize(x), x.dtype)
+        if x.shape[1] != self.in_channels:
+            raise ValueError(f"Int8Conv2d: {x.shape[1]} input channels, "
+                             f"expected {self.in_channels}")
+        return int8_dwconv(x, self.inv_s, self.w_taps, self.dq, self.bias,
+                           *self.taps_geometry)
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         b, _, h, w = x.shape
         ho, wo = self.out_hw(h, w)
-        y = self.conv(self.quantize(x), x.dtype)
-        return y.view(b, ho, wo, -1).permute(0, 3, 1, 2)
+        return self.rows(x).view(b, ho, wo, -1).permute(0, 3, 1, 2)
 
 
 # -- calibration ------------------------------------------------------------------

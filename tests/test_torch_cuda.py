@@ -39,8 +39,10 @@ decode tolerances above; every int8 conv equal to its plain version and to
 a CPU copy on the card's input. The rest of the OpenPose family
 (Lightweight-OpenPose on MobilenetDilated, OpenPose on VGG19,
 MobileNet-Thin and -Small OpenPose) is held as the Resnet18 family is;
-`int8_dwconv` equals its plain version exactly (exact s32 sums, the same
-float32 epilogue operations).
+`int8_dwconv` (quantize and depthwise conv in one kernel) equals its plain
+version exactly (the quantize's float32 operations, exact sums, the same
+float32 epilogue operations); peak_candidates on maps with NaN pixels
+equals its plain version with NaN in the same places.
 """
 import numpy as np
 import pytest
@@ -50,10 +52,10 @@ from torch_parity import FLAGSHIP_NPZ, SYNTH_NPZ, tie_maps
 from torch_measures import SUM_ORDER, bf16_ulps, sum_order
 from chip_smoke import (
     INT8_TOL, LW_MOBILENET, LW_RESNET18, MBSMALL_OPENPOSE, MBTHIN_OPENPOSE, OPENPOSE_VGG19,
-    PPN, TWO_PEOPLE, _convs_card_vs_cpu, _convs_equal_plain, _numpy,
+    PPN, TWO_PEOPLE, _convs_card_vs_cpu, _convs_equal_plain, _equal_nan, _numpy,
     _peak_maps as serving_peak_maps, _record_int8_inputs, dense_ppn_maps, find_people,
     human_deltas, limb_scores_inputs, make_synthetic_maps, painted_pifpaf_batch,
-    painted_ppn_batch, peak_candidates_cases, peak_topk_cases, served_weights,
+    nan_peak_maps, painted_ppn_batch, peak_candidates_cases, peak_topk_cases, served_weights,
 )
 from hyperpose_torch.models.backbones import (
     VggTiny, VggTinyFusedStem, remap_vggtiny_to_fused,
@@ -67,8 +69,8 @@ from hyperpose_torch.ops.kernels.conv1_pool import (
 )
 from hyperpose_torch.ops.kernels.grow import fused_grow, fused_grow_plain
 from hyperpose_torch.ops.kernels.int8_gemm import (
-    int8_conv, int8_conv_plain, int8_dwconv, int8_dwconv_plain, int8_gemm, int8_gemm_plain,
-    int8_quantize, int8_quantize_plain, padded_channels,
+    int8_conv, int8_conv_plain, int8_dwconv, int8_dwconv_fused_plain, int8_gemm,
+    int8_gemm_plain, int8_quantize, int8_quantize_plain, padded_channels,
 )
 from hyperpose_torch.ops.kernels.line_gather import limb_scores, limb_scores_plain
 from hyperpose_torch.ops.kernels.peak_topk import (
@@ -157,20 +159,21 @@ def test_peak_topk_matches_plain(cuda, border, maps, ksize, sigma):
 @pytest.mark.parametrize("case", [
     "painted_k1", "random_k1", "random_k128", "lattice_k128", "lattice_ties_k16",
     "lattice_ties_k128", "no_survivor", "plateaus", "small_k_hw", "small_sparse_k_hw",
-    "batch_strided",
+    "batch_strided", "nan_painted", "nan_random",
 ])
 def test_peak_topk_edge_cases_match_plain(cuda, border, case):
     """K = 1, 128 and H*W, no survivor, the densest lattice of survivors
     (621 a plane, more than the block's threads) with distinct and equal
-    values, plateaus, a batch-strided view: equal to the plain version bit
-    for bit, filler slots included (chip_smoke.peak_topk_cases)."""
+    values, plateaus, a batch-strided view, NaN pixels: equal to the plain
+    version bit for bit, filler slots included (chip_smoke.peak_topk_cases;
+    a filler on a NaN plane reads its raw score there, NaN in both)."""
     maps = serving_peak_maps(np.random.default_rng(0), LIMBS)
     conf, k = {n: (c, k) for n, c, k in peak_topk_cases(maps, cuda)}[case]
     got = peak_topk(conf, k, 5, 0.75, 0.05, border)
     want = peak_topk_plain(conf, k, 5, 0.75, 0.05, border)
     torch.cuda.synchronize()
     assert got[0].shape == (conf.shape[0], conf.shape[3], k, 2)
-    assert all(torch.equal(g, w) for g, w in zip(got, want))
+    assert all(_equal_nan(g, w) for g, w in zip(got, want))
 
 
 @pytest.mark.parametrize("ksize,sigma", SMOOTHS)
@@ -185,6 +188,26 @@ def test_peak_candidates_match_plain(cuda, maps, ksize, sigma):
     assert peak_candidates.launches == before + 1
     assert torch.equal(got[0] > -5e29, want[0] > -5e29)
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+@pytest.mark.parametrize("ksize,sigma", SMOOTHS)
+@pytest.mark.parametrize("maps", ["painted", "random"])
+def test_peak_candidates_match_plain_on_nan_maps(cuda, maps, ksize, sigma):
+    """Maps with NaN pixels (chip_smoke.nan_peak_maps: a lone NaN beside a
+    peak, a NaN plane): the band kernel equals its plain version, NaN in
+    the same places, so a peak with a NaN in its 3x3 window is dropped as
+    JAX drops it; peak_topk's zero-border front end keeps the same peaks
+    (its top K values are the candidates' top K)."""
+    conf = torch.from_numpy(nan_peak_maps(_peak_maps(maps))).to(cuda)
+    got = peak_candidates(conf, ksize, sigma, 0.05, -1e30)
+    want = peak_candidates_plain(conf, ksize, sigma, 0.05, -1e30)
+    _, _, sval = peak_topk(conf, 16, ksize, sigma, 0.05, "zero")
+    torch.cuda.synchronize()
+    assert bool(got[1].isnan().any()) and not bool(got[0].isnan().any())
+    assert _equal_nan(got[0], want[0]) and _equal_nan(got[1], want[1])
+    top = got[0].flatten(2).topk(16, dim=-1).values
+    valid = sval > -5e29
+    assert torch.equal(top > -5e29, valid) and torch.equal(top[valid], sval[valid])
 
 
 _CANDIDATE_CASES = [name for name, *_ in peak_candidates_cases(
@@ -867,61 +890,82 @@ def test_resnet18_int8_engines_on_card(cuda, kind, n_convs):
 
 # channels, kernel, stride, padding, dilation, batch, H, W: 3x3 and 1x1 (and
 # 7x7, 49 taps) taps, both strides, dilation 2, channel counts that are not
-# multiples of 16 or 32 (Cp 32, 64, 192, 1216), the widths of the family.
+# multiples of 16 or 32 (Cp 32, 64, 192, 1216), the widths of the family,
+# and maps wider than one 64-column tile (108 and 216 columns).
 INT8_DWCONV_GRID = [
     (32, 3, 1, 1, 1, 2, 23, 29), (64, 3, 2, 0, 1, 2, 46, 54), (48, 3, 2, 1, 1, 1, 37, 45),
     (512, 3, 1, 2, 2, 1, 23, 29), (19, 1, 1, 0, 1, 2, 9, 11), (185, 3, 1, 1, 1, 2, 13, 17),
     (1209, 3, 1, 1, 1, 1, 11, 13), (1152, 1, 1, 0, 1, 1, 46, 54), (40, 7, 1, 3, 1, 1, 15, 17),
-    (16, 3, 2, 1, 2, 2, 21, 19),
+    (16, 3, 2, 1, 2, 2, 21, 19), (1209, 1, 1, 0, 1, 2, 23, 27), (96, 3, 2, 0, 1, 2, 47, 55),
+    (144, 3, 1, 1, 1, 1, 30, 108), (32, 3, 1, 1, 1, 1, 40, 216),
 ]
 
 
-def _dw_operands(cuda, c, k, stride, pad, dil, b, h, w, seed=0):
+def _dw_operands(cuda, c, k, stride, pad, dil, b, h, w, dtype, layout, seed=0):
+    """(x, inv_s, taps, dq, bias, stride, padding, dilation) of a depthwise
+    int8 conv: x [B, C, H, W] normal in `dtype`, channels-last, NCHW
+    contiguous, or "shifted": channels 1 .. C of a channels-last tensor of
+    C + 1 channels, so that no pixel's run starts on a 16-byte word where
+    (C + 1) * itemsize is a multiple of 16, and most start off one
+    otherwise; quantized at s_in = 2.5 / 127 (values past 2.5 clip)."""
     rng = np.random.default_rng(seed)
     cp = -(-c // 32) * 32
-    xq = np.zeros((b, h, w, cp), np.int8)
-    xq[..., :c] = rng.integers(-127, 128, (b, h, w, c))
+    extra = int(layout == "shifted")
+    x = torch.from_numpy(rng.normal(0, 1, (b, c + extra, h, w)).astype(np.float32)).to(
+        cuda, dtype)
+    if layout in ("channels_last", "shifted"):
+        x = x.contiguous(memory_format=torch.channels_last)[:, extra:]
     wq = np.zeros((k, k, cp), np.int8)
     wq[..., :c] = rng.integers(-127, 128, (k, k, c))
     dq = rng.uniform(1e-5, 1e-3, c).astype(np.float32)
     bias = rng.normal(0, 0.1, c).astype(np.float32)
     t = lambda a: torch.from_numpy(a).to(cuda)  # noqa: E731
-    return t(xq), t(wq), t(dq), t(bias), (stride, stride), (pad, pad), (dil, dil)
+    return (x, float(np.float32(127 / 2.5)), t(wq), t(dq), t(bias), (stride, stride),
+            (pad, pad), (dil, dil))
 
 
-@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("layout", ["channels_last", "nchw", "shifted"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("shape", INT8_DWCONV_GRID)
-def test_int8_dwconv_matches_plain(cuda, shape, out_dtype):
-    """The depthwise kernel equals its plain version exactly, with and
-    without a bias, one launch each."""
-    args = _dw_operands(cuda, *shape, seed=sum(shape))
+def test_int8_dwconv_matches_plain(cuda, shape, dtype, layout):
+    """The fused depthwise kernel (quantize, sums, epilogue) equals its
+    plain version (`int8_quantize_plain`, then `int8_dwconv_plain`)
+    exactly, with and without a bias, one launch each."""
+    args = _dw_operands(cuda, *shape, dtype, layout, seed=sum(shape))
     before = int8_dwconv.launches
-    got = int8_dwconv(*args, out_dtype)
-    want = int8_dwconv_plain(*args, out_dtype)
+    got = int8_dwconv(*args)
+    want = int8_dwconv_fused_plain(*args)
     torch.cuda.synchronize()
     assert int8_dwconv.launches == before + 1
-    assert got.dtype == out_dtype and got.shape == want.shape
+    assert got.dtype == dtype and got.shape == want.shape
     assert torch.equal(got, want)
-    no_bias = args[:3] + (None,) + args[4:]
-    assert torch.equal(int8_dwconv(*no_bias, out_dtype), int8_dwconv_plain(*no_bias, out_dtype))
+    no_bias = args[:4] + (None,) + args[5:]
+    assert torch.equal(int8_dwconv(*no_bias), int8_dwconv_fused_plain(*no_bias))
 
 
 def test_int8_dwconv_refuses_what_it_does_not_take(cuda):
-    xq, wq, dq, bias, *geo = _dw_operands(cuda, 40, 3, 1, 1, 1, 1, 8, 8)
+    x, inv_s, wq, dq, bias, *geo = _dw_operands(cuda, 40, 3, 1, 1, 1, 1, 8, 8, torch.float32,
+                                                "channels_last")
     with pytest.raises(TypeError):
-        int8_dwconv(xq.float(), wq, dq, bias, *geo, torch.float32)
+        int8_dwconv(x.to(torch.int8), inv_s, wq, dq, bias, *geo)
     with pytest.raises(TypeError):
-        int8_dwconv(xq, wq, dq, bias, *geo, torch.float16)
-    odd = torch.empty(xq.numel() + 1, dtype=torch.int8, device=cuda)[1:].view(xq.shape)
+        int8_dwconv(x.half(), inv_s, wq, dq, bias, *geo)
+    with pytest.raises(TypeError):
+        int8_dwconv(x, inv_s, wq.float(), dq, bias, *geo)
+    odd = torch.empty(wq.numel() + 1, dtype=torch.int8, device=cuda)[1:].view(wq.shape)
     with pytest.raises(ValueError, match="aligned"):
-        int8_dwconv(odd, wq, dq, bias, *geo, torch.float32)
+        int8_dwconv(x, inv_s, odd, dq, bias, *geo)
     with pytest.raises(ValueError, match="different devices"):
-        int8_dwconv(xq, wq.cpu(), dq, bias, *geo, torch.float32)
-    with pytest.raises(ValueError):
-        int8_dwconv(xq, wq[..., :32].contiguous(), dq, bias, *geo, torch.float32)
+        int8_dwconv(x, inv_s, wq.cpu(), dq, bias, *geo)
+    with pytest.raises(ValueError):   # C = 40 > Cp = 32
+        int8_dwconv(x, inv_s, wq[..., :32].contiguous(), dq, bias, *geo)
+    with pytest.raises(ValueError):   # len(dq) != C
+        int8_dwconv(x[:, :39], inv_s, wq, dq, bias, *geo)
     big = torch.zeros((9, 9, 64), dtype=torch.int8, device=cuda)
     with pytest.raises(ValueError, match="64"):
-        int8_dwconv(xq, big, dq, bias, *geo, torch.float32)
+        int8_dwconv(x, inv_s, big, dq, bias, *geo)
+    with pytest.raises(ValueError, match="larger than the padded"):
+        int8_dwconv(x, inv_s, wq, dq, bias, (1, 1), (1, 1), (6, 6))
 
 
 @pytest.mark.parametrize("c,k,stride,dil,dtype", [
@@ -929,8 +973,8 @@ def test_int8_dwconv_refuses_what_it_does_not_take(cuda):
     (512, 3, 1, 2, torch.bfloat16), (1209, 1, 1, 1, torch.float32)])
 def test_depthwise_int8_conv_on_card_equals_cpu(cuda, c, k, stride, dil, dtype):
     """A depthwise Int8Conv2d and channels-last input on the card and on
-    the CPU give equal outputs; the card runs one quantize and one
-    `int8_dwconv` launch, no dense conv."""
+    the CPU give equal outputs; one forward on the card launches
+    `int8_dwconv` once and no quantize pass and no dense conv."""
     rng = np.random.default_rng(c + k)
     kernel = (rng.normal(0, 1, (k, k, 1, c)) / k).astype(np.float32)
     conv = torch.nn.Conv2d(c, c, k, stride=stride, dilation=dil, groups=c, bias=False,
@@ -944,7 +988,7 @@ def test_depthwise_int8_conv_on_card_equals_cpu(cuda, c, k, stride, dil, dtype):
         want = q.cpu()(x.contiguous(memory_format=torch.channels_last))
     torch.cuda.synchronize()
     assert (int8_quantize.launches, int8_conv.launches, int8_dwconv.launches) == (
-        before[0] + 1, before[1], before[2] + 1)
+        before[0], before[1], before[2] + 1)
     assert got.dtype == dtype and got.shape == want.shape
     assert torch.equal(got.cpu(), want)
 
@@ -964,17 +1008,18 @@ def test_family_engines_on_card_match_cpu(cuda, kind):
 
 @pytest.mark.parametrize("kind", FAMILY)
 def test_family_int8_engines_on_card(cuda, kind):
-    """int8 with bf16 activations: a step launches `int8_quantize` once a
-    conv, `int8_dwconv` once a depthwise conv and `int8_conv` once a dense
-    one; every conv equals its plain version on the card and a CPU copy of
-    it on the card's input."""
+    """int8 with bf16 activations: a step launches `int8_quantize` and
+    `int8_conv` once a dense conv and `int8_dwconv` once a depthwise one;
+    every conv equals its plain version on the card and a CPU copy of it on
+    the card's input."""
     spec, weights, batch = _r18_setup(kind)
     eng = quantize_engine(spec.engine(weights, torch.bfloat16, device=cuda, batch=2), [batch])
     assert len(eng.quant_scales) == spec.n_int8
     before = (int8_conv.launches, int8_dwconv.launches, int8_quantize.launches)
     eng.infer_batch_device(batch)
     assert (int8_conv.launches, int8_dwconv.launches, int8_quantize.launches) == (
-        before[0] + spec.n_int8 - spec.n_dw, before[1] + spec.n_dw, before[2] + spec.n_int8)
+        before[0] + spec.n_int8 - spec.n_dw, before[1] + spec.n_dw,
+        before[2] + spec.n_int8 - spec.n_dw)
     x = torch.from_numpy(batch).to(cuda, torch.bfloat16) / 255.0
     with torch.inference_mode():
         seen = _record_int8_inputs(eng.model, lambda: eng.model(x))

@@ -24,7 +24,7 @@ from hyperpose_torch.ops.kernels.peak_topk import (
     peak_candidates, peak_candidates_plain, peak_topk, peak_topk_plain,
 )
 from hyperpose_torch.utils.topology import COCO_TOPOLOGY
-from chip_smoke import limb_scores_inputs
+from chip_smoke import limb_scores_inputs, nan_peak_maps
 from test_paf_decode import TWO_PEOPLE, make_synthetic_maps
 from test_paf_golden import random_scene
 
@@ -212,6 +212,34 @@ def test_peak_candidates_plain_matches_pallas(maps):
     np.testing.assert_allclose(ranked.numpy()[mask], w_ranked[mask], rtol=0,
                                atol=1e-6)
     assert (ranked.numpy()[~mask] == -1e30).all()
+
+
+@pytest.mark.parametrize("maps", ["painted", "random"])
+def test_peak_candidates_plain_matches_pallas_on_nan_maps(maps):
+    """Maps with NaN pixels (`chip_smoke.nan_peak_maps`: a lone NaN three
+    columns beside a peak, a NaN plane): the plain version and the Pallas
+    kernel give equal peak masks and NaN in the same places; JAX's NMS
+    carries NaN through its 3x3 maximum, so the peak beside the NaN is
+    dropped, and the NaN plane has no peak."""
+    clean = peak_inputs(maps)
+    conf = nan_peak_maps(clean)
+    w_ranked, w_sm = (np.asarray(t) for t in fused_peak_candidates(
+        jnp.asarray(conf), KSIZE, SIGMA, THRESH, -1e30, interpret=True))
+    ranked, sm = (t.numpy() for t in peak_candidates_plain(
+        torch.from_numpy(conf), KSIZE, SIGMA, THRESH, -1e30))
+    mask = w_ranked > -5e29
+    np.testing.assert_array_equal(ranked > -5e29, mask)
+    np.testing.assert_array_equal(np.isnan(sm), np.isnan(w_sm))
+    np.testing.assert_array_equal(np.isnan(ranked), np.isnan(w_ranked))
+    assert np.isnan(sm[0, 1]).all() and not mask[0, 1].any()
+    np.testing.assert_allclose(sm, w_sm, rtol=0, atol=1e-6, equal_nan=True)
+    np.testing.assert_allclose(ranked[mask], w_ranked[mask], rtol=0, atol=1e-6)
+    # Every image lost the peak beside its NaN, and nothing else changed
+    # outside the NaN's reach.
+    clean_mask = peak_candidates_plain(torch.from_numpy(clean))[0].numpy() > -5e29
+    lost = clean_mask & ~mask
+    assert lost.reshape(len(conf), -1).any(axis=1).all()
+    assert not (mask & ~clean_mask).any()
 
 
 def test_peak_candidates_share_peak_topk_zero_front_end():

@@ -268,23 +268,38 @@ def test_calibrate_records_the_convs_jax_records(name):
         assert len(seps) == 2 * 5 * 5 and all(k.startswith("backbone/") for k in got)
 
 
-@pytest.mark.parametrize("name", ["lw_mobilenet", "mbthin", "mbsmall"])
+# name -> (JAX module, port module factory (dtype), input size, int8 convs, of
+# which depthwise) of the captured-input test: every conv keeps its kernel,
+# channels, stride and dilation at these sizes; OpenPose keeps one of its
+# five identical refinement stages, MobilenetV2 is the backbone alone.
+CAPTURED = {name: (MODELS[name][0], MODELS[name][1], MODELS[name][2], *MODELS[name][4:6])
+            for name in ("lw_mobilenet", "mbthin", "mbsmall")}
+CAPTURED["openpose"] = (lambda: JO.OpenPose(n_refinements=1),
+                        lambda dt: PO.OpenPose(dtype=dt, n_refinements=1), (32, 40), 36, 0)
+CAPTURED["mobilenet_v2"] = (lambda: JB.MobilenetV2(), lambda dt: PB.MobilenetV2(dtype=dt),
+                            (64, 80), 30, 10)
+
+
+@pytest.mark.parametrize("name", list(CAPTURED))
 def test_int8_convs_exact_on_jax_captured_inputs(name):
-    """Every int8 conv of each model with depthwise convs, on the very input
-    JAX's `quantized_apply` gave the conv of the same path (the synthetic
-    frame, JAX's scale table), equals JAX's `_quantized_conv` bit for bit:
-    the depthwise convs of MobilenetDilated (dilation 2 in sep_6, stride 2)
-    and of MobileNet-Thin's stages (1209-channel 3x3 and 1x1). OpenPose's
-    convs (7x7 on 185 channels among them) are dense ones, whose shapes
-    `test_torch_quant.py::test_int8_conv_matches_jax_quantized_conv` covers."""
-    jm, pm, hw, _, n, _, _ = MODELS[name]
-    flat = _flat(name, seed=12)
+    """Every int8 conv of each model, on the very input JAX's
+    `quantized_apply` gave the conv of the same path (the synthetic frame,
+    JAX's scale table), equals JAX's `_quantized_conv` bit for bit: the
+    depthwise convs, whose forward is the fused `int8_dwconv`'s plain
+    version, of MobilenetDilated (dilation 2 in sep_6, stride 2),
+    MobileNet-Thin's stages (1209-channel 3x3 and 1x1) and MobilenetV2's
+    inverted residuals (32 to 384 channels, strides 1 and 2, after their
+    expansion convs); OpenPose's 7x7 convs on 185 channels (Cp 192) and
+    its PReLU stages."""
+    jm, pm, hw, n, n_dw = CAPTURED[name]
+    flat = random_flax_weights(_flax_shapes(jm(), hw), seed=12)
     x = resize_bilinear(synth_frame_rgb(), hw)[None].astype(np.float32) / 255.0
     scales = jquant.calibrate(jm(), nest(flat), [jnp.asarray(x)], train=False)
     seen = jax_int8_convs(jm(), nest(flat), x, scales)
     assert len(seen) == n
     model = load_flax_weights(pm(torch.float32), flat).eval()
     quant.quantize_model(model, scales, weights=flat)
+    assert sum(m.depthwise for m in model.modules() if isinstance(m, quant.Int8Conv2d)) == n_dw
     assert_convs_exact_on_jax_inputs(model, seen)
 
 

@@ -118,22 +118,25 @@ def test_grow_needed_evaluations_counts_the_frontier(reverse_match):
     assert int((grown[:, :3] > 0).sum()) > 2 * 3   # something grew past the seed
 
 
-@pytest.mark.parametrize("c,cp,k,stride,pad,dil", [
-    (19, 32, 3, 1, 1, 1), (38, 64, 3, 2, 1, 1), (1209, 1216, 1, 1, 0, 1), (40, 64, 3, 1, 2, 2)])
-def test_int8_dwconv_work_counts_only_the_real_channels(c, cp, k, stride, pad, dil):
-    """The bytes are the C channels' input, taps, dq and bias and the
-    output, whatever the padding to Cp; the operations are 2 for each tap
-    of each channel that falls inside the image, counted here by a conv of
-    ones over an image of ones."""
+@pytest.mark.parametrize("c,cp,k,stride,pad,dil,in_itemsize", [
+    (19, 32, 3, 1, 1, 1, 1), (38, 64, 3, 2, 1, 1, 1), (1209, 1216, 1, 1, 0, 1, 1),
+    (40, 64, 3, 1, 2, 2, 1), (1209, 1216, 3, 1, 1, 1, 2)])
+def test_int8_dwconv_work_counts_only_the_real_channels(c, cp, k, stride, pad, dil,
+                                                         in_itemsize):
+    """The bytes are the C channels' input at its itemsize (1 for the
+    quantized buffer, 2 for the fused kernel's bf16 input), taps, dq and
+    bias and the output, whatever the padding to Cp; the operations are 2
+    for each tap of each channel that falls inside the image, counted here
+    by a conv of ones over an image of ones."""
     import torch.nn.functional as F
 
     b, h, w, out_itemsize = 2, 9, 11, 2
     work = int8_dwconv_work((b, h, w, cp), (k, k), (stride, stride), (pad, pad),
-                            (dil, dil), c, out_itemsize)
+                            (dil, dil), c, out_itemsize, in_itemsize)
     inside = F.conv2d(torch.ones(1, 1, h, w), torch.ones(1, 1, k, k), None, stride, pad, dil)
     ho, wo = inside.shape[-2:]
-    assert work["bytes"] == (b * h * w * c + k * k * c + 8 * c
+    assert work["bytes"] == (b * h * w * c * in_itemsize + k * k * c + 8 * c
                              + b * ho * wo * c * out_itemsize)
     assert work["operations"] == 2 * b * c * int(inside.sum())
     assert work == int8_dwconv_work((b, h, w, c), (k, k), (stride, stride), (pad, pad),
-                                    (dil, dil), c, out_itemsize)
+                                    (dil, dil), c, out_itemsize, in_itemsize)

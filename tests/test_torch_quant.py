@@ -42,8 +42,8 @@ from hyperpose_torch.models.backbones import (
 from hyperpose_torch.models.openpose import LightWeightOpenPose
 from hyperpose_torch.ops.image import resize_bilinear
 from hyperpose_torch.ops.kernels.int8_gemm import (
-    int8_conv_sums_plain, int8_dwconv, int8_dwconv_plain, int8_dwconv_sums_plain, int8_gemm,
-    int8_gemm_plain, int8_quantize_plain,
+    int8_conv_sums_plain, int8_dwconv, int8_dwconv_fused_plain, int8_dwconv_plain,
+    int8_dwconv_sums_plain, int8_gemm, int8_gemm_plain, int8_quantize_plain,
 )
 from hyperpose_torch.utils.weights import load_flax_weights
 
@@ -280,7 +280,13 @@ DW_CASES = {   # channels, kernel, stride, dilation, input dtype, bias, batch, (
     "3x3_c1209_bf16": (1209, 3, 1, 1, "bfloat16", False, 1, (11, 13)),  # Cp = 1216
     "3x3_c1152": (1152, 3, 1, 1, "float32", False, 1, (9, 11)),
     "3x3_c185_stride2_dil2_bias_bf16": (185, 3, 2, 2, "bfloat16", True, 2, (19, 25)),
+    "3x3_c1209_bias": (1209, 3, 1, 1, "float32", True, 1, (7, 9)),   # Thin's refinement l0
+    "1x1_c1209_bf16": (1209, 1, 1, 1, "bfloat16", True, 1, (5, 7)),
 }
+# The input's memory layout, channels-last unless named here (the port's
+# networks run channels-last; the kernel reads any strides).
+DW_NCHW = {"3x3_c96_bf16_nchw": (96, 3, 1, 1, "bfloat16", True, 2, (13, 17))}
+DW_CASES.update(DW_NCHW)
 
 
 def _dw_run(case):
@@ -313,6 +319,8 @@ def _dw_run(case):
     quant.quantize_model(model, {"dwconv": s_abs},
                          weights={f"params/dwconv/{n}": v for n, v in params.items()})
     xt = torch.from_numpy(x).to(tdt).permute(0, 3, 1, 2)
+    if case in DW_NCHW:
+        xt = xt.contiguous()
     with torch.inference_mode():
         got = model(xt)
         q = model.dwconv
@@ -326,9 +334,11 @@ def _dw_run(case):
 def test_int8_dwconv_matches_jax_quantized_conv(case):
     """A depthwise `Int8Conv2d` (taps [kh, kw, Cp], Cp = C rounded up to
     32): its s32 sums equal JAX's int8 conv with feature_group_count = C
-    exactly, and its output equals `_quantized_conv`'s bit for bit; 3x3 and
-    1x1 taps, stride 1 and 2 (padded first, as `DepthwiseConv` pads),
-    dilation 2, channel counts that are not multiples of 32, a bias."""
+    exactly, and its output (the fused `int8_dwconv`'s plain version through
+    `quantized_apply`) equals `_quantized_conv`'s bit for bit; 3x3 and 1x1
+    taps, stride 1 and 2 (padded first, as `DepthwiseConv` pads), dilation
+    2, channel counts that are not multiples of 32 (1209 among them), a
+    bias, and an NCHW-contiguous bf16 input beside the channels-last ones."""
     q, got, want, acc, acc_want = _dw_run(case)
     assert isinstance(q, quant.Int8Conv2d) and q.depthwise and not q.folded
     c = q.out_channels
@@ -372,25 +382,28 @@ def test_ctypes_signatures_match_the_sources(name):
 
 
 def test_int8_dwconv_cpu_takes_the_plain_version():
-    """On CPU tensors the wrapper is its plain version and counts no
-    launch; the plain sums equal a float64 grouped conv of the same
-    integers."""
+    """On CPU tensors the fused wrapper is its plain version (the quantize's
+    and the conv's plain versions in turn) and counts no launch; the plain
+    sums equal a float64 grouped conv of the same integers."""
     rng = np.random.default_rng(22)
-    xq = torch.from_numpy(rng.integers(-127, 128, (2, 9, 11, 64), dtype=np.int8))
+    x = torch.from_numpy(rng.normal(0, 1, (2, 50, 9, 11)).astype(np.float32))
     w = torch.from_numpy(rng.integers(-127, 128, (3, 3, 64), dtype=np.int8))
     dq = torch.from_numpy(rng.uniform(1e-4, 1e-3, 50).astype(np.float32))
+    inv_s = float(np.float32(127 / 2.5))
     geom = ((2, 1), (1, 1), (1, 2))
     before = int8_dwconv.launches
-    got = int8_dwconv(xq, w, dq, None, *geom, torch.float32)
+    got = int8_dwconv(x, inv_s, w, dq, None, *geom)
     assert int8_dwconv.launches == before
+    xq = int8_quantize_plain(x, inv_s, 64)
+    assert torch.equal(got, int8_dwconv_fused_plain(x, inv_s, w, dq, None, *geom))
     assert torch.equal(got, int8_dwconv_plain(xq, w, dq, None, *geom, torch.float32))
     ref = F.conv2d(xq.permute(0, 3, 1, 2).double(), w.permute(2, 0, 1)[:, None].double(),
                    stride=geom[0], padding=geom[1], dilation=geom[2], groups=64)
     sums = int8_dwconv_sums_plain(xq, w, *geom)
-    assert got.shape == (2 * ref.shape[2] * ref.shape[3], 50)
+    assert got.shape == (2 * ref.shape[2] * ref.shape[3], 50) and got.dtype == x.dtype
     assert torch.equal(sums, ref.permute(0, 2, 3, 1).reshape(-1, 64).to(torch.int32))
     with pytest.raises(ValueError, match="unsupported device"):
-        int8_dwconv(xq.to("meta"), w.to("meta"), dq.to("meta"), None, *geom, torch.float32)
+        int8_dwconv(x.to("meta"), inv_s, w.to("meta"), dq.to("meta"), None, *geom)
 
 
 # -- calibration ---------------------------------------------------------------------

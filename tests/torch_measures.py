@@ -194,22 +194,25 @@ def _taps_inside(n: int, out: int, k: int, stride: int, pad: int, dil: int) -> i
     return sum(sum(0 <= o * stride - pad + t * dil < n for t in range(k)) for o in range(out))
 
 
-def int8_dwconv_work(xq_shape, kernel_size, stride, padding, dilation, channels: int,
-                     out_itemsize: int) -> dict:
+def int8_dwconv_work(x_shape, kernel_size, stride, padding, dilation, channels: int,
+                     out_itemsize: int, in_itemsize: int) -> dict:
     """The bytes and integer operations that one int8 depthwise conv
-    (`int8_dwconv`) needs: the C channels of its quantized input
-    [B, H, W, Cp] read once (the zero channels up to Cp are layout, not
-    work), the C channels' taps [kh, kw], dq and bias read once, the output
+    (`int8_dwconv`) needs: the C channels of its input [B, H, W, >= C] read
+    once at `in_itemsize` bytes a value (1 for the quantized buffer of the
+    two-kernel path, the activation's itemsize for the fused kernel, which
+    reads the float input itself; channels beyond C are layout, not work),
+    the C channels' taps [kh, kw], dq and bias read once, the output
     [B*Ho*Wo, C] written once at `out_itemsize` bytes a value; 2 operations
     (a multiply and an add) for each of the C channels' taps that fall
     inside the image, the border's taps needing none. The rate to set them
     against is the card's integer rate outside the tensor cores."""
-    b, h, w, _ = xq_shape
+    b, h, w, _ = x_shape
     (kh, kw), (sh, sw), (ph, pw), (dh, dw) = kernel_size, stride, padding, dilation
     ho = (h + 2 * ph - dh * (kh - 1) - 1) // sh + 1
     wo = (w + 2 * pw - dw * (kw - 1) - 1) // sw + 1
     taps = _taps_inside(h, ho, kh, sh, ph, dh) * _taps_inside(w, wo, kw, sw, pw, dw)
-    nbytes = (b * h * w + kh * kw + 8) * channels + b * ho * wo * channels * out_itemsize
+    nbytes = (b * h * w * in_itemsize + kh * kw + 8) * channels \
+        + b * ho * wo * channels * out_itemsize
     return {"bytes": nbytes, "operations": 2 * b * taps * channels}
 
 
