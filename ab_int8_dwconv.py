@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""A/B timing of the port's int8 depthwise convs across checkouts, on one NVIDIA GPU.
+"""A/B timing of the port's int8 depthwise convs and serving steps across checkouts, on one NVIDIA GPU.
 
     python3 ab_int8_dwconv.py [--rounds N] DIR [DIR ...]
 
@@ -14,9 +14,10 @@ and on the bf16 MobilenetV1 and MobilenetV2 backbones, times:
 - every depthwise `Int8Conv2d` forward, as each checkout runs it, per set and
   per distinct shape: device ms of one CUDA graph of the convs, beside the
   fused path's bound (`chip_smoke._dw_work`);
-- each of the three int8 steps (`PoseEngine.infer_batch_device`): host-clock
-  median and p80 of 50 synced calls, and its network's device ms and kernels
-  from a trace of 5 calls.
+- each of the three int8 steps (`PoseEngine.infer_batch_device`), and the
+  flagship's bf16 step (TinyVGG Lightweight-OpenPose on its checkpoint, the
+  plain stem): host-clock median and p80 of 50 synced calls, and its
+  network's device ms and kernels from a trace of 5 calls.
 
 The DIRs run in the order given, then in reverse, N rounds in all (A B, B A,
 A B, ...), so that a drift of the host's speed over the call shows as a
@@ -52,23 +53,33 @@ def worker(tree: str) -> dict:
     torch.backends.cudnn.allow_tf32 = False
     frames = cs._frames(cs.seeded_rng())
     batch = torch.from_numpy(np.stack([resize_bilinear(f, cs.INPUT_HW) for f in frames])).cuda()
+    from hyperpose_torch.runtime.engine import PoseEngine
+
     sets, steps = {}, {}
-    for spec in (cs.LW_MOBILENET, cs.MBTHIN_OPENPOSE, cs.MBSMALL_OPENPOSE):
-        eng = quantize_engine(spec.engine(cs.served_weights(spec), torch.bfloat16), [batch])
+    flagship = PoseEngine(*cs._stem_model("plain", torch.bfloat16), max_batch_size=cs.BATCH,
+                          device="cuda")
+    for name, make in (
+            ("flagship_bf16", lambda: flagship),
+            *((spec.name, lambda spec=spec: quantize_engine(
+                spec.engine(cs.served_weights(spec), torch.bfloat16), [batch]))
+              for spec in (cs.LW_MOBILENET, cs.MBTHIN_OPENPOSE, cs.MBSMALL_OPENPOSE))):
+        eng = make()
         eng.warmup()
 
         def network():
             return eng.model(batch.to(torch.bfloat16) / 255.0)
 
         with torch.inference_mode():
-            seen = cs._record_int8_inputs(eng.model, network)
-            sets[spec.name] = [(c, x) for c, x in seen if c.depthwise]
+            if name != "flagship_bf16":
+                sets[name] = [(c, x) for c, x in cs._record_int8_inputs(eng.model, network)
+                              if c.depthwise]
             step_ms, step_p80 = cs.wall_ms(lambda: eng.infer_batch_device(batch))
             busy, kernels = cs.device_busy(network)
-        steps[spec.name] = {"step_ms": step_ms, "step_p80_ms": step_p80,
-                            "network_device_ms": busy, "network_kernels": kernels}
-        del eng, seen
+        steps[name] = {"step_ms": step_ms, "step_p80_ms": step_p80,
+                       "network_device_ms": busy, "network_kernels": kernels}
+        del eng
         torch.cuda.empty_cache()
+    del flagship
     for name in ("MobilenetV1", "MobilenetV2"):
         sets[name] = [(c, x) for _, c, x in cs.backbone_dw_convs(name, frames)]
     out = {"tree": tree, "card": torch.cuda.get_device_name(0), "steps": steps, "sets": {}}

@@ -44,7 +44,14 @@ bit against its plain version, in bf16 and float32, at every depthwise
 shape of those four int8 steps and of MobilenetV1 and MobilenetV2 at
 368x432, timed per set and per shape beside its bound and cuDNN's bf16
 depthwise convs of the same layers. The peak phases include maps with NaN
-pixels. It checks that each path went through its kernels.
+pixels. Last, `facade_cli`: the port's CLI (`hyperpose_torch.cli.run`) at
+368x432, batch 8, bf16, on the flagship checkpoint in operator mode (8
+PNG frames; the synthetic frame's 2 people found) and stream mode (a
+20-frame mp4), on PifPaf and on the int8 Lightweight-OpenPose
+(`--quantize 8`), then `PoseEngine.save` of those three engines and each
+program loaded in a fresh process (`--loaded`, an internal mode of this
+script): the same kernels launched, the eager step's outputs. It checks
+that each path went through its kernels.
 
 Every phase prints one line; any failure
 exits non-zero before the result line. The last line is
@@ -2090,6 +2097,181 @@ def phase_int8_dwconv(records, card) -> dict:
     return rows
 
 
+# -- the serving facade: the CLI, and engines saved and loaded ----------------------
+
+FIELDS = ("coords", "part_scores", "part_valid", "scores", "valid")
+
+
+def _launches_of(fn) -> dict:
+    """The kernel launches of one call of `fn` (counts set to 0 just before
+    it, read just after a device synchronize); only the kernels launched."""
+    import torch
+
+    counters = _launch_counters()
+    for k in counters:
+        k.launches = 0
+    fn()
+    torch.cuda.synchronize()
+    return {k.__name__: k.launches for k in counters if k.launches}
+
+
+def loaded_worker(exe: str, io_path: str) -> None:
+    """In a fresh process: load the program an engine saved, run it on the
+    batch the eager step ran on, and print one JSON line: the seconds to
+    load and of the first call, its launches in one call, its largest
+    difference to the eager outputs per field, and its wall."""
+    import torch
+    from hyperpose_torch.runtime.engine import PoseEngine
+
+    t0 = time.perf_counter()
+    fn = PoseEngine.load_executable(exe)
+    load_s = time.perf_counter() - t0
+    io = np.load(io_path)
+    batch = torch.from_numpy(io["batch"]).cuda()
+    t0 = time.perf_counter()
+    fn(batch)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    out = {}
+    launches = _launches_of(lambda: out.update(zip(FIELDS, fn(batch))))
+    diff = {f: float(np.abs(out[f].cpu().numpy().astype(np.float64)
+                            - io[f].astype(np.float64)).max()) for f in FIELDS}
+    step_ms, step_p80 = wall_ms(lambda: fn(batch))
+    busy, kernels = device_busy(lambda: fn(batch))
+    print(json.dumps({"load_s": load_s, "first_call_s": first_s, "launches": launches,
+                      "max_abs_diff": diff, "step_ms": step_ms, "step_p80_ms": step_p80,
+                      "device_busy_ms": busy, "kernels": kernels}), flush=True)
+
+
+def _save_and_load(eng, batch, tmp: str, key: str) -> dict:
+    """Time the engine's eager step, save it, and run the saved program in a
+    fresh process (`loaded_worker`): equal outputs, the same kernels."""
+    import torch
+
+    eager = {}
+    launches = _launches_of(lambda: eager.update(vars(eng.infer_batch_device(batch))))
+    step_ms, step_p80 = wall_ms(lambda: eng.infer_batch_device(batch))
+    busy, kernels = device_busy(lambda: eng.infer_batch_device(batch))
+    t0 = time.perf_counter()
+    paths = eng.save(os.path.join(tmp, key))
+    torch.cuda.synchronize()
+    save_s = time.perf_counter() - t0
+    io = os.path.join(tmp, f"{key}_io.npz")
+    np.savez(io, batch=batch.cpu().numpy(), **{f: v.cpu().numpy() for f, v in eager.items()})
+    proc = subprocess.run([sys.executable, os.path.abspath(__file__), "--loaded",
+                           paths["executable"], io], capture_output=True, text=True,
+                          timeout=600, cwd=REPO)
+    check(proc.returncode == 0, f"{key}: the loaded program failed:\n{proc.stderr[-3000:]}")
+    got = json.loads(proc.stdout.strip().splitlines()[-1])
+    check(got["launches"] == launches,
+          f"{key}: the loaded program launched {got['launches']}, the eager step {launches}")
+    diff = got["max_abs_diff"]
+    check(diff["valid"] == diff["part_valid"] == 0
+          and max(diff["coords"], diff["scores"], diff["part_scores"]) <= 1e-3,
+          f"{key}: the loaded program's outputs differ from the eager step's: {diff}")
+    return {"eager_step_ms": step_ms, "eager_step_p80_ms": step_p80,
+            "eager_device_busy_ms": busy, "eager_kernels": kernels,
+            "loaded_step_ms": got["step_ms"], "loaded_step_p80_ms": got["step_p80_ms"],
+            "loaded_device_busy_ms": got["device_busy_ms"], "loaded_kernels": got["kernels"],
+            "save_s": save_s, "load_s": got["load_s"], "first_call_s": got["first_call_s"],
+            "pt2_bytes": os.path.getsize(paths["executable"]), "launches": launches,
+            "bit_equal": not any(diff.values()), "max_abs_diff": diff}
+
+
+def phase_facade_cli(frames, card) -> dict:
+    """The port's CLI (`hyperpose_torch.cli.run`, what `main` runs) on the
+    card at 368x432, batch 8, bf16 (the config's default), on the batch's 8
+    frames written as PNG and on a 20-frame mp4 of the synthetic frame:
+    the flagship (`--backbone Vggtiny --weights` the checkpoint) in operator
+    and stream mode, PifPaf (`--model Pifpaf`, seeded weights) and the int8
+    default Lightweight-OpenPose (`--quantize 8`, seeded weights), each run
+    with its launches; then each of the three engines saved
+    (`PoseEngine.save`) and loaded in a fresh process. Outputs go to a
+    temporary directory. Returns the launches of each run."""
+    import tempfile
+
+    import cv2
+    import torch
+    from hyperpose_torch import cli
+    from hyperpose_torch.ops.image import resize_bilinear
+    from hyperpose_torch.runtime.engine import PoseEngine
+
+    tmp = tempfile.mkdtemp(prefix="hp_facade_")
+    try:
+        src = os.path.join(tmp, "frames")
+        os.makedirs(src)
+        for i, f in enumerate(frames):
+            cv2.imwrite(os.path.join(src, f"f{i}.png"), f[..., ::-1])
+        video = os.path.join(tmp, "synthetic.mp4")
+        bgr = np.ascontiguousarray(frames[0][..., ::-1])
+        writer = cv2.VideoWriter(video, cv2.VideoWriter_fourcc(*"mp4v"), 20,
+                                 (bgr.shape[1], bgr.shape[0]))
+        for _ in range(20):
+            writer.write(bgr)
+        writer.release()
+        weights = os.path.join(REPO, "weights", "flagship_tinyvgg.npz")
+        size = ["--h", str(INPUT_HW[0]), "--w", str(INPUT_HW[1]), "--max_batch_size",
+                str(BATCH), "--device", "cuda"]
+        flagship = ["--backbone", "Vggtiny", "--weights", weights]
+        ref_model, _ = _stem_model("plain", torch.float32)
+        ref = PoseEngine(ref_model, weights, max_batch_size=1,
+                         device="cpu").inference([frames[0]])[0]
+        check(len(ref) == 2, f"CPU reference: {len(ref)} humans")
+        runs, rows = {}, {}
+        for key, argv in (
+                ("flagship_operator", flagship + ["--source", src]),
+                ("flagship_stream", flagship + ["--source", video, "--runtime", "stream"]),
+                ("pifpaf_operator", ["--model", "Pifpaf", "--source", src]),
+                ("int8_lw_operator", ["--quantize", str(BATCH), "--source", src])):
+            out = {}
+            prefix = os.path.join(tmp, key)
+            launches = _launches_of(lambda: out.update(cli.run(
+                argv + size + ["--saving_prefix", prefix])))
+            eng = out.pop("engine")
+            check(eng.device.type == "cuda" and eng.dtype == torch.bfloat16,
+                  f"{key}: engine on {eng.device} in {eng.dtype}")
+            row = rows[key] = {k: v for k, v in out.items() if k not in ("paths", "humans")}
+            row["launches"] = launches
+            runs[key] = eng
+            if key.endswith("operator"):
+                check(out["images"] == BATCH and len(os.listdir(prefix)) == BATCH,
+                      f"{key}: {out['images']} images")
+                for res in out["humans"]:
+                    for hm in res:
+                        xy = np.array([(p.x, p.y) for p in hm.parts.values()])
+                        check(bool(np.isfinite(xy).all() and np.isfinite(hm.score)),
+                              f"{key}: non-finite output")
+            else:
+                check(out["frames"] == 20 and os.path.getsize(prefix + ".mp4") > 0,
+                      f"{key}: {out['frames']} frames")
+                check(2 * 20 <= out["total_humans"] <= 3 * 20,
+                      f"{key}: {out['total_humans']} humans in 20 frames of 2 people")
+            if key.startswith("flagship_operator"):
+                worst = find_people(ref, out["humans"][0])
+                check(worst is not None and worst <= INT8_TOL["xy"],
+                      f"{key}: the synthetic frame's 2 people not found ({worst})")
+                row["frame0_worst_dxy"] = worst
+        paf = {"limb_scores", "peak_topk"}
+        check(paf <= set(rows["flagship_operator"]["launches"])
+              and paf <= set(rows["flagship_stream"]["launches"]),
+              f"the flagship CLI runs skipped a decoder kernel: {rows}")
+        check("fused_grow" in rows["pifpaf_operator"]["launches"]
+              and not paf & set(rows["pifpaf_operator"]["launches"]),
+              f"the PifPaf CLI run: {rows['pifpaf_operator']['launches']}")
+        check({"int8_quantize", "int8_conv", "int8_dwconv"} | paf
+              <= set(rows["int8_lw_operator"]["launches"]),
+              f"the int8 CLI run: {rows['int8_lw_operator']['launches']}")
+        batch = torch.from_numpy(
+            np.stack([resize_bilinear(f, INPUT_HW) for f in frames])).cuda()
+        saved = {key: _save_and_load(runs[key], batch, tmp, key)
+                 for key in ("flagship_operator", "pifpaf_operator", "int8_lw_operator")}
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    emit("facade_cli", card=card, input="x".join(map(str, INPUT_HW)), batch=BATCH,
+         dtype="bf16", runs=rows, saved=saved)
+    return {key: row["launches"] for key, row in rows.items()}
+
+
 def seeded_rng():
     """The generator of the painted maps, frames and stream frames: seed 0,
     past a [B, 19, 2, 46, 54] normal draw and two [B, 19, 2560] integer
@@ -2105,6 +2287,9 @@ def seeded_rng():
 def main() -> None:
     import torch
 
+    if sys.argv[1:2] == ["--loaded"]:
+        loaded_worker(*sys.argv[2:4])
+        return
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this smoke test needs a GPU")
     from hyperpose_torch.utils.topology import COCO_TOPOLOGY
@@ -2153,6 +2338,9 @@ def main() -> None:
     dw_rows = phase_int8_dwconv(dw, card)
     del dw
     t_family = time.perf_counter() - t_family
+    t_facade = time.perf_counter()
+    facade = phase_facade_cli(frames, card)
+    t_facade = time.perf_counter() - t_facade
     # The depthwise kernel's own path: the 11 depthwise convs of the int8
     # LightWeightOpenPose() step (bf16 activations).
     lw = dw_rows["lw_mobilenet"]
@@ -2177,7 +2365,8 @@ def main() -> None:
     check(len(rows) == 7, f"{len(rows)} kernel rows")
     emit("total", seconds=time.perf_counter() - t0, int8_phases_seconds=t_int8,
          resnet18_phases_seconds=t_r18, openpose_family_phases_seconds=t_family,
-         lw_resnet18_f32_launches=lw_r18["f32"])
+         facade_cli_phase_seconds=t_facade, lw_resnet18_f32_launches=lw_r18["f32"],
+         facade_cli_launches=facade)
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

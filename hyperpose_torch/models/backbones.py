@@ -4,10 +4,11 @@ Lightweight-OpenPose, Thin and Small), the ResNet50 trunk of PifPaf and the
 ResNet18 trunk of PoseProposal.
 
 Counterpart of `hyperpose_tpu/models/backbones.py` `ConvBN`, `VggTiny`,
-`VggTinyS2DStem`, `VggTinyFusedStem`, `Vgg16`, `Vgg19`, `Bottleneck`,
+`VggTinyS2D`, `VggTinyS2DStem`, `VggTinyFusedStem`, `Vgg16`, `Vgg19`, `Bottleneck`,
 `Resnet50`, `ResBlock18`, `Resnet18`, `DepthwiseConv`, `SeparableBlock`,
 `MobilenetV1`, `InvertedResidual`, `MobilenetV2`, `MobilenetDilated`,
-`MobilenetThin`, `MobilenetSmall` and `jax_resize_nearest` (the
+`MobilenetThin`, `MobilenetSmall`, `jax_resize_nearest` and the
+`BACKBONES` name table (the
 `pretraining` classifier heads belong to training and are not ported), with
 the numpy remaps that turn a VggTiny checkpoint
 into either serving form (reference: hyperpose/Model/backbones.py:201-232,
@@ -100,18 +101,59 @@ def _run_blocks(module: nn.Module, plan: list, x: torch.Tensor) -> torch.Tensor:
     return x
 
 
-class VggTiny(nn.Module):
+class _S32Tail(nn.Module):
+    """The stride-32 tail of the TinyVGG backbones: `block_s32_{0,1,2}`,
+    ConvBN(384) at strides 2, 1, 2 (none at scale 8)."""
+
+    def _add_s32(self, scale_size: int, dtype: torch.dtype) -> None:
+        self._s32 = []
+        if scale_size == 32:
+            for j, s in enumerate((2, 1, 2)):
+                self.add_module(f"block_s32_{j}", ConvBN(384, 384, dtype=dtype, stride=s))
+                self._s32.append(f"block_s32_{j}")
+
+    def _run_s32(self, x: torch.Tensor) -> torch.Tensor:
+        for name in self._s32:
+            x = getattr(self, name)(x)
+        return x
+
+
+class VggTiny(_S32Tail):
     """TinyVGG at scale 8: conv-BN stacks 32-64 / 128-128 / 200x3 / 384x2
-    with 3 pools, on RGB input."""
+    with 3 pools, on RGB input; `scale_size=32` adds `block_s32_*`."""
 
     out_channels = 384
 
-    def __init__(self, dtype: torch.dtype = torch.float32):
+    def __init__(self, scale_size: int = 8, dtype: torch.dtype = torch.float32):
         super().__init__()
         self._plan = _add_blocks(self, (32, 64, "pool") + _TAIL, 3, 0, dtype)
+        self._add_s32(scale_size, dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return _run_blocks(self, self._plan, x)
+        return self._run_s32(_run_blocks(self, self._plan, x))
+
+
+class VggTinyS2D(_S32Tail):
+    """The trainable space-to-depth TinyVGG of the JAX package (no reference
+    counterpart): each 2x2 patch packed into 12 channels (channel
+    (py*2+px)*3 + c), then conv-BN stacks 64-64 / 128-128-200x3 / 384x2
+    with 2 pools, stride 8 in all; `scale_size=32` adds `block_s32_*`. Its
+    own weights: a VggTiny checkpoint does not map onto it (the exact remap
+    is `VggTinyS2DStem`)."""
+
+    out_channels = 384
+
+    def __init__(self, scale_size: int = 8, dtype: torch.dtype = torch.float32):
+        super().__init__()
+        cfg = (64, 64, "pool", 128, 128, 200, 200, 200, "pool", 384, 384)
+        self._plan = _add_blocks(self, cfg, 12, 0, dtype)
+        self._add_s32(scale_size, dtype)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        b, c, h, w = x.shape
+        x = x.reshape(b, c, h // 2, 2, w // 2, 2).permute(0, 3, 5, 1, 2, 4)
+        x = x.reshape(b, 4 * c, h // 2, w // 2)
+        return self._run_s32(_run_blocks(self, self._plan, x))
 
 
 def _check_even(name: str, x: torch.Tensor) -> None:
@@ -690,3 +732,20 @@ def remap_vggtiny_to_fused(src) -> dict[str, np.ndarray]:
     flat["params/backbone/w1p"] = w1p
     flat["params/backbone/b1p"] = np.tile(b1f, 2)
     return flat
+
+
+# Name -> class, keyed by the reference's BACKBONE enum names as the JAX
+# package's `BACKBONES` (reference: Config/define.py:3-15).
+BACKBONES: dict[str, type[nn.Module]] = {
+    "Mobilenetv1": MobilenetV1,
+    "Mobilenetv2": MobilenetV2,
+    "MobilenetDilated": MobilenetDilated,
+    "MobilenetThin": MobilenetThin,
+    "MobilenetSmall": MobilenetSmall,
+    "Vggtiny": VggTiny,
+    "VggtinyS2D": VggTinyS2D,
+    "Vgg19": Vgg19,
+    "Vgg16": Vgg16,
+    "Resnet18": Resnet18,
+    "Resnet50": Resnet50,
+}

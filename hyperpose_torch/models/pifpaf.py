@@ -14,6 +14,8 @@ Like the flax module, the network takes NHWC images and returns raw
 """
 from __future__ import annotations
 
+from typing import Callable
+
 import torch
 from torch import nn
 
@@ -38,14 +40,23 @@ def pixel_shuffle_nhwc(x: torch.Tensor, scale: int = 2) -> torch.Tensor:
 class Pifpaf(nn.Module):
     """ImageNet normalization (in the model dtype) -> the stride-16 ResNet50
     trunk -> 1x1 heads with bias -> 2x pixel shuffle in float32, so the
-    fields come out at stride 8. `dtype` is the compute and parameter type."""
+    fields come out at stride 8. `backbone`, a class, replaces the trunk
+    with `backbone(scale_size=32, dtype=dtype)`, as the flax module does
+    (its fields then come out at half that backbone's stride). `hin` and
+    `win` are the flax module's fields (the input size of the training
+    targets); the forward does not read them. `dtype` is the compute and
+    parameter type."""
 
-    def __init__(self, n_pos: int = 17, n_limbs: int = 19, quad_size: int = 2,
+    def __init__(self, n_pos: int = 17, n_limbs: int = 19, hin: int = 368, win: int = 432,
+                 quad_size: int = 2, backbone: Callable[..., nn.Module] | None = None,
                  dtype: torch.dtype = torch.float32):
         super().__init__()
         self.n_pos, self.n_limbs, self.quad_size = n_pos, n_limbs, quad_size
-        self.dtype = dtype
-        self.backbone = Resnet50(scale_size=32, use_pool=False, dtype=dtype)
+        self.hin, self.win, self.dtype = hin, win, dtype
+        if backbone is None:
+            self.backbone = Resnet50(scale_size=32, use_pool=False, dtype=dtype)
+        else:
+            self.backbone = backbone(scale_size=32, dtype=dtype)
         q2 = quad_size ** 2
         c = self.backbone.out_channels
         self.pif_head = nn.Conv2d(c, n_pos * 5 * q2, 1, dtype=dtype)
@@ -99,15 +110,17 @@ def pifpaf_fused_decode(
     (`get_postprocessor`: stride = hin // hout). Puts `model` in eval mode:
     the step is inference (BatchNorm on its running statistics). The step's
     `rebuild(other_model)` makes the same step on another model object (the
-    int8 clone `quant.quantize_engine` makes)."""
+    int8 clone `quant.quantize_engine` makes); its `body` is the step
+    outside inference mode (what `torch.export` traces)."""
     model.eval()
 
-    @torch.inference_mode()
-    def fused(images_u8: torch.Tensor):
+    def body(images_u8: torch.Tensor):
         out = model(images_u8.to(model.dtype) / 255.0)
         hw = in_hw or tuple(images_u8.shape[1:3])
         s = stride or hw[0] // out["pif_conf"].shape[1]
         return pifpaf_decode_batch(out, cfg, s, hw, topology)
 
+    fused = torch.inference_mode()(body)
+    fused.body = body
     fused.rebuild = lambda other: pifpaf_fused_decode(other, cfg, stride, in_hw, topology)
     return fused

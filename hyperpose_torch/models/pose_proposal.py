@@ -15,11 +15,13 @@ the NCHW nor the channels-last head output is copied.
 """
 from __future__ import annotations
 
+from typing import Callable
+
 import torch
 from torch import nn
 
 from ..ops.ppn_decode import PpnDecoderConfig, ppn_decode_batch
-from ..utils.topology import PPN_TOPOLOGY, instance_part_idx
+from ..utils.topology import PPN_TOPOLOGY, Topology, instance_part_idx
 from .backbones import ConvBN, Resnet18
 
 
@@ -28,17 +30,21 @@ def _leaky_relu(x: torch.Tensor) -> torch.Tensor:
 
 
 class PoseProposal(nn.Module):
-    """ResNet18 at stride 32 -> two 3x3 ConvBN(512) with bias and leaky ReLU
-    (slope 0.1) -> a 1x1 head with bias -> sigmoid in float32. `hin` and
-    `win` are the input size `restore_coor` scales to, as in the flax
-    module; `dtype` is the compute and parameter type."""
+    """The backbone at stride 32 (ResNet18 by default) -> two 3x3
+    ConvBN(512) with bias and leaky ReLU (slope 0.1) -> a 1x1 head with
+    bias -> sigmoid in float32. `backbone` is a class built as
+    `backbone(scale_size=32, dtype=dtype)`, as the flax module builds it.
+    `hin` and `win` are the input size `restore_coor` scales to, as in the
+    flax module; `dtype` is the compute and parameter type."""
 
     def __init__(self, K: int = 18, L: int = 17, hnei: int = 9, wnei: int = 9,
-                 hin: int = 384, win: int = 384, dtype: torch.dtype = torch.float32):
+                 hin: int = 384, win: int = 384,
+                 backbone: Callable[..., nn.Module] = Resnet18,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         self.K, self.L, self.hnei, self.wnei = K, L, hnei, wnei
         self.hin, self.win, self.dtype = hin, win, dtype
-        self.backbone = Resnet18(scale_size=32, dtype=dtype)
+        self.backbone = backbone(scale_size=32, dtype=dtype)
         c = self.backbone.out_channels
         self.add1 = ConvBN(c, 512, dtype, act=_leaky_relu, bias=True)
         self.add2 = ConvBN(512, 512, dtype, act=_leaky_relu, bias=True)
@@ -66,21 +72,25 @@ class PoseProposal(nn.Module):
         return (x + gx) * gsx, (y + gy) * gsy, w * self.win, h * self.hin
 
 
-def ppn_fused_decode(model: PoseProposal):
+def ppn_fused_decode(model: PoseProposal, cfg: PpnDecoderConfig | None = None,
+                     topology: Topology = PPN_TOPOLOGY):
     """The step `PoseEngine(..., fused_decode=...)` runs for PoseProposal:
     uint8 images [B, H, W, 3] -> /255 in the model dtype -> `model` ->
     `restore_coor` -> `ppn_decode_batch` -> DecodedSkeletons, on the images'
     device.
 
-    The decode takes `PpnDecoderConfig` with `instance_part` from
-    `PPN_TOPOLOGY`, and the model's own `hnei` / `wnei` and input size
-    (`hin`, `win`), the values `restore_coor` and the head were built with.
-    Puts `model` in eval mode. The step's `decode(outputs)` is its part
-    after the network (`restore_coor`, then the decode), and
+    The decode takes `cfg`, by default `PpnDecoderConfig` with
+    `instance_part` from `topology` (the facade passes the thresholds of
+    `Config.set_ppn_decoder`), and the model's own `hnei` / `wnei` and input
+    size (`hin`, `win`), the values `restore_coor` and the head were built
+    with. Puts `model` in eval mode. The step's `decode(outputs)` is its
+    part after the network (`restore_coor`, then the decode), `body` the
+    step outside inference mode (what `torch.export` traces), and
     `rebuild(other_model)` makes the same step on another model object (the
     int8 clone `quant.quantize_engine` makes)."""
     model.eval()
-    cfg = PpnDecoderConfig(instance_part=instance_part_idx(PPN_TOPOLOGY))
+    if cfg is None:
+        cfg = PpnDecoderConfig(instance_part=instance_part_idx(topology))
 
     def decode(out: dict):
         hout, wout = out["c"].shape[1:3]
@@ -88,12 +98,13 @@ def ppn_fused_decode(model: PoseProposal):
         pred = {"c": out["c"], "i": out["i"], "x": rx, "y": ry, "w": rw, "h": rh,
                 "e": out["e"]}
         return ppn_decode_batch(pred, cfg, model.hnei, model.wnei, (model.hin, model.win),
-                                PPN_TOPOLOGY)
+                                topology)
 
-    @torch.inference_mode()
-    def fused(images_u8: torch.Tensor):
+    def body(images_u8: torch.Tensor):
         return decode(model(images_u8.to(model.dtype) / 255.0))
 
+    fused = torch.inference_mode()(body)
+    fused.body = body
     fused.decode = decode
-    fused.rebuild = ppn_fused_decode
+    fused.rebuild = lambda other: ppn_fused_decode(other, cfg, topology)
     return fused

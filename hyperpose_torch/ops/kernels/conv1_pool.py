@@ -31,6 +31,7 @@ import torch
 import torch.nn.functional as F
 
 from . import build
+from .library import define, tracing
 
 _SIG = (
     [ctypes.c_void_p] + [ctypes.c_int] * 3 + [ctypes.c_int64] * 3
@@ -74,7 +75,15 @@ def conv1_pool(btp: torch.Tensor, w1p: torch.Tensor,
     output in channels-last memory, permuted to [B, H, Q, 128], is), so the
     kernel reads it through its strides and never through a transposing
     copy; w1p is in btp's dtype, b1p in float32. The result is contiguous
-    [B, H/2, Q, 64]."""
+    [B, H/2, Q, 64]. Traced, the operator `hyperpose::conv1_pool`
+    (`library.py`)."""
+    if tracing():
+        return _conv1_pool_op(btp, w1p, b1p)
+    return _conv1_pool(btp, w1p, b1p)
+
+
+def _conv1_pool(btp, w1p, b1p):
+    """The wrapper's body: the plain version or the launch."""
     if btp.device.type == "cpu":
         return conv1_pool_plain(btp, w1p, b1p)
     if btp.device.type != "cuda":
@@ -122,6 +131,15 @@ def conv1_pool(btp: torch.Tensor, w1p: torch.Tensor,
 
 conv1_pool.launches = 0  # kernel launches since the count was last set to 0
 
+
+def _conv1_pool_fake(btp, w1p, b1p):
+    b, h, q, _ = btp.shape
+    return btp.new_empty((b, h // 2, q, 64))
+
+
+_conv1_pool_op = define(
+    "conv1_pool", "(Tensor btp, Tensor w1p, Tensor b1p) -> Tensor",
+    lambda *args: _conv1_pool(*args).contiguous(), _conv1_pool_fake)
 
 def stem_gemm_plain(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """a [G, M, 384] @ w [384, 128] -> [G, M, 128] in a's dtype: a float32

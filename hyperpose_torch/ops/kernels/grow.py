@@ -27,12 +27,12 @@ same order, without contraction into FMAs, so the two agree bit for bit.
 from __future__ import annotations
 
 import ctypes
-import functools
 from typing import Sequence
 
 import torch
 
 from . import build
+from .library import define, device_table, tracing
 
 MAX_P = 32    # csrc/grow.cu kMaxP
 MAX_E = 64    # csrc/grow.cu kMaxE
@@ -89,7 +89,7 @@ def find_connection(mx, my, ms, ox, oy, os_, qx, qy, qs):
     return tuple(torch.where(no_match, 0.0, v) for v in (fc, fx, fy, fs))
 
 
-@functools.lru_cache(maxsize=None)
+@device_table
 def _index(values: tuple[int, ...], device: torch.device) -> torch.Tensor:
     """A static index table on `device`, copied once (a copy from host
     memory inside the decode would make the host wait for the device)."""
@@ -162,7 +162,19 @@ def fused_grow(
     reverse_match: bool = True,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
     """`fused_grow_plain`'s contract. CPU tensors take the plain version;
-    CUDA tensors launch the kernel, which raises if it cannot run."""
+    CUDA tensors launch the kernel, which raises if it cannot run. Traced,
+    the operator `hyperpose::fused_grow` (`library.py`)."""
+    if tracing():
+        return _fused_grow_op(seed_part, seed_vals, list(tables), list(rev_tables),
+                              [int(v) for v in e_src], [int(v) for v in e_dst],
+                              int(n_parts), int(growth_steps), bool(reverse_match))
+    return _fused_grow(seed_part, seed_vals, tables, rev_tables, e_src, e_dst, n_parts,
+                       growth_steps, reverse_match)
+
+
+def _fused_grow(seed_part, seed_vals, tables, rev_tables, e_src, e_dst, n_parts,
+                growth_steps, reverse_match):
+    """The wrapper's body: the plain version or the launch."""
     args = (seed_part, seed_vals, tables, rev_tables, e_src, e_dst, n_parts,
             growth_steps, reverse_match)
     if seed_part.device.type == "cpu":
@@ -223,3 +235,15 @@ def fused_grow(
 
 
 fused_grow.launches = 0  # kernel launches since the count was last set to 0
+
+
+def _fused_grow_fake(seed_part, seed_vals, tables, rev_tables, e_src, e_dst, n_parts, *args):
+    shape = (*seed_part.shape, n_parts)
+    return tuple(seed_vals.new_empty(shape, dtype=torch.float32) for _ in range(4))
+
+
+_fused_grow_op = define(
+    "fused_grow", "(Tensor seed_part, Tensor seed_vals, Tensor[] tables, Tensor[] rev_tables, "
+    "int[] e_src, int[] e_dst, int n_parts, int growth_steps, bool reverse_match) "
+    "-> (Tensor, Tensor, Tensor, Tensor)",
+    lambda *args: tuple(t.contiguous() for t in _fused_grow(*args)), _fused_grow_fake)

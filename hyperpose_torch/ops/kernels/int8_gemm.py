@@ -28,7 +28,9 @@ and of 16 for bf16. See the source for the design and the bounds.
 
 Each wrapper takes its plain version for a CPU tensor, launches its kernel
 for a CUDA tensor (or raises on what the kernel does not take), and counts
-its launches in `.launches`.
+its launches in `.launches`. The three conv wrappers are also the operators
+`hyperpose::int8_quantize`, `int8_conv` and `int8_dwconv`, which a traced
+step calls (`library.py`).
 """
 from __future__ import annotations
 
@@ -38,6 +40,7 @@ import torch
 import torch.nn.functional as F
 
 from . import build
+from .library import define, tracing
 
 _P, _I, _I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
 # entry point -> (its library, i.e. its source in csrc/, and its argument types)
@@ -166,6 +169,14 @@ def int8_quantize(x: torch.Tensor, inv_s: float, cp: int, fold=None) -> torch.Te
     CUDA tensors launch `hp_int8_quantize`, which reads x through its
     strides (a channels-last view is read in order) in float32 or bfloat16,
     and raises on anything else."""
+    if tracing():
+        flat = None if fold is None else [int(v) for pair in fold for v in _pair(pair)]
+        return _int8_quantize_op(x, float(inv_s), int(cp), flat)
+    return _int8_quantize(x, inv_s, cp, fold)
+
+
+def _int8_quantize(x, inv_s, cp, fold):
+    """The wrapper's body: the plain version or the launch."""
     if not _on_card("int8_quantize", x):
         return int8_quantize_plain(x, inv_s, cp, fold)
     if x.ndim != 4:
@@ -187,6 +198,29 @@ def int8_quantize(x: torch.Tensor, inv_s: float, cp: int, fold=None) -> torch.Te
 
 
 int8_quantize.launches = 0
+
+
+def _int8_quantize_fake(x, inv_s, cp, fold):
+    b, _, h, w = x.shape
+    if fold is not None:
+        h, w = conv_out_hw(h, w, *_unflat_fold(fold))
+    return x.new_empty((b, h, w, cp), dtype=torch.int8)
+
+
+_int8_quantize_op = define(
+    "int8_quantize", "(Tensor x, float inv_s, int cp, int[]? fold) -> Tensor",
+    lambda x, inv_s, cp, fold: _int8_quantize(x, inv_s, cp, _unflat_fold(fold)).contiguous(),
+    _int8_quantize_fake)
+
+def _pair(v) -> tuple[int, int]:
+    return (v, v) if isinstance(v, int) else tuple(v)
+
+
+def _unflat_fold(fold):
+    """[kh, kw, sh, sw, ph, pw, dh, dw] -> the `fold` tuple of pairs."""
+    if fold is None:
+        return None
+    return tuple(tuple(fold[i:i + 2]) for i in range(0, 8, 2))
 
 
 # -- the conv -------------------------------------------------------------------------
@@ -254,6 +288,14 @@ def int8_conv(xq: torch.Tensor, w: torch.Tensor, dq: torch.Tensor, bias, stride,
     take the plain version; CUDA tensors launch `hp_int8_conv`, which takes
     contiguous, 16-byte aligned tensors on one card and raises on anything
     else."""
+    if tracing():
+        return _int8_conv_op(xq, w, dq, bias, list(_pair(stride)), list(_pair(padding)),
+                             list(_pair(dilation)), dtype)
+    return _int8_conv(xq, w, dq, bias, stride, padding, dilation, dtype)
+
+
+def _int8_conv(xq, w, dq, bias, stride, padding, dilation, dtype):
+    """The wrapper's body: the plain version or the launch."""
     if not _on_card("int8_conv", xq):
         return int8_conv_plain(xq, w, dq, bias, stride, padding, dilation, dtype)
     if xq.ndim != 4 or w.ndim != 4 or xq.shape[3] != w.shape[3]:
@@ -289,6 +331,19 @@ def int8_conv(xq: torch.Tensor, w: torch.Tensor, dq: torch.Tensor, bias, stride,
 
 int8_conv.launches = 0
 
+
+def _int8_conv_fake(xq, w, dq, bias, stride, padding, dilation, dtype):
+    b, h, wd, _ = xq.shape
+    ho, wo = conv_out_hw(h, wd, tuple(w.shape[1:3]), stride, padding, dilation)
+    return xq.new_empty((b * ho * wo, dq.shape[0]), dtype=dtype)
+
+
+_int8_conv_op = define(
+    "int8_conv", "(Tensor xq, Tensor w, Tensor dq, Tensor? bias, int[] stride, int[] padding, "
+    "int[] dilation, ScalarType dtype) -> Tensor",
+    lambda xq, w, dq, bias, stride, padding, dilation, dtype: _int8_conv(
+        xq, w, dq, bias, tuple(stride), tuple(padding), tuple(dilation), dtype).contiguous(),
+    _int8_conv_fake)
 
 # -- the depthwise conv -----------------------------------------------------------------
 
@@ -347,6 +402,14 @@ def int8_dwconv(x: torch.Tensor, inv_s: float, w: torch.Tensor, dq: torch.Tensor
     channels-last view is the fast path), and raise on anything it does not
     take: w, dq and bias not contiguous, 16-byte aligned and on x's card, or
     a filter larger than the padded image."""
+    if tracing():
+        return _int8_dwconv_op(x, float(inv_s), w, dq, bias, list(_pair(stride)),
+                               list(_pair(padding)), list(_pair(dilation)))
+    return _int8_dwconv(x, inv_s, w, dq, bias, stride, padding, dilation)
+
+
+def _int8_dwconv(x, inv_s, w, dq, bias, stride, padding, dilation):
+    """The wrapper's body: the plain version or the launch."""
     if not _on_card("int8_dwconv", x):
         return int8_dwconv_fused_plain(x, inv_s, w, dq, bias, stride, padding, dilation)
     if x.ndim != 4 or w.ndim != 3:
@@ -383,3 +446,17 @@ def int8_dwconv(x: torch.Tensor, inv_s: float, w: torch.Tensor, dq: torch.Tensor
 
 
 int8_dwconv.launches = 0
+
+
+def _int8_dwconv_fake(x, inv_s, w, dq, bias, stride, padding, dilation):
+    b, _, h, wd = x.shape
+    ho, wo = conv_out_hw(h, wd, tuple(w.shape[:2]), stride, padding, dilation)
+    return x.new_empty((b * ho * wo, dq.shape[0]))
+
+
+_int8_dwconv_op = define(
+    "int8_dwconv", "(Tensor x, float inv_s, Tensor w, Tensor dq, Tensor? bias, int[] stride, "
+    "int[] padding, int[] dilation) -> Tensor",
+    lambda x, inv_s, w, dq, bias, stride, padding, dilation: _int8_dwconv(
+        x, inv_s, w, dq, bias, tuple(stride), tuple(padding), tuple(dilation)).contiguous(),
+    _int8_dwconv_fake)

@@ -28,6 +28,7 @@ import functools
 import torch
 
 from . import build
+from .library import define, device_table, tracing
 
 _NEG = -1e30
 MAX_LIMBS = 64    # csrc/line_gather.cu kMaxLimbs
@@ -72,7 +73,7 @@ def limb_pairs(limbs) -> tuple[tuple[int, int], ...]:
     return pairs
 
 
-@functools.lru_cache(maxsize=None)
+@device_table
 def limb_index(pairs: tuple, device: torch.device) -> torch.Tensor:
     """The [L, 2] int64 limb table on `device`, copied once: a copy from host
     memory inside the decode would make the host wait for the device."""
@@ -157,7 +158,20 @@ def limb_scores(
 ) -> torch.Tensor:
     """`limb_scores_plain`'s contract. CPU tensors take the plain version;
     CUDA tensors launch the kernel, which raises if it cannot run. `paf` may
-    be any strided view."""
+    be any strided view. Traced, the operator `hyperpose::limb_scores`
+    (`library.py`)."""
+    if tracing():
+        return _limb_scores_op(paf, peak_xy, peak_valid,
+                               [v for pair in limb_pairs(limbs) for v in pair],
+                               n_samples, float(upsample), float(paf_thresh),
+                               int(crit1_thresh), bool(bf16))
+    return _limb_scores(paf, peak_xy, peak_valid, limbs, n_samples, upsample, paf_thresh,
+                        crit1_thresh, bf16)
+
+
+def _limb_scores(paf, peak_xy, peak_valid, limbs, n_samples, upsample, paf_thresh,
+                 crit1_thresh, bf16) -> torch.Tensor:
+    """The wrapper's body: the plain version or the launch."""
     kw = dict(n_samples=n_samples, upsample=upsample, paf_thresh=paf_thresh,
               crit1_thresh=crit1_thresh, bf16=bf16)
     if paf.device.type == "cpu":
@@ -210,3 +224,21 @@ def limb_scores(
 
 
 limb_scores.launches = 0  # kernel launches since the count was last set to 0
+
+
+def _limb_scores_impl(paf, peak_xy, peak_valid, limbs, n_samples, upsample, paf_thresh,
+                      crit1_thresh, bf16):
+    pairs = tuple(zip(limbs[0::2], limbs[1::2]))
+    return _limb_scores(paf, peak_xy, peak_valid, pairs, n_samples, upsample, paf_thresh,
+                        crit1_thresh, bf16).contiguous()
+
+
+def _limb_scores_fake(paf, peak_xy, peak_valid, limbs, *args):
+    k = peak_xy.shape[2]
+    return paf.new_empty((paf.shape[0], len(limbs) // 2, k, k), dtype=torch.float32)
+
+
+_limb_scores_op = define(
+    "limb_scores", "(Tensor paf, Tensor peak_xy, Tensor peak_valid, int[] limbs, int n_samples, "
+    "float upsample, float paf_thresh, int crit1_thresh, bool bf16) -> Tensor",
+    _limb_scores_impl, _limb_scores_fake)

@@ -45,6 +45,7 @@ import torch.nn.functional as F
 
 from ..image import _gaussian_kernel_1d, smooth_planes
 from . import build
+from .library import define, tracing
 
 _NEG = -1e30
 MAX_K = 128     # csrc/peak_topk.cu kMaxK
@@ -169,7 +170,15 @@ def peak_topk(
     selection relies on (on either device a lower threshold raises). CPU
     tensors take the plain version; CUDA tensors launch the kernel, which
     raises if it cannot run. `conf` may be a strided view (the decoder
-    passes conf[..., :P])."""
+    passes conf[..., :P]). Traced, the operator `hyperpose::peak_topk`
+    (`library.py`)."""
+    if tracing():
+        return _peak_topk_op(conf, k, ksize, float(sigma), float(thresh), border)
+    return _peak_topk(conf, k, ksize, sigma, thresh, border)
+
+
+def _peak_topk(conf, k, ksize, sigma, thresh, border):
+    """The wrapper's body: the plain version or the launch."""
     if not thresh > _NEG:
         raise ValueError(f"peak_topk: thresh={thresh} must exceed {_NEG}")
     if conf.device.type == "cpu":
@@ -211,6 +220,19 @@ def peak_topk(
 peak_topk.launches = 0  # kernel launches since the count was last set to 0
 
 
+def _peak_topk_fake(conf, k, *args):
+    b, _, _, p = conf.shape
+    return (conf.new_empty((b, p, k, 2), dtype=torch.float32),
+            conf.new_empty((b, p, k), dtype=torch.float32),
+            conf.new_empty((b, p, k), dtype=torch.float32))
+
+
+_peak_topk_op = define(
+    "peak_topk", "(Tensor conf, int k, int ksize, float sigma, float thresh, str border) "
+    "-> (Tensor, Tensor, Tensor)",
+    lambda *args: tuple(t.contiguous() for t in _peak_topk(*args)), _peak_topk_fake)
+
+
 def peak_candidates_plain(
     conf: torch.Tensor, ksize: int = 5, sigma: float = 0.75,
     thresh: float = 0.05, neg: float = _NEG,
@@ -232,7 +254,15 @@ def peak_candidates(
     version; CUDA tensors launch the kernel, which raises if it cannot run.
     `conf` may be a strided view (the decoder passes conf[..., :P]). On the
     card a map too wide for a band of 4 of its rows to fit a block's shared
-    memory (W above about 3,600) raises."""
+    memory (W above about 3,600) raises. Traced, the operator
+    `hyperpose::peak_candidates` (`library.py`)."""
+    if tracing():
+        return _peak_candidates_op(conf, ksize, float(sigma), float(thresh), float(neg))
+    return _peak_candidates(conf, ksize, sigma, thresh, neg)
+
+
+def _peak_candidates(conf, ksize, sigma, thresh, neg):
+    """The wrapper's body: the plain version or the launch."""
     if conf.device.type == "cpu":
         return peak_candidates_plain(conf, ksize, sigma, thresh, neg)
     if conf.device.type != "cuda":
@@ -269,3 +299,16 @@ def peak_candidates(
 
 
 peak_candidates.launches = 0  # kernel launches since the count was last set to 0
+
+
+def _peak_candidates_fake(conf, *args):
+    b, h, w, p = conf.shape
+    return (conf.new_empty((b, p, h, w), dtype=torch.float32),
+            conf.new_empty((b, p, h, w), dtype=torch.float32))
+
+
+_peak_candidates_op = define(
+    "peak_candidates", "(Tensor conf, int ksize, float sigma, float thresh, float neg) "
+    "-> (Tensor, Tensor)",
+    lambda *args: tuple(t.contiguous() for t in _peak_candidates(*args)),
+    _peak_candidates_fake)

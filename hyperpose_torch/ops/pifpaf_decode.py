@@ -29,7 +29,6 @@ JAX decoder's `min(where(w >= max, iota, n))` rounds.
 from __future__ import annotations
 
 import dataclasses
-import functools
 
 import numpy as np
 import torch
@@ -37,6 +36,7 @@ import torch.nn.functional as F
 
 from ..utils.topology import PIFPAF_TOPOLOGY, Topology
 from .kernels.grow import find_connection, fused_grow, fused_grow_plain
+from .kernels.library import device_table
 from .paf_decode import DecodedSkeletons
 
 _NEG = -1e30
@@ -131,7 +131,7 @@ def _rows(t: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     return t[torch.arange(t.shape[0], device=t.device)[:, None], idx]
 
 
-@functools.lru_cache(maxsize=None)
+@device_table
 def _edge_tables(topology: Topology, device: torch.device):
     """(src_parts [L], dst_parts [L], e_src [2L], e_dst [2L], rev [2L]) on
     `device`, copied once. Directed edge e < L is limb e forward (match on
@@ -143,7 +143,7 @@ def _edge_tables(topology: Topology, device: torch.device):
               np.concatenate([limbs[:, 0], limbs[:, 1]]),
               np.concatenate([limbs[:, 1], limbs[:, 0]]),
               (np.arange(2 * n) + n) % (2 * n))
-    return tuple(torch.as_tensor(a, dtype=torch.int64, device=device) for a in arrays)
+    return tuple(torch.tensor(np.array(a, np.int64), device=device) for a in arrays)
 
 
 def _prepare(maps: dict, cfg: PifPafDecoderConfig, topology: Topology) -> dict:

@@ -136,10 +136,16 @@ class PoseEngine:
     @torch.inference_mode()
     def _step(self, images_u8: torch.Tensor) -> DecodedSkeletons:
         """uint8 batch on the device -> DecodedSkeletons on the device."""
+        return self._step_body(images_u8)
+
+    def _step_body(self, images_u8: torch.Tensor) -> DecodedSkeletons:
+        """The step outside inference mode, which `torch.export` traces
+        (`save`); a `fused_decode` is entered through its `body` where it has
+        one."""
         if self.fused_decode is not None:
             if self.input_format == "yuv420":
                 images_u8 = (yuv420_to_rgb(images_u8) + 0.5).to(torch.uint8)
-            return self.fused_decode(images_u8)
+            return getattr(self.fused_decode, "body", self.fused_decode)(images_u8)
         if self.input_format == "yuv420":
             x = (yuv420_to_rgb(images_u8) / 255.0).to(self.dtype)
         else:
@@ -259,15 +265,41 @@ class PoseEngine:
     # -- persistence ---------------------------------------------------------
 
     def save(self, path_prefix: str) -> dict[str, str]:
-        raise NotImplementedError(
-            "saving the engine (weights + serialized step) is not ported yet: "
-            "ROADMAP Queue 1 #14 (utils/export.py to torch.export)"
-        )
+        """Persist the weights (the JAX package's flat npz: the float32
+        `variables` the engine was given, else the model's own) and the
+        serialized step, traced by `torch.export` at this engine's batch
+        shape on its device, with the kernels as `hyperpose::` operators
+        (reference analog: dnn::tensorrt::save, src/tensorrt.cpp:463-471).
+        Returns {"weights": prefix.npz, "executable": prefix.pt2}."""
+        from ..utils.export import export_npz, export_serialized
+
+        npz = export_npz(self.variables if self.variables is not None else self.model,
+                         path_prefix + ".npz")
+        example = torch.zeros(self.input_batch_shape(), dtype=torch.uint8, device=self.device)
+        exe = export_serialized(_EngineStep(self), (example,), path_prefix + ".pt2")
+        return {"weights": npz, "executable": exe}
 
     @staticmethod
     def load_executable(path: str):
-        raise NotImplementedError(
-            "loading a serialized step is not ported yet: ROADMAP Queue 1 #14 "
-            "(utils/export.py to torch.export)"
-        )
+        """Load a serialized step (`save`); returns fn(images_u8) -> tuple
+        (coords, part_scores, part_valid, scores, valid) on the device it was
+        saved from, for uint8 batches of the saved shape."""
+        from ..utils.export import load_serialized
+
+        return load_serialized(path)
+
+
+class _EngineStep(nn.Module):
+    """An engine's step as a module for `torch.export`: the model is a
+    submodule (its weights become the program's), and the output is the
+    `DecodedSkeletons` fields as a tuple."""
+
+    def __init__(self, engine: PoseEngine):
+        super().__init__()
+        self.model = engine.model
+        self.engine = engine
+
+    def forward(self, images_u8: torch.Tensor):
+        d = self.engine._step_body(images_u8)
+        return d.coords, d.part_scores, d.part_valid, d.scores, d.valid
 
