@@ -50,8 +50,16 @@ PNG frames; the synthetic frame's 2 people found) and stream mode (a
 20-frame mp4), on PifPaf and on the int8 Lightweight-OpenPose
 (`--quantize 8`), then `PoseEngine.save` of those three engines and each
 program loaded in a fresh process (`--loaded`, an internal mode of this
-script): the same kernels launched, the eager step's outputs. It checks
-that each path went through its kernels.
+script): the same kernels launched, the eager step's outputs. Then
+`evaluate`: the port's evaluation path (dataset reader, `Evaluator`, the
+COCO scorer) on the 100 val scenes of the seed-0 synthetic set, generated
+by the port: the committed flagship at 368x432, batch 8, in f32 (its AP
+and detections held to the JAX package's, from
+tests/fixtures/jax_eval_flagship_synth_val100.json), bf16, int8 and
+multiscale, and PifPaf and PoseProposal on 16 scenes against the same
+evaluation on the CPU; `peak_topk` is also held against its plain version
+on the evaluator's larger maps (92x108 to 184x216, beyond a block's shared
+memory). It checks that each path went through its kernels.
 
 Every phase prints one line; any failure
 exits non-zero before the result line. The last line is
@@ -624,7 +632,7 @@ def phase_peak_topk(cases) -> dict:
     edge cases; timed (first) at K = 1, 16 and 128 on the decoder's input."""
     import torch
     from hyperpose_torch.ops.kernels.peak_topk import (
-        _smooth_nms, _taps, peak_topk, peak_topk_plain,
+        _smooth_nms, _taps, peak_topk, peak_topk_plain, scratch_plan,
     )
 
     k, ksize, sigma, thresh = 16, 5, 0.75, 0.05
@@ -659,6 +667,10 @@ def phase_peak_topk(cases) -> dict:
     runs += [(f"{name}_ksize{ks}", _decoder_view(maps), k, ks, sg)
              for name, maps in cases.items() for ks, sg in OTHER_SMOOTHS]
     runs += [(name, x, kk, ksize, sigma) for name, x, kk in peak_topk_cases(cases, "cuda")]
+    eval_maps = eval_peak_maps(cases)
+    runs += [(f"{name}_k{kk}_ksize{ks}", _decoder_view(m), kk, ks, sg)
+             for name, m in eval_maps.items() for kk in (24, 128)
+             for ks, sg in ((ksize, sigma), EVAL_SMOOTH)]
     err = 0.0
     for name, x, kk, ks, sg in runs:
         for border in ("reflect", "zero"):
@@ -675,13 +687,50 @@ def phase_peak_topk(cases) -> dict:
             if name in cases:
                 check(int((got[2] > -5e29).sum()) > 0, f"peak_topk {name}/{border}: no peaks")
     row["max_abs_err"] = err
+    # The evaluator's decode: K 24, ksize 9, sigma 1.5, reflect, on painted
+    # maps upsampled 2x (92x108, in shared memory), to 120x160 (a 480x640
+    # input: the planes in scratch) and to 344x344 (the lists in scratch too).
+    eval_ms = {}
+    for name in ("painted_92x108", "painted_120x160", "painted_344x344"):
+        x = _decoder_view(eval_maps[name])
+        eb, eh, ew, ep = x.shape
+        floats, global_lists = scratch_plan(x.device.index, eh, ew)
+        eval_ms[name] = {
+            "ms": device_ms(lambda x=x: peak_topk(x, 24, *EVAL_SMOOTH, thresh)),
+            "scratch_floats": eb * ep * floats, "lists_in_scratch": global_lists,
+            "shared_bytes_needed": 4 * (3 * eh * ew + 2 * (((eh + 1) // 2 * ((ew + 1) // 2)
+                                                               + 3) // 4 * 4))}
     emit("peak_topk", shapes=f"conf [{b},{h},{w},{p}] f32 view, K={k}",
          bytes=nbytes, operations=ops, equal_cases=[r_[0] for r_ in runs],
-         kernel_ms=row["ms"], kernel_ms_by_k=by_k,
+         kernel_ms=row["ms"], kernel_ms_by_k=by_k, eval_k24_ksize9=eval_ms,
          call_ms=call_ms(lambda: peak_topk(conf, k, ksize, sigma, thresh)),
          **{k_: row[k_] for k_ in ("max_abs_err", "plain_ms", "library_ms", "bound_ms",
                                    "bound_by")})
     return row
+
+
+EVAL_SMOOTH = (9, 1.5)   # the evaluator's decode (hyperpose_torch/eval/evaluate.py)
+EVAL_PEAK_HW = ((92, 108), (120, 160), (184, 216), (344, 344))
+
+
+def eval_peak_maps(cases) -> dict:
+    """[B, H, W, 18] maps at the evaluator's decode sizes: 92x108 (368x432
+    upsampled 2x, in shared memory), 120x160 (a 480x640 input) and 184x216
+    (beyond a block's shared memory: the planes in the kernel's scratch),
+    and 344x344 (a 1376x1376 input: the survivor lists there too), the
+    painted maps upsampled by `jax_resize_cubic` (sparse peaks, as the
+    evaluator's) and uniform random maps (dense survivors)."""
+    import torch
+    from hyperpose_torch.ops.image import jax_resize_cubic
+
+    rng = np.random.default_rng(11)
+    painted = torch.from_numpy(cases["painted"])
+    out = {}
+    for hw in EVAL_PEAK_HW:
+        tag = "x".join(map(str, hw))
+        out[f"painted_{tag}"] = jax_resize_cubic(painted, hw).numpy()
+        out[f"random_{tag}"] = rng.uniform(0, 1, (2, *hw, 18)).astype(np.float32)
+    return out
 
 
 BIG_SMOOTH = (31, 5.0)  # the largest ksize the peak wrappers take (radius 15)
@@ -2272,6 +2321,267 @@ def phase_facade_cli(frames, card) -> dict:
     return {key: row["launches"] for key, row in rows.items()}
 
 
+# -- evaluation: datasets, the Evaluator and the scorers on the card ---------------
+
+EVAL_FIXTURE = os.path.join(REPO, "tests", "fixtures", "jax_eval_flagship_synth_val100.json")
+EVAL_ROOT = os.path.join(REPO, "build", "eval_synth")   # gitignored
+EVAL_AP_TOL = 0.003          # |AP - the JAX package's|, f32 flagship
+EVAL_MATCH = (0.5, 0.98)     # px of mean keypoint distance, share of JAX's detections
+EVAL_FAMILY_SCENES = 16      # PifPaf and PoseProposal: the first 16 val scenes
+
+
+def _synth_val_set(fixture) -> dict:
+    """The 100 val scenes of the seed-0 synthetic set, generated by the
+    port under EVAL_ROOT: the annotation file must equal the fixture's byte
+    for byte (it comes from numpy); the JPEG files and the decoded RGB
+    arrays are counted where they equal the fixture's (another OpenCV build
+    may encode and decode JPEG otherwise)."""
+    import hashlib
+
+    import cv2
+    from hyperpose_torch.data.synthetic import generate_synthetic_coco
+
+    shutil.rmtree(EVAL_ROOT, ignore_errors=True)
+    t0 = time.perf_counter()
+    generate_synthetic_coco(EVAL_ROOT, n_train=0, n_val=fixture["n_val"], seed=fixture["seed"],
+                            emit_mpii=False)
+    seconds = time.perf_counter() - t0
+    with open(os.path.join(EVAL_ROOT, "annotations", "person_keypoints_val2017.json"),
+              "rb") as f:
+        ann = hashlib.sha256(f.read()).hexdigest()
+    check(ann == fixture["annotation_sha256"],
+          "the port's synthetic val annotations differ from the JAX fixture's")
+    jpeg = rgb = 0
+    for name, want in fixture["jpeg_sha256"].items():
+        path = os.path.join(EVAL_ROOT, "val2017", name)
+        with open(path, "rb") as f:
+            jpeg += hashlib.sha256(f.read()).hexdigest() == want
+        img = cv2.cvtColor(cv2.imread(path), cv2.COLOR_BGR2RGB)
+        rgb += hashlib.sha256(img.tobytes()).hexdigest() == fixture["rgb_sha256"][name]
+    return {"generate_s": seconds, "scenes": len(fixture["jpeg_sha256"]),
+            "jpeg_equal_to_fixture": jpeg, "rgb_equal_to_fixture": rgb,
+            "opencv": cv2.__version__, "fixture_opencv": fixture["opencv_version"]}
+
+
+def _eval_setup(model_type: str, backbone: str, dtype: str, weights):
+    """(config, model with `weights`, dataset) of one evaluation on the
+    synthetic val set."""
+    from hyperpose_torch import config as Config
+    from hyperpose_torch import models as Model
+    from hyperpose_torch.data.base import get_dataset
+    from hyperpose_torch.utils.weights import load_flax_weights
+
+    Config.reset()
+    Config.set_model_type(Config.MODEL[model_type])
+    Config.set_model_backbone(Config.BACKBONE[backbone])
+    Config.set_compute_dtype(dtype)
+    Config.set_dataset_path(EVAL_ROOT)
+    cfg = Config.get_config(create_dirs=False)
+    model = load_flax_weights(Model.get_model(cfg), weights)
+    return cfg, model, get_dataset(cfg)
+
+
+def _evaluate(cfg, model, dataset, device="cuda", limit=None, multiscale=False) -> dict:
+    """One `Evaluator.evaluate` with every kernel count set to 0 just before
+    it and read just after: metrics, COCO results, launches, and seconds a
+    image by stage."""
+    import torch
+    from hyperpose_torch import models as Model
+
+    ev = Model.evaluator(cfg, model, dataset, device, multiscale)
+    counters = _launch_counters()
+    for k in counters:
+        k.launches = 0
+    t0 = time.perf_counter()
+    metrics = ev.evaluate(limit=limit, eval_dir=os.path.join(EVAL_ROOT, "out"))
+    if device == "cuda":
+        torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    st = ev.stats
+    check(st.images > 0 and all(np.isfinite(v) for v in metrics.values()
+                                if not np.isnan(v)), f"evaluation: {metrics}")
+    return {"metrics": {k: float(v) for k, v in metrics.items()}, "results": ev.results,
+            "launches": {k.__name__: k.launches for k in counters if k.launches},
+            "images": st.images, "seconds": seconds,
+            "s_per_image": {"read_resize": st.read_s / st.images,
+                            "device_step": st.device_s / st.images,
+                            "score": st.score_s / st.images},
+            "launches_per_batch": {k.__name__: k.launches / st.batches
+                                   for k in counters if k.launches}}
+
+
+def match_detections(ref, got, px: float) -> float:
+    """The share of the detections `ref` (COCO results) that find their own
+    detection of `got` in the same image with the same keypoints present
+    and a mean keypoint distance under `px` pixels (greedy, `ref` by score)."""
+    free: dict = {}
+    for g in got:
+        free.setdefault(g["image_id"], []).append(np.asarray(g["keypoints"]).reshape(-1, 3))
+    found = 0
+    for d in sorted(ref, key=lambda d: -d["score"]):
+        k = np.asarray(d["keypoints"]).reshape(-1, 3)
+        vis = k[:, 2] > 0
+        best = None
+        for j, kg in enumerate(free.get(d["image_id"], [])):
+            if vis.any() and np.array_equal(kg[:, 2] > 0, vis):
+                dist = float(np.hypot(*(kg[vis, :2] - k[vis, :2]).T).mean())
+                if best is None or dist < best[0]:
+                    best = (dist, j)
+        if best is not None and best[0] < px:
+            found += 1
+            free[d["image_id"]].pop(best[1])
+    return found / max(len(ref), 1)
+
+
+def same_people(a, b, sizes) -> tuple[float, float]:
+    """(max |d keypoint| over the image size, max |d score|) between two
+    COCO result lists of the same images, person by person (each image's
+    people sorted by score); raises ValueError unless every image has the
+    same number of people with the same keypoints present."""
+    def people(res):
+        out: dict = {}
+        for r in res:
+            out.setdefault(r["image_id"], []).append(
+                (r["score"], np.asarray(r["keypoints"]).reshape(-1, 3)))
+        return {k: sorted(v, key=lambda t: (-round(t[0], 3), tuple(np.round(t[1][:, :2], 1).ravel())))
+                for k, v in out.items()}
+
+    pa, pb = people(a), people(b)
+    if set(pa) != set(pb):
+        raise ValueError(f"images with people differ: {sorted(set(pa) ^ set(pb))}")
+    d_xy = d_s = 0.0
+    for iid, ha in pa.items():
+        hb = pb[iid]
+        if len(ha) != len(hb):
+            raise ValueError(f"image {iid}: {len(ha)} vs {len(hb)} people")
+        oh, ow = sizes[iid]
+        for (sa, ka), (sb, kb) in zip(ha, hb):
+            if not np.array_equal(ka[:, 2], kb[:, 2]):
+                raise ValueError(f"image {iid}: keypoint sets differ")
+            d = np.abs(ka[:, :2] - kb[:, :2]) / (ow, oh)
+            d_xy, d_s = max(d_xy, float(d.max())), max(d_s, abs(sa - sb))
+    return d_xy, d_s
+
+
+def _family_vs_cpu(spec: "Served", model_type: str, backbone: str) -> dict:
+    """A non-PAF family's evaluation on the first EVAL_FAMILY_SCENES val
+    scenes, seeded random weights (`served_weights`), f32: people found,
+    and the card's COCO results against the same `Evaluator` on the CPU,
+    person by person within `phase_serving`'s decode bounds (1e-5 of the
+    image size, 1e-3 in score)."""
+    weights = served_weights(spec)
+    runs = {}
+    for device in ("cuda", "cpu"):
+        cfg, model, dataset = _eval_setup(model_type, backbone, "float32", weights)
+        runs[device] = _evaluate(cfg, model, dataset, device, limit=EVAL_FAMILY_SCENES)
+        del model
+    with open(os.path.join(EVAL_ROOT, "annotations", "person_keypoints_val2017.json")) as f:
+        sizes = {im["id"]: (im["height"], im["width"]) for im in json.load(f)["images"]}
+    gpu, cpu = runs["cuda"], runs["cpu"]
+    check(len(cpu["results"]) > 0, f"{spec.name} evaluation: no people on the CPU")
+    try:
+        d_xy, d_s = same_people(gpu["results"], cpu["results"], sizes)
+    except ValueError as e:
+        fail(f"{spec.name} evaluation: the card's people differ from the CPU's: {e}")
+    check(d_xy <= 1e-5 and d_s <= 1e-3,
+          f"{spec.name} evaluation vs the CPU: |dxy| {d_xy} of the image, |dscore| {d_s}")
+    return {"scenes": EVAL_FAMILY_SCENES, "people": len(gpu["results"]),
+            "AP": gpu["metrics"]["AP"], "cpu_AP": cpu["metrics"]["AP"],
+            "vs_cpu_max_abs_dxy": d_xy,
+            "vs_cpu_max_abs_dscore": d_s, "launches": gpu["launches"],
+            "s_per_image": gpu["s_per_image"], "cpu_s_per_image": cpu["s_per_image"]}
+
+
+def phase_evaluate(card) -> dict:
+    """The port's evaluation path on the card: the 100 val scenes of the
+    seed-0 synthetic set generated by the port (`_synth_val_set`), the
+    committed flagship (Lightweight-OpenPose on VggTiny) through
+    `models.evaluator` at 368x432, batch 8, with PyTorch's default TF32
+    flags outside the evaluator (cuDNN's on: the evaluator turns TF32 off
+    for its step): f32 held to the JAX package's evaluation
+    (tests/fixtures/jax_eval_flagship_synth_val100.json: AP within
+    EVAL_AP_TOL, EVAL_MATCH of its detections found), bf16, int8 (bf16
+    activations, scales from the 100 scenes of the tune split; AP of both
+    at least 0.9 x f32's) and multiscale f32; then PifPaf and PoseProposal
+    (`_family_vs_cpu`). Each run's launches are counted (the
+    PAF decoder's kernels on the flagship, the int8 kernels on int8, the
+    growth kernel on PifPaf). Returns the launches of each run."""
+    import torch
+
+    flags = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = True, False
+    try:
+        return _phase_evaluate(card)
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = flags
+
+
+def _phase_evaluate(card) -> dict:
+    import torch
+    from hyperpose_torch.tools.eval import TUNE_SPLIT, calibration_batches, quantize_for_eval
+    from hyperpose_torch.utils.weights import read_flax_weights
+
+    with open(EVAL_FIXTURE) as f:
+        fixture = json.load(f)
+    t_phase = time.perf_counter()
+    data = _synth_val_set(fixture)
+    flat = read_flax_weights(os.path.join(REPO, "weights", "flagship_tinyvgg.npz"))
+    runs = {}
+    for key, dtype, multiscale in (("f32", "float32", False), ("bf16", "bfloat16", False),
+                                   ("int8", "bfloat16", False),
+                                   ("multiscale_f32", "float32", True)):
+        cfg, model, dataset = _eval_setup("LightweightOpenpose", "Vggtiny", dtype, flat)
+        row = {}
+        if key == "int8":
+            t0 = time.perf_counter()
+            batches = calibration_batches(TUNE_SPLIT, 100, (cfg.model.hin, cfg.model.win),
+                                          cfg.eval.batch_size)
+            model, scales = quantize_for_eval(model, flat, batches, torch.device("cuda"))
+            row.update(calibration_scenes=sum(len(b) for b in batches), int8_convs=len(scales),
+                       calibrate_quantize_s=time.perf_counter() - t0)
+        run = _evaluate(cfg, model, dataset, multiscale=multiscale)
+        row.update({k: v for k, v in run.items() if k != "results"})
+        row.update({m: run["metrics"][m] for m in ("AP", "AP50", "AP75", "AR")})
+        runs[key] = row
+        if key == "f32":
+            ref = fixture["metrics"]
+            row["jax_AP"], row["ap_minus_jax"] = ref["AP"], row["AP"] - ref["AP"]
+            row["jax_detections"], row["detections"] = len(fixture["detections"]), len(
+                run["results"])
+            row["jax_detections_matched"] = match_detections(
+                fixture["detections"], run["results"], EVAL_MATCH[0])
+            check(abs(row["ap_minus_jax"]) <= EVAL_AP_TOL,
+                  f"f32 evaluation: AP {row['AP']} vs the JAX package's {ref['AP']}")
+            check(row["jax_detections_matched"] >= EVAL_MATCH[1],
+                  f"f32 evaluation: {row['jax_detections_matched']:.3f} of JAX's detections "
+                  f"found within {EVAL_MATCH[0]} px")
+        del model
+        torch.cuda.empty_cache()
+    for key in ("bf16", "int8"):
+        check(runs[key]["AP"] >= 0.9 * runs["f32"]["AP"],
+              f"{key} evaluation: AP {runs[key]['AP']} below 0.9 x f32's {runs['f32']['AP']}")
+    for key in ("f32", "bf16", "multiscale_f32"):
+        check({"peak_topk", "limb_scores"} <= set(runs[key]["launches"]),
+              f"{key} evaluation launches {runs[key]['launches']}")
+    check({"peak_topk", "limb_scores", "int8_quantize", "int8_conv"}
+          <= set(runs["int8"]["launches"]), f"int8 evaluation launches {runs['int8']['launches']}")
+    # PifPaf's head biases raised by 1, so its seeded fields hold people.
+    pifpaf = PIFPAF._replace(raised_biases=("pif_head/bias", "paf_head/bias"))
+    family = {"pifpaf": _family_vs_cpu(pifpaf, "Pifpaf", "Default"),
+              "ppn": _family_vs_cpu(PPN, "PoseProposal", "Default")}
+    check(family["pifpaf"]["launches"].get("fused_grow", 0) > 0,
+          f"PifPaf evaluation launches {family['pifpaf']['launches']}")
+    emit("evaluate", card=card, data=data, model="LightweightOpenpose (Vggtiny), "
+         "weights/flagship_tinyvgg.npz", input="x".join(map(str, INPUT_HW)), batch=BATCH,
+         tf32_outside_the_evaluator={"cudnn": True, "matmul": False},
+         int8_activations="bf16", ap_tolerance=EVAL_AP_TOL,
+         match=dict(zip(("px", "share"), EVAL_MATCH)), runs=runs, family=family,
+         seconds=time.perf_counter() - t_phase)
+    out = {key: row["launches"] for key, row in runs.items()}
+    out.update({key: row["launches"] for key, row in family.items()})
+    return out
+
+
 def seeded_rng():
     """The generator of the painted maps, frames and stream frames: seed 0,
     past a [B, 19, 2, 46, 54] normal draw and two [B, 19, 2560] integer
@@ -2341,6 +2651,9 @@ def main() -> None:
     t_facade = time.perf_counter()
     facade = phase_facade_cli(frames, card)
     t_facade = time.perf_counter() - t_facade
+    t_eval = time.perf_counter()
+    evaluation = phase_evaluate(card)
+    t_eval = time.perf_counter() - t_eval
     # The depthwise kernel's own path: the 11 depthwise convs of the int8
     # LightWeightOpenPose() step (bf16 activations).
     lw = dw_rows["lw_mobilenet"]
@@ -2366,7 +2679,8 @@ def main() -> None:
     emit("total", seconds=time.perf_counter() - t0, int8_phases_seconds=t_int8,
          resnet18_phases_seconds=t_r18, openpose_family_phases_seconds=t_family,
          facade_cli_phase_seconds=t_facade, lw_resnet18_f32_launches=lw_r18["f32"],
-         facade_cli_launches=facade)
+         facade_cli_launches=facade, evaluate_phase_seconds=t_eval,
+         evaluate_launches=evaluation)
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

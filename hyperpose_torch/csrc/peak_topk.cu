@@ -17,7 +17,17 @@
 // smoothed copy and one scratch plane live in shared memory (3 * H * W
 // floats, 30 KB at 46x54), so the map is read from device memory once. A
 // thread walks its pixels with (y, x) advanced incrementally (no division
-// per pixel).
+// per pixel). Planes too large for a block's shared memory (with the
+// survivor lists, about 14 bytes a pixel: above roughly 16,500 pixels, such
+// as the evaluator's 120x160 maps of a 480x640 input) take a second
+// instantiation of the same kernel, which keeps the three planes in a device
+// scratch buffer that the caller allocates (`hp_peak_topk_scratch` gives its
+// size) and the lists in shared memory; at those sizes the scratch of a
+// batch lies in L2 (33 MB at 8 x 18 planes of 120x160). Where even the
+// lists do not fit (above about 115,000 pixels) they go to the scratch too.
+// The host picks the path from the bytes a plane needs; the arithmetic and
+// the selection are the same on both, so both equal the plain version bit
+// for bit.
 //
 //   1. load the plane (strided: the decoder hands over an NHWC view);
 //   2. separable smooth, taps added centre first then the pairs at distance
@@ -71,6 +81,7 @@
 // a band in one round trip and has two barriers.
 #include <cuda_runtime.h>
 
+#include <atomic>
 #include <cmath>
 #include <cstdint>
 
@@ -248,19 +259,28 @@ __device__ __forceinline__ void smooth_nms(const float* __restrict__ src, int H,
   __syncthreads();
 }
 
+// kGlobal: the planes live in `scratch`, `scratch_stride` floats a block
+// (a multiple of 4), and the lists too where `global_lists`; otherwise
+// everything lies in dynamic shared memory and `scratch` is unused.
+template <bool kGlobal>
 __global__ void __launch_bounds__(kThreads) peak_topk_kernel(
     const float* __restrict__ conf, int H, int W, int P, int64_t sb,
     int64_t sy, int64_t sx, int64_t sp, Taps taps, int ntaps, float thresh,
     int K, int zero_border, float* __restrict__ out_xy,
-    float* __restrict__ out_raw, float* __restrict__ out_sval) {
+    float* __restrict__ out_raw, float* __restrict__ out_sval,
+    float* scratch, int64_t scratch_stride, int global_lists) {
   extern __shared__ __align__(16) float smem[];
   const int HW = H * W;
+  const int tid = threadIdx.x;
+  const int bp = blockIdx.x;
   // The survivors' values and pixel indices (16-byte aligned, padded to a
   // multiple of 4 entries with values that beat nothing), then the planes.
   const int cap4 = list_capacity(H, W);
-  float* list_v = smem;
-  int* list_i = reinterpret_cast<int*>(smem + cap4);
-  float* a = smem + 2 * cap4;  // the ranked plane
+  const bool lists_apart = kGlobal && !global_lists;  // lists in shared memory
+  float* region = kGlobal ? scratch + bp * scratch_stride : smem;
+  float* list_v = lists_apart ? smem : region;
+  int* list_i = reinterpret_cast<int*>(list_v + cap4);
+  float* a = lists_apart ? region : region + 2 * cap4;  // the ranked plane
   float* t = a + HW;           // scratch
   float* sm = a + 2 * HW;      // smoothed plane
   __shared__ float sel_v[kMaxK];
@@ -269,8 +289,6 @@ __global__ void __launch_bounds__(kThreads) peak_topk_kernel(
   __shared__ float s_taps[kMaxTaps];
 
   const bool zero = zero_border != 0;
-  const int tid = threadIdx.x;
-  const int bp = blockIdx.x;
   const int b = bp / P;
   const int p = bp % P;
   const float* src = conf + b * sb + p * sp;
@@ -563,54 +581,7 @@ __global__ void __launch_bounds__(kBandThreads) peak_candidates_kernel(
   }
 }
 
-// Copies the taps and raises the kernel's dynamic shared memory limit when
-// the three planes and `extra` floats need more than 48 KB. Returns a CUDA
-// error code.
-template <typename Kernel>
-int prepare(Kernel kernel, const void* taps_host, int ntaps, int H, int W,
-            size_t extra, Taps* taps, size_t* smem) {
-  if (ntaps < 1 || ntaps > kMaxTaps || ntaps % 2 == 0) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  const float* th = static_cast<const float*>(taps_host);
-  for (int i = 0; i < ntaps; ++i) taps->t[i] = th[i];
-  *smem = (3 * static_cast<size_t>(H) * W + extra) * sizeof(float);
-  if (*smem > 48 * 1024) {
-    return static_cast<int>(cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(*smem)));
-  }
-  return static_cast<int>(cudaSuccess);
-}
-
 }  // namespace
-
-// conf: float [B, H, W, P] with element strides (sb, sy, sx, sp); taps: host
-// array of ntaps (odd, <= 31) floats; outputs contiguous: xy [B, P, K, 2],
-// raw [B, P, K], sval [B, P, K]. K <= 128 and K <= H*W; thresh > -1e30
-// (the selection relies on it). Returns cudaGetLastError() after the
-// launch.
-extern "C" int hp_peak_topk(const void* conf, int B, int H, int W, int P,
-                            int64_t sb, int64_t sy, int64_t sx, int64_t sp,
-                            const void* taps_host, int ntaps, float thresh,
-                            int K, int zero_border, void* xy, void* raw,
-                            void* sval, void* stream) {
-  if (K < 1 || K > kMaxK || K > H * W || !(thresh > kNeg)) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  Taps taps{};
-  size_t smem = 0;
-  const int e = prepare(peak_topk_kernel, taps_host, ntaps, H, W, 2 * list_capacity(H, W),
-                        &taps, &smem);
-  if (e != 0) return e;
-  if (B * P == 0) return static_cast<int>(cudaGetLastError());
-  peak_topk_kernel<<<B * P, kThreads, smem,
-                     static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(conf), H, W, P, sb, sy, sx, sp, taps, ntaps,
-      thresh, K, zero_border, static_cast<float*>(xy),
-      static_cast<float*>(raw), static_cast<float*>(sval));
-  return static_cast<int>(cudaGetLastError());
-}
 
 // The shared memory a block may use on the current device.
 static int smem_optin(int* bytes) {
@@ -620,6 +591,107 @@ static int smem_optin(int* bytes) {
     e = cudaDeviceGetAttribute(bytes, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
   }
   return static_cast<int>(e);
+}
+
+// The dynamic shared memory a block of peak_topk_kernel may use on the
+// current device: the opt-in limit less the kernel's static shared memory
+// (the same for both instantiations). Read once a device, so a launch adds
+// one cudaGetDevice to its host cost.
+constexpr int kMaxDevices = 64;
+
+static int topk_budget(size_t* budget) {
+  static std::atomic<size_t> cached[kMaxDevices];  // 0: not read yet
+  int dev = 0;
+  int e = static_cast<int>(cudaGetDevice(&dev));
+  if (e != 0) return e;
+  if (dev < kMaxDevices && (*budget = cached[dev].load(std::memory_order_relaxed)) != 0) {
+    return 0;
+  }
+  int optin = 0;
+  e = smem_optin(&optin);
+  if (e != 0) return e;
+  cudaFuncAttributes attr{};
+  e = static_cast<int>(cudaFuncGetAttributes(&attr, peak_topk_kernel<true>));
+  if (e != 0) return e;
+  *budget = static_cast<size_t>(optin) - attr.sharedSizeBytes;
+  if (dev < kMaxDevices) cached[dev].store(*budget, std::memory_order_relaxed);
+  return 0;
+}
+
+// Where peak_topk_kernel keeps an H x W plane: everything in shared memory
+// where the three planes and the two lists fit the budget; else the planes
+// in device scratch, and the lists too where they alone do not fit (above
+// about 115,000 pixels).
+struct TopkPlan {
+  size_t smem;             // dynamic shared memory, bytes
+  int64_t scratch_stride;  // scratch floats a block (0: no scratch)
+  bool global_lists;
+};
+
+static int topk_plan(int H, int W, TopkPlan* plan) {
+  size_t budget = 0;
+  const int e = topk_budget(&budget);
+  if (e != 0) return e;
+  const size_t planes = 3 * static_cast<size_t>(H) * W;
+  const size_t lists = 2 * static_cast<size_t>(list_capacity(H, W));
+  if ((planes + lists) * sizeof(float) <= budget) {
+    *plan = {(planes + lists) * sizeof(float), 0, false};
+  } else if (lists * sizeof(float) <= budget) {
+    *plan = {lists * sizeof(float), static_cast<int64_t>((planes + 3) / 4 * 4), false};
+  } else {
+    *plan = {0, static_cast<int64_t>((planes + lists + 3) / 4 * 4), true};
+  }
+  return 0;
+}
+
+// The device scratch, in floats, that hp_peak_topk needs for each H x W
+// plane on the current device (0 where a plane fits shared memory), and
+// whether the survivor lists go there too.
+extern "C" int hp_peak_topk_scratch(int H, int W, int64_t* floats, int* global_lists) {
+  TopkPlan plan{};
+  const int e = topk_plan(H, W, &plan);
+  if (e != 0) return e;
+  *floats = plan.scratch_stride;
+  *global_lists = plan.global_lists;
+  return 0;
+}
+
+// conf: float [B, H, W, P] with element strides (sb, sy, sx, sp); taps: host
+// array of ntaps (odd, <= 31) floats; outputs contiguous: xy [B, P, K, 2],
+// raw [B, P, K], sval [B, P, K]; scratch: B * P times the device floats
+// hp_peak_topk_scratch gives (null where that is 0). K <= 128 and
+// K <= H*W; thresh > -1e30 (the selection relies on it). Returns
+// cudaGetLastError() after the launch.
+extern "C" int hp_peak_topk(const void* conf, int B, int H, int W, int P,
+                            int64_t sb, int64_t sy, int64_t sx, int64_t sp,
+                            const void* taps_host, int ntaps, float thresh,
+                            int K, int zero_border, void* xy, void* raw,
+                            void* sval, void* scratch, void* stream) {
+  if (K < 1 || K > kMaxK || K > H * W || !(thresh > kNeg) || ntaps < 1 ||
+      ntaps > kMaxTaps || ntaps % 2 == 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  Taps taps{};
+  const float* th = static_cast<const float*>(taps_host);
+  for (int i = 0; i < ntaps; ++i) taps.t[i] = th[i];
+  TopkPlan plan{};
+  const int e = topk_plan(H, W, &plan);
+  if (e != 0) return e;
+  const bool global = plan.scratch_stride > 0;
+  if (global && scratch == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  if (B * P == 0) return static_cast<int>(cudaGetLastError());
+  auto kernel = global ? peak_topk_kernel<true> : peak_topk_kernel<false>;
+  if (plan.smem > 48 * 1024) {
+    const cudaError_t a = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(plan.smem));
+    if (a != cudaSuccess) return static_cast<int>(a);
+  }
+  kernel<<<B * P, kThreads, plan.smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(conf), H, W, P, sb, sy, sx, sp, taps, ntaps,
+      thresh, K, zero_border, static_cast<float*>(xy),
+      static_cast<float*>(raw), static_cast<float*>(sval),
+      static_cast<float*>(scratch), plan.scratch_stride, plan.global_lists);
+  return static_cast<int>(cudaGetLastError());
 }
 
 // conf as for hp_peak_topk; zero borders; outputs contiguous float

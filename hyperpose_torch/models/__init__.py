@@ -10,9 +10,10 @@ networks and their decoders, the serving half of
 
 The networks are `nn.Module`s that take NHWC images in [0, 1] (see
 `openpose.py`, `pose_proposal.py`, `pifpaf.py`); their weights load from the
-JAX package's flat npz (`utils/weights.py`). The training half of the facade
-(losses, augmentor, target generator, train / evaluate / test / pretrain
-entries) waits for the training and evaluation slices.
+JAX package's flat npz (`utils/weights.py`). `get_evaluate` and `get_test`
+build the `Evaluator` (`eval/evaluate.py`). The training half of the facade
+(losses, augmentor, target generator, train / pretrain entries) waits for
+the training slice.
 """
 from __future__ import annotations
 
@@ -195,3 +196,40 @@ def _fused_decode_for(config: Config, model: nn.Module):
         return ppn_fused_decode(model, _ppn_decoder_config(config, topo), topo)
     return pifpaf_fused_decode(model, PifPafDecoderConfig(), m.hin // m.hout,
                                (m.hin, m.win), topo)
+
+
+def evaluator(config: Config, model: nn.Module, dataset, device="cuda", multiscale=False):
+    """The `Evaluator` of `model` on `dataset` with the config's input size,
+    eval batch size and its family's decode (`_fused_decode_for`)."""
+    from ..eval.evaluate import Evaluator
+
+    return Evaluator(
+        model, dataset, input_hw=(config.model.hin, config.model.win),
+        output_converter=dataset.output_converter, topology=get_topology(config),
+        batch_size=config.eval.batch_size, multiscale=multiscale,
+        fused_decode=_fused_decode_for(config, model), device=device,
+    )
+
+
+def get_evaluate(config: Config):
+    """`evaluate(model, dataset, limit=None, device="cuda")` -> the dataset's
+    metrics dict, on the config's input size, eval batch size and
+    multiscale flag (reference: Model/__init__.py:213-250). The model
+    carries its weights."""
+
+    def evaluate(model, dataset, limit=None, device="cuda"):
+        ev = evaluator(config, model, dataset, device, config.eval.multiscale)
+        return ev.evaluate(limit=limit, eval_dir=config.eval.vis_dir)
+
+    return evaluate
+
+
+def get_test(config: Config):
+    """`test(model, dataset, limit=None, device="cuda")` -> the path of the
+    submission json it writes (reference: Model/__init__.py:252-290)."""
+
+    def test(model, dataset, limit=None, device="cuda"):
+        ev = evaluator(config, model, dataset, device, False)
+        return ev.test(limit=limit, test_dir=config.test.vis_dir)
+
+    return test

@@ -4,9 +4,12 @@ Counterpart of `hyperpose_tpu/ops/image.py` (reference:
 src/post_process.hpp:56-102 smooth/same_max_pool_3x3, src/data.cpp:53-69
 non_scaling_resize). The device ops take NHWC tensors like their JAX
 counterparts. The host ops are numpy only: the serving path needs no OpenCV.
+`jax_resize_cubic` is the evaluator's map upsample, `jax.image.resize(...,
+"cubic")` of the JAX evaluator.
 """
 from __future__ import annotations
 
+import contextlib
 import functools
 
 import numpy as np
@@ -66,6 +69,67 @@ def same_max_pool_3x3_nhwc(x: torch.Tensor) -> torch.Tensor:
     src/post_process.hpp:73-102, src/cudnn_kernel_pool.hpp:9-62)."""
     pooled = F.max_pool2d(x.permute(0, 3, 1, 2), 3, stride=1, padding=1)
     return pooled.permute(0, 2, 3, 1)
+
+
+def _keys_cubic(x: np.ndarray) -> np.ndarray:
+    """Keys' cubic convolution kernel with a = -0.5, on |distance| (torch's
+    bicubic uses a = -0.75)."""
+    out = ((1.5 * x - 2.5) * x) * x + 1.0
+    out = np.where(x >= 1.0, ((-0.5 * x + 2.5) * x - 4.0) * x + 2.0, out)
+    return np.where(x >= 2.0, 0.0, out)
+
+
+def cubic_weights(n_in: int, n_out: int) -> np.ndarray:
+    """[n_in, n_out] float64 weights of one axis of `jax.image.resize(...,
+    "cubic")` (`jax.image.scale_and_translate`'s weight matrix, antialias
+    on): half-pixel centres; when downsampling the kernel is widened by
+    n_in / n_out; taps outside the input are dropped and each column is
+    divided by the sum of the rest (torch clamps at the edge instead)."""
+    inv_scale = n_in / n_out
+    kernel_scale = max(inv_scale, 1.0)
+    sample = (np.arange(n_out, dtype=np.float64) + 0.5) * inv_scale - 0.5
+    dist = np.abs(sample[None, :] - np.arange(n_in, dtype=np.float64)[:, None])
+    w = _keys_cubic(dist / kernel_scale)
+    total = w.sum(axis=0, keepdims=True)
+    w = np.where(np.abs(total) > 1000.0 * float(np.finfo(np.float32).eps),
+                 w / np.where(total != 0, total, 1.0), 0.0)
+    inside = (sample >= -0.5) & (sample <= n_in - 0.5)
+    return np.where(inside[None, :], w, 0.0)
+
+
+@functools.lru_cache(maxsize=64)
+def _cubic_matrix(n_in: int, n_out: int, device: torch.device) -> torch.Tensor:
+    return torch.from_numpy(cubic_weights(n_in, n_out).astype(np.float32)).to(device)
+
+
+@contextlib.contextmanager
+def no_tf32():
+    """Float32 convs and matmuls in float32 inside the block (TF32 off for
+    cuDNN and cuBLAS, PyTorch's cuDNN default being TF32), the flags as
+    they were after it."""
+    prev = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = prev
+
+
+def jax_resize_cubic(x: torch.Tensor, out_hw: tuple[int, int]) -> torch.Tensor:
+    """[B, H, W, C] float32 resized to [B, *out_hw, C] as
+    `jax.image.resize(x, (B, *out_hw, C), "cubic")` resizes it (not
+    `F.interpolate(mode="bicubic")`: see `cubic_weights`). Each axis is a
+    float32 contraction with its weight matrix, H first, then W, with TF32
+    off; an axis whose size does not change is left alone, as JAX leaves
+    it. On the device of `x`."""
+    b, h, w, c = x.shape
+    oh, ow = out_hw
+    with no_tf32():
+        if oh != h:
+            x = torch.einsum("bhwc,hy->bywc", x, _cubic_matrix(h, oh, x.device))
+        if ow != w:
+            x = torch.einsum("bywc,wx->byxc", x, _cubic_matrix(w, ow, x.device))
+    return x
 
 
 def yuv420_to_rgb(yuv_u8: torch.Tensor) -> torch.Tensor:

@@ -19,7 +19,13 @@ gather (reference: src/post_process.hpp:56-187, src/cudnn_kernel_pool.hpp).
 On the card (`csrc/peak_topk.cu`) one block owns one (image, part) plane and
 keeps the plane, its smoothed copy and a scratch plane in shared memory
 (30 KB at 46x54), so the map is read from device memory once and only the K
-results go back. Its time is one block's chain of dependent steps. The K
+results go back. A plane too large for shared memory (above about 16,500
+pixels, such as the evaluator's 120x160 maps) is kept in a device scratch
+buffer that the wrapper allocates, by a second instantiation of the same
+kernel, with the survivor lists there too above about 115,000 pixels; the
+launch picks the path from the bytes a plane needs (`scratch_plan`, asked
+of the library once a size). Its time is one block's chain of dependent
+steps. The K
 argmax rounds are written out in a fixed number of steps whatever K is: the
 survivors of the tie-break never touch, their values lie above `_NEG` (the
 threshold does) and every other pixel holds `_NEG`, so the rounds are the
@@ -39,6 +45,7 @@ its two output planes.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 import torch.nn.functional as F
@@ -54,8 +61,10 @@ MAX_TAPS = 31   # csrc/peak_topk.cu kMaxTaps
 _SIG = (
     [ctypes.c_void_p] + [ctypes.c_int] * 4 + [ctypes.c_int64] * 4
     + [ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_int,
-       ctypes.c_int] + [ctypes.c_void_p] * 4
+       ctypes.c_int] + [ctypes.c_void_p] * 5
 )
+_SCRATCH_SIG = [ctypes.c_int] * 2 + [ctypes.POINTER(ctypes.c_int64),
+                                     ctypes.POINTER(ctypes.c_int)]
 _CAND_SIG = (
     [ctypes.c_void_p] + [ctypes.c_int] * 4 + [ctypes.c_int64] * 4
     + [ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_float]
@@ -205,11 +214,15 @@ def _peak_topk(conf, k, ksize, sigma, thresh, border):
     fn.argtypes = _SIG
     fn.restype = ctypes.c_int
     with torch.cuda.device(dev):
+        n_scratch = b * p * scratch_plan(dev.index, h, w)[0]
+        scratch = (torch.empty(n_scratch, dtype=torch.float32, device=dev)
+                   if n_scratch else None)
         stream = torch.cuda.current_stream().cuda_stream
         rc = fn(
             conf.data_ptr(), b, h, w, p, *conf.stride(),
             ctypes.addressof(taps_c), len(taps), float(thresh), k, int(zero),
-            xy.data_ptr(), raw.data_ptr(), sval.data_ptr(), stream,
+            xy.data_ptr(), raw.data_ptr(), sval.data_ptr(),
+            None if scratch is None else scratch.data_ptr(), stream,
         )
     if rc != 0:
         raise RuntimeError(f"peak_topk kernel failed: CUDA error {rc}")
@@ -218,6 +231,24 @@ def _peak_topk(conf, k, ksize, sigma, thresh, border):
 
 
 peak_topk.launches = 0  # kernel launches since the count was last set to 0
+
+
+@functools.lru_cache(maxsize=None)
+def scratch_plan(device: int, h: int, w: int) -> tuple[int, bool]:
+    """(float32 elements of device scratch, survivor lists there too) that
+    the kernel needs for each h x w plane on CUDA device `device`: (0,
+    False) where a plane fits shared memory; the lists go to the scratch
+    above about 115,000 pixels. Asked of the library once a (device, h,
+    w)."""
+    fn = build.load("peak_topk").hp_peak_topk_scratch
+    fn.argtypes = _SCRATCH_SIG
+    fn.restype = ctypes.c_int
+    n, lists = ctypes.c_int64(0), ctypes.c_int(0)
+    with torch.cuda.device(device):
+        rc = fn(h, w, ctypes.byref(n), ctypes.byref(lists))
+    if rc != 0:
+        raise RuntimeError(f"peak_topk: sizing its scratch failed: CUDA error {rc}")
+    return int(n.value), bool(lists.value)
 
 
 def _peak_topk_fake(conf, k, *args):

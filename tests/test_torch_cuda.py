@@ -42,7 +42,12 @@ MobileNet-Thin and -Small OpenPose) is held as the Resnet18 family is;
 `int8_dwconv` (quantize and depthwise conv in one kernel) equals its plain
 version exactly (the quantize's float32 operations, exact sums, the same
 float32 epilogue operations); peak_candidates on maps with NaN pixels
-equals its plain version with NaN in the same places.
+equals its plain version with NaN in the same places. The evaluator:
+peak_topk exact on planes beyond a block's shared memory (the planes in
+scratch, and at 344x344 the survivor lists too); `jax_resize_cubic` within
+1e-6 of the largest value of the CPU's; one flagship batch's upsampled maps
+within 1e-4 of their largest value of the CPU's and its skeletons within
+the decode tolerances, with TF32 on outside the evaluator.
 """
 import numpy as np
 import pytest
@@ -55,7 +60,8 @@ from chip_smoke import (
     PPN, TWO_PEOPLE, _convs_card_vs_cpu, _convs_equal_plain, _equal_nan, _numpy,
     _peak_maps as serving_peak_maps, _record_int8_inputs, dense_ppn_maps, find_people,
     human_deltas, limb_scores_inputs, make_synthetic_maps, painted_pifpaf_batch,
-    nan_peak_maps, painted_ppn_batch, peak_candidates_cases, peak_topk_cases, served_weights,
+    eval_peak_maps, nan_peak_maps, painted_ppn_batch, peak_candidates_cases, peak_topk_cases,
+    served_weights,
 )
 from hyperpose_torch.models.backbones import (
     VggTiny, VggTinyFusedStem, remap_vggtiny_to_fused,
@@ -174,6 +180,82 @@ def test_peak_topk_edge_cases_match_plain(cuda, border, case):
     torch.cuda.synchronize()
     assert got[0].shape == (conf.shape[0], conf.shape[3], k, 2)
     assert all(_equal_nan(g, w) for g, w in zip(got, want))
+
+
+@pytest.mark.parametrize("border", ["reflect", "zero"])
+@pytest.mark.parametrize("ksize,sigma", [(5, 0.75), (9, 1.5)])
+@pytest.mark.parametrize("k", [24, 128])
+@pytest.mark.parametrize("hw", [(120, 160), (184, 216), (344, 344)])
+@pytest.mark.parametrize("maps", ["painted", "random"])
+def test_peak_topk_beyond_shared_memory_matches_plain(cuda, maps, hw, k, ksize, sigma, border):
+    """Planes too large for a block's shared memory (the evaluator's decode
+    maps of a 480x640 input, and larger): the kernel keeps them in the
+    scratch it is given, with the survivor lists in shared memory up to
+    184x216 and in the scratch too at 344x344 (a 1376x1376 input), and
+    equals the plain version bit for bit."""
+    from hyperpose_torch.ops.kernels.peak_topk import scratch_plan
+
+    tag = "x".join(map(str, hw))
+    maps_np = eval_peak_maps(serving_peak_maps(np.random.default_rng(0), LIMBS))
+    full = torch.from_numpy(maps_np[f"{maps}_{tag}"]).to(cuda)
+    conf = torch.cat([full, full[..., :1]], dim=-1)[..., :18]  # strided view
+    floats, global_lists = scratch_plan(conf.device.index, *hw)
+    assert floats > 0 and global_lists == (hw == (344, 344))
+    before = peak_topk.launches
+    got = peak_topk(conf, k, ksize, sigma, 0.05, border)
+    want = peak_topk_plain(conf, k, ksize, sigma, 0.05, border)
+    torch.cuda.synchronize()
+    assert peak_topk.launches == before + 1
+    assert bool((want[2] > -5e29).any())
+    assert all(torch.equal(g, w_) for g, w_ in zip(got, want))
+
+
+def test_jax_resize_cubic_on_card_matches_cpu(cuda):
+    """The evaluator's map upsample on the card (two float32 contractions,
+    TF32 off) against the CPU, up 2x and down."""
+    from hyperpose_torch.ops.image import jax_resize_cubic
+
+    x = torch.from_numpy(np.random.default_rng(3).standard_normal((2, 46, 54, 19))
+                         .astype(np.float32))
+    for hw in ((92, 108), (23, 31)):
+        got = jax_resize_cubic(x.to(cuda), hw).cpu()
+        torch.testing.assert_close(got, jax_resize_cubic(x, hw), rtol=0,
+                                   atol=1e-6 * float(x.abs().max()))
+
+
+def test_flagship_evaluator_batch_on_card_matches_cpu(cuda):
+    """One batch of the flagship evaluator (f32, 368x432, the synthetic
+    frame and 7 random frames), called with TF32 on as PyTorch's cuDNN
+    default has it: the evaluator runs its step with TF32 off and leaves the
+    flags as they were; the card's maps after the cubic upsample within
+    1e-4 of their largest value of the CPU's, and the skeletons of the two
+    decodes equal within the decode tolerances."""
+    from hyperpose_torch.eval.evaluate import Evaluator
+    from hyperpose_torch.utils.weights import load_flax_weights
+
+    rng = np.random.default_rng(0)
+    frame = resize_bilinear(np.load(SYNTH_NPZ)["rgb"], (368, 432))
+    batch = np.stack([frame] + [rng.integers(0, 255, frame.shape, dtype=np.uint8)
+                                for _ in range(7)])
+    out = {}
+    try:
+        torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = True
+        for dev in (cuda, torch.device("cpu")):
+            model = load_flax_weights(LightWeightOpenPose(backbone=VggTiny), FLAGSHIP_NPZ)
+            ev = Evaluator(model, None, (368, 432), None, COCO_TOPOLOGY, device=dev)
+            conf, paf = ev.maps(batch)
+            sk = ev.infer_batch(batch)
+            out[dev.type] = (conf.cpu(), paf.cpu(), sk)
+        assert torch.backends.cudnn.allow_tf32 and torch.backends.cuda.matmul.allow_tf32
+    finally:
+        torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    for a, b in zip(out["cuda"][:2], out["cpu"][:2]):
+        assert a.shape == b.shape == (8, 92, 108, a.shape[-1])
+        assert float((a - b).abs().max()) <= 1e-4 * float(b.abs().max())
+    gpu, cpu = out["cuda"][2], out["cpu"][2]
+    assert len(gpu.to_humans(0)) == 2
+    d_xy, d_s = human_deltas(vars(gpu), vars(cpu))
+    assert d_xy <= 1e-5 and d_s <= 1e-3
 
 
 @pytest.mark.parametrize("ksize,sigma", SMOOTHS)

@@ -47,9 +47,13 @@ def test_port_has_sources():
                 "models/backbones.py", "config/__init__.py", "models/__init__.py",
                 "cli.py", "utils/export.py", "ops/kernels/library.py",
                 "examples/__init__.py", "examples/python_demo.py",
-                "examples/gen_serialized_engine.py", "examples/tutorial_minimum.py"):
+                "examples/gen_serialized_engine.py", "examples/tutorial_minimum.py",
+                "data/__init__.py", "data/augment.py", "data/base.py", "data/mscoco.py",
+                "data/mpii.py", "data/multi.py", "data/synthetic.py", "eval/__init__.py",
+                "eval/coco_eval.py", "eval/mpii_eval.py", "eval/evaluate.py",
+                "tools/__init__.py", "tools/eval.py", "tools/official_test.py"):
         assert f"hyperpose_torch/{rel}" in PORT_FILES
-    assert len(PORT_FILES) >= 36
+    assert len(PORT_FILES) >= 50
 
 
 @pytest.mark.parametrize("rel", PORT_FILES)
