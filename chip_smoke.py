@@ -59,7 +59,15 @@ tests/fixtures/jax_eval_flagship_synth_val100.json), bf16, int8 and
 multiscale, and PifPaf and PoseProposal on 16 scenes against the same
 evaluation on the CPU; `peak_topk` is also held against its plain version
 on the evaluator's larger maps (92x108 to 184x216, beyond a block's shared
-memory). It checks that each path went through its kernels.
+memory). Last, `train`: the port's training step (the flagship at 368x432,
+batch 8, from a seeded `TrainPipeline` batch of a synthetic train set):
+step 1 against the CPU in f32 and against a float64 step, 100 steps on one
+batch in f32 and bf16 (timed), the trained npz served and scored, a
+checkpoint resumed bit for bit, the entry point
+`hyperpose_torch.tools.train --synthetic` for 2 steps and resumed for 2
+more, and one step each of PoseProposal, PifPaf and domain adaptation
+against the CPU; training launches none of the kernels. It checks that each path went
+through its kernels.
 
 Every phase prints one line; any failure
 exits non-zero before the result line. The last line is
@@ -2582,6 +2590,420 @@ def _phase_evaluate(card) -> dict:
     return out
 
 
+# -- training (the train phase) ------------------------------------------------
+
+TRAIN_ROOT = os.path.join(REPO, "build", "train_synth")   # gitignored
+TRAIN_SCENES = 32        # seed-0 synthetic train scenes the pipeline reads
+TRAIN_STEPS = 30         # timed steps in each dtype
+OVERFIT_STEPS = 100      # steps on one fixed batch; the loss must fall below 0.8x
+TRAIN_LOSS_RTOL = 1e-5   # step 1, card vs CPU, f32 with TF32 off, relative
+TRAIN_GRAD_L2 = 2e-2     # the card's f32 gradients, over all: relative L2 distance from float64
+TRAIN_GRAD_TENSOR = 0.1  # each of them: the same, its norm floored at 1e-4 of the largest
+TRAIN_STATS_RTOL = 1e-5  # each new BN statistic: |d| / max(1, |v|)
+TRAIN_BF16_RTOL = 2e-3   # a bf16 step's loss against the CPU's f32 loss, relative
+
+
+def _train_cfg(model_type: str, dtype: str, tag: str, backbone: str = "Default",
+               dmadapt=None, hw=None, batch=None):
+    """A training config of the port on the phase's synthetic set, its
+    model_dir emptied under TRAIN_ROOT/runs/<tag>."""
+    from hyperpose_torch import config as Config
+
+    Config.reset()
+    Config.set_model_name(f"chip_smoke_{tag}")
+    Config.set_model_type(Config.MODEL[model_type])
+    Config.set_model_backbone(Config.BACKBONE[backbone])
+    Config.set_compute_dtype(dtype)
+    Config.set_dataset_path(TRAIN_ROOT)
+    if hw is not None:
+        base = Config.get_config(create_dirs=False)
+        s = base.model.hin // base.model.hout
+        Config.set_model_inout(hin=hw[0], win=hw[1], hout=hw[0] // s, wout=hw[1] // s)
+    if batch is not None:
+        Config.set_batch_size(batch)
+    if dmadapt:
+        Config.set_domainadapt_dataset(dmadapt)
+    cfg = Config.get_config(create_dirs=False)
+    Config.reset()
+    cfg.model.model_dir = os.path.join(TRAIN_ROOT, "runs", tag)
+    shutil.rmtree(cfg.model.model_dir, ignore_errors=True)
+    cfg.log.log_interval = 10 ** 9
+    return cfg
+
+
+def _train_batches(cfg, n: int, workers: int = 1) -> tuple[list, float]:
+    """The first `n` batches of a `TrainPipeline` (seed 0) over the
+    config's dataset, and batches/s after the first (one worker keeps the
+    order fixed)."""
+    from hyperpose_torch import models as Model
+    from hyperpose_torch.data.base import get_dataset
+    from hyperpose_torch.data.pipeline import TrainPipeline
+
+    pipe = TrainPipeline(get_dataset(cfg).get_train_records(), Model.get_augmentor(cfg),
+                         batch_size=cfg.train.batch_size,
+                         out_hw=(cfg.model.hout, cfg.model.wout), n_parts=cfg.model.n_pos,
+                         n_workers=workers, seed=0)
+    it = iter(pipe)
+    out = [next(it)]
+    t0 = time.perf_counter()
+    out += [next(it) for _ in range(n - 1)]
+    rate = (n - 1) / (time.perf_counter() - t0) if n > 1 else float("nan")
+    pipe.stop()
+    return out, rate
+
+
+def _trainer(cfg, device: str):
+    """The config's model in a `Trainer` on `device` after `init_state`
+    (flax's initialization drawn on the CPU from seed 0: the same weights
+    on every device)."""
+    from hyperpose_torch import models as Model
+    from hyperpose_torch.train.trainer import Trainer
+
+    tr = Trainer(cfg, Model.get_model(cfg), Model.get_topology(cfg).limbs, device=device)
+    tr.init_state()
+    return tr
+
+
+def train_step1_vs_cpu(cfg, batch) -> dict:
+    """Step 1 of the same initialized trainer on the card and on the CPU in
+    f32 (TF32 off in the step): the loss; every new BatchNorm statistic
+    (|d| / max(1, |v|)); every gradient card against CPU (max |d| over its
+    max |g|, and how many tensors lie beyond 1e-3), and both against a
+    float64 step on the card (relative L2 over all the gradients: float32
+    gradients of a train-mode step at initialization carry the rounding of
+    ReLU and max-pool inputs next to their thresholds and of BatchNorm's
+    cancelling gradient, in both places alike), over all of them and tensor
+    by tensor (relative L2, the norm floored at 1e-4 of the largest tensor's,
+    as tests/test_torch_train.py holds them)."""
+    import torch
+
+    gpu, cpu = _trainer(cfg, "cuda"), _trainer(cfg, "cpu")
+    ref = gpu.twin()   # the float64 step on the card
+    g64 = [g.cpu() for g in ref.loss_and_grads(batch)[1]]
+    del ref
+    mg, gg = gpu.loss_and_grads(batch)
+    mc, gc = cpu.loss_and_grads(batch)
+    names = [n for n, _ in cpu.model.named_parameters()]
+    top = max(float(g.abs().max()) for g in gc)
+    top64 = max(float(r.norm()) for r in g64)
+    per, per64 = {}, {"gpu": {}, "cpu": {}}
+    sq = {"gpu": 0.0, "cpu": 0.0, "ref": 0.0}
+    for n, a, b, r in zip(names, gg, gc, g64):
+        a = a.float().cpu()
+        per[n] = float((a - b).abs().max()) / max(float(b.abs().max()), 1e-6 * top)
+        for key, g in (("gpu", a), ("cpu", b)):
+            per64[key][n] = float((g.double() - r).norm()) / max(float(r.norm()), 1e-4 * top64)
+        sq["gpu"] += float((a.double() - r).square().sum())
+        sq["cpu"] += float((b.double() - r).square().sum())
+        sq["ref"] += float(r.square().sum())
+    stats = {}
+    for (n, a), b in zip(gpu.model.named_buffers(), cpu.model.buffers()):
+        if a.is_floating_point():
+            stats[n] = float(((a.cpu() - b).abs() / b.abs().clamp_min(1.0)).max())
+    loss_g, loss_c = float(mg["total_loss"]), float(mc["total_loss"])
+    del gpu, cpu
+    torch.cuda.empty_cache()
+    return {"loss": loss_g, "cpu_loss": loss_c, "loss_rel": abs(loss_g - loss_c) / abs(loss_c),
+            "grad_tensors": len(per), "grad_max_rel_vs_cpu": max(per.values()),
+            "grad_worst_vs_cpu": sorted(per.items(), key=lambda kv: -kv[1])[:5],
+            "grad_tensors_over_1e-3_vs_cpu": sum(v > 1e-3 for v in per.values()),
+            "grad_rel_l2_card_vs_f64": (sq["gpu"] / sq["ref"]) ** 0.5,
+            "grad_rel_l2_cpu_vs_f64": (sq["cpu"] / sq["ref"]) ** 0.5,
+            "grad_tensor_max_rel_l2_card_vs_f64": max(per64["gpu"].values()),
+            "grad_tensor_max_rel_l2_cpu_vs_f64": max(per64["cpu"].values()),
+            "grad_tensor_worst_card_vs_f64": sorted(per64["gpu"].items(),
+                                                    key=lambda kv: -kv[1])[:5],
+            "stats_max_rel": max(stats.values()), "stats": len(stats)}
+
+
+def check_step1(r: dict) -> None:
+    """The gates on `train_step1_vs_cpu`: the loss and statistics tight;
+    the card's gradients within TRAIN_GRAD_L2 of float64 over all and
+    TRAIN_GRAD_TENSOR each (cuDNN's float32 algorithms, TF32 off, land
+    farther from it than the CPU's, so the CPU's distance is recorded, not
+    a bound)."""
+    check(r["loss_rel"] <= TRAIN_LOSS_RTOL, f"train step 1 loss vs CPU: {r}")
+    check(r["stats_max_rel"] <= TRAIN_STATS_RTOL, f"train step 1 BN statistics: {r}")
+    check(r["grad_rel_l2_card_vs_f64"] <= TRAIN_GRAD_L2, f"train step 1 gradients: {r}")
+    check(r["grad_tensor_max_rel_l2_card_vs_f64"] <= TRAIN_GRAD_TENSOR,
+          f"train step 1 gradient tensors: {r}")
+
+
+def _train_run(cfg, batch) -> tuple[dict, object]:
+    """OVERFIT_STEPS steps of a fresh trainer on one fixed batch on the
+    card, with the kernel counts set to 0 just before and read just after
+    (training launches none): the first loss and the loss after the last
+    update; TRAIN_STEPS of them timed (median / p80 of synced calls), 3
+    traced (device busy ms, kernels), the peak memory of a step."""
+    import torch
+
+    tr = _trainer(cfg, "cuda")
+    counters = _launch_counters()
+    for k in counters:
+        k.launches = 0
+
+    def step():
+        return tr.step(batch)
+
+    first = float(step()["total_loss"])
+    med, p80 = wall_ms(step, iters=TRAIN_STEPS, warmup=3)
+    torch.cuda.reset_peak_memory_stats()
+    busy, kernels = device_busy(step, iters=3)
+    peak = torch.cuda.max_memory_allocated()
+    for _ in range(OVERFIT_STEPS - 1 - 3 - TRAIN_STEPS - 3):
+        step()
+    check(tr.optimizer.count == OVERFIT_STEPS, f"{tr.optimizer.count} steps")
+    last = float(tr.loss_and_grads(batch, grads=False)[0]["total_loss"])
+    launched = {k.__name__: k.launches for k in counters if k.launches}
+    check(not launched, f"a training step launched a serving kernel: {launched}")
+    b = cfg.train.batch_size
+    return {"first_loss": first, "loss_after": last, "loss_ratio": last / first,
+            "step_ms": med, "step_p80_ms": p80, "device_busy_ms": busy,
+            "idle_share": 1.0 - busy / med, "kernels_per_step": kernels,
+            "peak_memory_bytes": peak, "images_per_s": 1e3 * b / med}, tr
+
+
+def train_resume(cfg, batches) -> dict:
+    """`Trainer.train` on the card over 4 fixed batches, with cuDNN's
+    deterministic algorithms: 2 steps (a checkpoint at each), a new trainer
+    that resumes from the checkpoint (`ckpt.restore` onto the card) for 2
+    more, and 4 straight steps. The two end in the same weights, statistics
+    and optimizer state, bit for bit."""
+    import torch
+    from hyperpose_torch import models as Model
+    from hyperpose_torch.train.trainer import Trainer
+
+    det = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    ends = {}
+    try:
+        for tag, parts in (("resumed", [(2, batches[:2]), (4, batches[2:])]),
+                           ("straight", [(4, batches)])):
+            c = copy.deepcopy(cfg)
+            c.model.model_dir = os.path.join(TRAIN_ROOT, "runs", f"resume_{tag}")
+            shutil.rmtree(c.model.model_dir, ignore_errors=True)
+            c.train.save_interval = 1
+            for n_step, bs in parts:
+                tr = Trainer(c, Model.get_model(c), Model.get_topology(c).limbs, device="cuda")
+                tr.train(bs, n_step=n_step)
+            ends[tag] = tr
+    finally:
+        torch.backends.cudnn.deterministic = det
+    a, b = ends["resumed"], ends["straight"]
+
+    def tensors(tr):
+        return list(tr.model.state_dict().values()) + tr.optimizer.mu + tr.optimizer.nu
+
+    diff = max(float((x.double() - y.double()).abs().max())
+               for x, y in zip(tensors(a), tensors(b)))
+    out = {"ckpt_steps": a.ckpt.steps(), "optimizer_count": a.optimizer.count,
+           "bitwise": all(torch.equal(x, y) for x, y in zip(tensors(a), tensors(b))),
+           "max_abs_diff": diff}
+    del ends, a, b, tr
+    torch.cuda.empty_cache()
+    return out
+
+
+class _LogRecords:
+    """The messages of a logger while in a `with` block, at INFO."""
+
+    def __init__(self, name: str):
+        import logging
+
+        self.logger, self.messages = logging.getLogger(name), []
+        self.handler = logging.Handler()
+        self.handler.emit = lambda record: self.messages.append(record.getMessage())
+
+    def __enter__(self):
+        self.level = self.logger.level
+        self.logger.setLevel("INFO")
+        self.logger.addHandler(self.handler)
+        return self.messages
+
+    def __exit__(self, *exc):
+        self.logger.removeHandler(self.handler)
+        self.logger.setLevel(self.level)
+
+
+def train_cli() -> dict:
+    """The slice's entry point on the card, as a user runs it:
+    `python -m hyperpose_torch.tools.train --synthetic` (its own synthetic
+    set, 8 train scenes; the flagship on Vggtiny at the config's 368x432,
+    batch 8, bf16) for 2 steps with a checkpoint at each, then the same
+    command with `--n_step 4`, which resumes from step 2. Run in a working
+    directory of its own, since the command writes `save_dir/` there."""
+    import torch
+    from hyperpose_torch.models.backbones import VggTiny
+    from hyperpose_torch.models.openpose import LightWeightOpenPose
+    from hyperpose_torch.tools import train as train_entry
+    from hyperpose_torch.train.checkpoint import CheckpointManager, load_weights_npz
+
+    root = os.path.join(TRAIN_ROOT, "cli")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    argv = ["--synthetic", "--synthetic_train_scenes", "8", "--dataset_path",
+            os.path.join(root, "data"), "--model_backbone", "Vggtiny", "--save_interval", "1"]
+    cwd, t0 = os.getcwd(), time.perf_counter()
+    os.chdir(root)
+    try:
+        with _LogRecords("hyperpose_torch.TRAIN") as first:
+            _, cfg = train_entry.run(argv + ["--n_step", "2"])
+        steps_first = CheckpointManager(cfg.model.model_dir).steps()
+        with _LogRecords("hyperpose_torch.TRAIN") as second:
+            model, cfg = train_entry.run(argv + ["--n_step", "4"])
+    finally:
+        os.chdir(cwd)
+    model_dir = os.path.join(root, cfg.model.model_dir)
+    state = CheckpointManager(model_dir).restore()[1]
+    npz = load_weights_npz(LightWeightOpenPose(backbone=VggTiny),
+                           os.path.join(model_dir, "newest_model.npz"))
+    out = {"seconds": time.perf_counter() - t0, "ckpt_steps_after_2": steps_first,
+           "ckpt_steps_after_4": CheckpointManager(model_dir).steps(),
+           "resumed": [m for m in second if m.startswith("resumed")],
+           "first_run_resumed": [m for m in first if m.startswith("resumed")],
+           "optimizer_count": state["optimizer"]["count"],
+           "device": str(next(model.parameters()).device),
+           "param_dtypes": sorted({str(p.dtype) for p in model.parameters()}),
+           "npz_finite": all(bool(torch.isfinite(t).all())
+                             for t in npz.state_dict().values() if t.is_floating_point())}
+    del model, npz
+    torch.cuda.empty_cache()
+    return out
+
+
+def check_train_cli(r: dict) -> None:
+    check(r["ckpt_steps_after_2"] == [1, 2] and not r["first_run_resumed"],
+          f"tools.train --n_step 2: {r}")
+    check(r["resumed"] == ["resumed from step 2"] and r["ckpt_steps_after_4"] == [2, 3, 4]
+          and r["optimizer_count"] == 4, f"tools.train --n_step 4 did not resume: {r}")
+    check(r["device"].startswith("cuda") and r["param_dtypes"] == ["torch.float32"]
+          and r["npz_finite"], f"tools.train on the card: {r}")
+
+
+def _family_step(model_type: str, tag: str, dmadapt=None) -> dict:
+    """One bf16 step of a family at its config's size and batch on the card
+    from a seeded pipeline batch, and step 1's loss against the CPU: the
+    CPU's f32 loss against the card's f32 loss (TF32 off, no update) and
+    the bf16 step's."""
+    import torch
+    from hyperpose_torch import models as Model
+    from hyperpose_torch.train.domainadapt import UnlabeledPipeline
+
+    cfg16 = _train_cfg(model_type, "bfloat16", tag + "_bf16", dmadapt=dmadapt)
+    cfg32 = _train_cfg(model_type, "float32", tag + "_f32", dmadapt=dmadapt)
+    batch = _train_batches(cfg16, 1)[0][0]
+    unl = None
+    if dmadapt:
+        up = UnlabeledPipeline(dmadapt, Model.get_augmentor(cfg16), cfg16.train.batch_size)
+        unl = up.next()
+        up.stop()
+    out = {"input": f"{cfg16.model.hin}x{cfg16.model.win}", "batch": cfg16.train.batch_size}
+    losses = {}
+    for key, cfg, device in (("cpu_f32", cfg32, "cpu"), ("f32", cfg32, "cuda"),
+                             ("bf16", cfg16, "cuda")):
+        tr = _trainer(cfg, device)
+        if dmadapt:
+            tr.init_dmadapt_state()
+            m = tr.step(batch, unl) if key == "bf16" or device == "cpu" else None
+            if m is None:
+                continue
+        elif key == "bf16":
+            m = tr.step(batch)
+            out["step_ms"] = wall_ms(lambda: tr.step(batch), iters=5, warmup=1)[0]
+        else:
+            m = tr.loss_and_grads(batch, grads=False)[0]
+        losses[key] = {k: float(v) for k, v in m.items()}
+        del tr
+        torch.cuda.empty_cache()
+    ref = losses["cpu_f32"]["total_loss"]
+    for key, tol in (("f32", 1e-4), ("bf16", TRAIN_BF16_RTOL)):
+        if key in losses:
+            rel = abs(losses[key]["total_loss"] - ref) / abs(ref)
+            out[f"{key}_loss_rel_vs_cpu"] = rel
+            check(np.isfinite(losses[key]["total_loss"]) and rel <= tol,
+                  f"{tag} {key} step-1 loss {losses[key]['total_loss']} vs the CPU's {ref}")
+    out["losses"] = losses
+    return out
+
+
+def phase_train(card, frames) -> dict:
+    """The training path of the port on the card: the flagship
+    (Lightweight-OpenPose on VggTiny) at 368x432, batch 8, Adam, from a
+    seeded `TrainPipeline` batch of the seed-0 synthetic set: step 1 on the
+    card against the CPU in f32 (TF32 off) and against float64
+    (`train_step1_vs_cpu`, `check_step1`), OVERFIT_STEPS steps on that
+    batch in f32 and in bf16 (timed; the loss must fall below 0.8x), the
+    bf16 run's `newest_model.npz` served by a bf16 `PoseEngine` (one launch
+    each of `peak_topk` and `limb_scores`) and scored by `Evaluator` on 16
+    val scenes (AP recorded, not gated), a checkpoint resumed on the card
+    bit for bit (`train_resume`), the entry point run and resumed
+    (`train_cli`), then one bf16 step each of PoseProposal, PifPaf and
+    domain adaptation with step 1's loss against the CPU, and
+    `TrainPipeline` alone (4 workers). Returns the serving check's
+    launches."""
+    import glob
+
+    import torch
+    from hyperpose_torch.data.synthetic import generate_synthetic_coco
+    from hyperpose_torch.models.backbones import VggTiny
+    from hyperpose_torch.models.openpose import LightWeightOpenPose
+    from hyperpose_torch.runtime.engine import PoseEngine
+
+    t_phase = time.perf_counter()
+    shutil.rmtree(TRAIN_ROOT, ignore_errors=True)
+    generate_synthetic_coco(TRAIN_ROOT, n_train=TRAIN_SCENES, n_val=8, seed=0, emit_mpii=False)
+    cfg32 = _train_cfg("LightweightOpenpose", "float32", "flagship_f32", "Vggtiny")
+    cfg16 = _train_cfg("LightweightOpenpose", "bfloat16", "flagship_bf16", "Vggtiny")
+    batches = _train_batches(cfg32, 4)[0]
+    batch = batches[0]
+    step1 = train_step1_vs_cpu(cfg32, batch)
+    emit("train_step1", card=card, **step1)
+    check_step1(step1)
+    runs = {}
+    for key, cfg in (("f32", cfg32), ("bf16", cfg16)):
+        runs[key], tr = _train_run(cfg, batch)
+        check(runs[key]["loss_ratio"] < 0.8, f"{key} training: loss {runs[key]}")
+        if key == "bf16":
+            check(all(p.dtype == torch.float32 for p in tr.model.parameters()),
+                  "bf16 training holds non-float32 parameters")
+            npz = tr.save(OVERFIT_STEPS)
+        del tr
+        torch.cuda.empty_cache()
+    emit("train_runs", card=card, **runs)
+    eng = PoseEngine(LightWeightOpenPose(backbone=VggTiny, dtype=torch.bfloat16), npz,
+                     max_batch_size=BATCH, device="cuda")
+    eng.warmup()
+    _, served = drive(eng, frames[:BATCH])
+    check(served["peak_topk"] == 1 and served["limb_scores"] == 1,
+          f"the trained npz's serving step launched {served}")
+    del eng
+    if not os.path.exists(os.path.join(EVAL_ROOT, "annotations", "person_keypoints_val2017.json")):
+        with open(EVAL_FIXTURE) as f:
+            _synth_val_set(json.load(f))
+    ecfg, emodel, dataset = _eval_setup("LightweightOpenpose", "Vggtiny", "bfloat16", npz)
+    scored = _evaluate(ecfg, emodel, dataset, limit=16)
+    del emodel
+    torch.cuda.empty_cache()
+    resume = train_resume(cfg16, batches)
+    check(resume["bitwise"] and resume["ckpt_steps"] == [2, 3, 4]
+          and resume["optimizer_count"] == 4, f"resume on the card: {resume}")
+    cli = train_cli()
+    check_train_cli(cli)
+    val_jpgs = sorted(glob.glob(os.path.join(EVAL_ROOT, "val2017", "*.jpg")))
+    family = {"ppn": _family_step("PoseProposal", "ppn"),
+              "pifpaf": _family_step("Pifpaf", "pifpaf"),
+              "dmadapt": _family_step("LightweightOpenpose", "dmadapt", dmadapt=val_jpgs)}
+    _, pipe_rate = _train_batches(cfg16, 12, workers=4)
+    emit("train", card=card, model="LightweightOpenpose (Vggtiny)",
+         input="x".join(map(str, INPUT_HW)), batch=cfg16.train.batch_size,
+         optimizer="Adam, lr 1e-4", step1_vs_cpu=step1, runs=runs,
+         served={"launches": served, "eval_scenes": 16,
+                 "AP": scored["metrics"]["AP"], "eval_launches": scored["launches"]},
+         resume=resume, entry_point=cli, family=family, pipeline_batches_per_s=pipe_rate,
+         seconds=time.perf_counter() - t_phase)
+    return served
+
+
 def seeded_rng():
     """The generator of the painted maps, frames and stream frames: seed 0,
     past a [B, 19, 2, 46, 54] normal draw and two [B, 19, 2560] integer
@@ -2654,6 +3076,9 @@ def main() -> None:
     t_eval = time.perf_counter()
     evaluation = phase_evaluate(card)
     t_eval = time.perf_counter() - t_eval
+    t_train = time.perf_counter()
+    train_served = phase_train(card, frames)
+    t_train = time.perf_counter() - t_train
     # The depthwise kernel's own path: the 11 depthwise convs of the int8
     # LightWeightOpenPose() step (bf16 activations).
     lw = dw_rows["lw_mobilenet"]
@@ -2680,7 +3105,8 @@ def main() -> None:
          resnet18_phases_seconds=t_r18, openpose_family_phases_seconds=t_family,
          facade_cli_phase_seconds=t_facade, lw_resnet18_f32_launches=lw_r18["f32"],
          facade_cli_launches=facade, evaluate_phase_seconds=t_eval,
-         evaluate_launches=evaluation)
+         evaluate_launches=evaluation, train_phase_seconds=t_train,
+         train_serving_launches=train_served)
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

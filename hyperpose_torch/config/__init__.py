@@ -58,8 +58,8 @@ class SYNC(Enum):
     """Distributed gradient-exchange modes, the JAX package's equivalents of
     the reference's KungFu options (reference: Config/define.py:33-36):
     Sync_sgd -> gradient all-reduce; Sync_avg -> weight averaging;
-    Pair_avg -> pairwise gossip averaging. Training is not ported yet; the
-    names stay so configurations carry over."""
+    Pair_avg -> pairwise gossip averaging. The port trains Sync_sgd on one
+    device; the other two are not ported yet."""
 
     Sync_sgd = 0
     Sync_avg = 1

@@ -11,9 +11,11 @@ networks and their decoders, the serving half of
 The networks are `nn.Module`s that take NHWC images in [0, 1] (see
 `openpose.py`, `pose_proposal.py`, `pifpaf.py`); their weights load from the
 JAX package's flat npz (`utils/weights.py`). `get_evaluate` and `get_test`
-build the `Evaluator` (`eval/evaluate.py`). The training half of the facade
-(losses, augmentor, target generator, train / pretrain entries) waits for
-the training slice.
+build the `Evaluator` (`eval/evaluate.py`). The training half:
+`get_loss_fn`, `get_augmentor`, `get_preprocessor` (the family's target
+generator, `data/targets.py`) and `get_train` (the `Trainer`,
+`train/trainer.py`). ImageNet pretraining (`get_pretrain`) is not ported
+yet.
 """
 from __future__ import annotations
 
@@ -35,9 +37,10 @@ from ..utils.topology import (
 from .backbones import BACKBONES
 from .openpose import (
     LightWeightOpenPose, MobilenetSmallOpenpose, MobilenetThinOpenpose, OpenPose,
+    openpose_loss,
 )
-from .pifpaf import Pifpaf, pifpaf_fused_decode
-from .pose_proposal import PoseProposal, ppn_fused_decode
+from .pifpaf import Pifpaf, pifpaf_fused_decode, pifpaf_loss
+from .pose_proposal import PoseProposal, pose_proposal_loss, ppn_fused_decode
 
 # Default backbone per model family (reference: Model/__init__.py:24-142).
 _DEFAULT_BACKBONES = {
@@ -113,6 +116,8 @@ def get_model(config: Config) -> nn.Module:
         return PoseProposal(
             K=m.K_size, L=m.L_size, hnei=m.hnei, wnei=m.wnei,
             hin=m.hin, win=m.win, backbone=backbone, dtype=dtype,
+            lmd_rsp=m.lmd_rsp, lmd_iou=m.lmd_iou, lmd_coor=m.lmd_coor,
+            lmd_size=m.lmd_size, lmd_limb=m.lmd_limb,
         )
     if mt == MODEL.Pifpaf:
         # As in the JAX package, the configured backbone is not passed: the
@@ -122,6 +127,86 @@ def get_model(config: Config) -> nn.Module:
             hin=config.model.hin, win=config.model.win, dtype=dtype,
         )
     raise ValueError(f"unknown model type {mt}")
+
+
+def get_loss_fn(config: Config):
+    """The family's loss: `pose_proposal_loss(model, predict, targets)`,
+    `pifpaf_loss(predict, targets)` or `openpose_loss(predict, conf, paf,
+    mask)`."""
+    mt = config.model.model_type
+    if mt == MODEL.PoseProposal:
+        return pose_proposal_loss
+    if mt == MODEL.Pifpaf:
+        return pifpaf_loss
+    return openpose_loss
+
+
+def get_augmentor(config: Config):
+    """(reference: Model/__init__.py:292-310 get_augmentor)."""
+    from ..data.augment import BasicAugmentor
+
+    if config.model.custom_augmentor is not None:
+        return config.model.custom_augmentor
+    topo = get_topology(config)
+    return BasicAugmentor(hin=config.model.hin, win=config.model.win,
+                          flip_list=topo.flip_list)
+
+
+def get_preprocessor(config: Config):
+    """The family's target generator (`data/targets.py`), run on the device
+    of the keypoints it is given (reference: Model/__init__.py:312-333
+    get_preprocessor)."""
+    from ..data import targets as T
+
+    if config.model.custom_preprocessor is not None:
+        return config.model.custom_preprocessor
+    topo = get_topology(config)
+    m = config.model
+    mt = m.model_type
+    if mt == MODEL.PoseProposal:
+        return partial(T.ppn_targets, limbs=topo.limbs, in_hw=(m.hin, m.win),
+                       out_hw=(m.hout, m.wout), nei=(m.hnei, m.wnei))
+    if mt == MODEL.Pifpaf:
+        return partial(T.pifpaf_targets, limbs=topo.limbs, in_hw=(m.hin, m.win),
+                       out_hw=(m.hout, m.wout))
+    return partial(T.openpose_targets, limbs=topo.limbs, in_hw=(m.hin, m.win),
+                   out_hw=(m.hout, m.wout))
+
+
+def get_train(config: Config):
+    """`train(model, dataset, device="cuda")`: the dataset's training
+    records through `TrainPipeline` and the family's augmentor into the
+    `Trainer` on `device` (and, with domain adaptation, the unlabeled images
+    through `UnlabeledPipeline`); returns the trained model, whose weights
+    are also in `<model_dir>/newest_model.npz` (reference:
+    Model/__init__.py:147-211). Single_train and Parallel_train both train
+    on one device here."""
+    from ..data.pipeline import TrainPipeline
+    from ..train.trainer import Trainer
+
+    topo = get_topology(config)
+
+    def train(model, dataset, device="cuda"):
+        trainer = Trainer(config, model, topo.limbs, device=device)
+        augmentor = get_augmentor(config)
+        pipeline = TrainPipeline(
+            dataset.get_train_records(), augmentor, batch_size=config.train.batch_size,
+            out_hw=(config.model.hout, config.model.wout), n_parts=config.model.n_pos,
+        )
+        unlabeled = None
+        if config.data.domainadapt_flag:
+            from ..train.domainadapt import UnlabeledPipeline
+
+            unlabeled = UnlabeledPipeline(config.data.domainadapt_train_img_paths, augmentor,
+                                          batch_size=config.train.batch_size)
+        try:
+            return trainer.train(pipeline, unlabeled_pipeline=unlabeled)
+        finally:
+            pipeline.stop()
+            if unlabeled is not None:
+                unlabeled.stop()
+
+    return train
 
 
 def _ppn_decoder_config(config: Config, topo: Topology) -> PpnDecoderConfig:

@@ -8,13 +8,16 @@ Counterpart of `hyperpose_tpu/models/backbones.py` `ConvBN`, `VggTiny`,
 `Resnet50`, `ResBlock18`, `Resnet18`, `DepthwiseConv`, `SeparableBlock`,
 `MobilenetV1`, `InvertedResidual`, `MobilenetV2`, `MobilenetDilated`,
 `MobilenetThin`, `MobilenetSmall`, `jax_resize_nearest` and the
-`BACKBONES` name table (the
-`pretraining` classifier heads belong to training and are not ported), with
-the numpy remaps that turn a VggTiny checkpoint
-into either serving form (reference: hyperpose/Model/backbones.py:201-232,
-343-391, 512-586, 587-697). Modules run NCHW;
-the submodule names follow the flax module names, so the flat weight layout
-maps one to one (`utils/weights.py`).
+`BACKBONES` name table (the `pretraining` classifier heads, which only
+ImageNet pretraining builds, are not ported yet), with the numpy remaps that
+turn a VggTiny checkpoint into either serving form (reference:
+hyperpose/Model/backbones.py:201-232, 343-391, 512-586, 587-697). Modules
+run NCHW; the submodule names follow the flax module names, so the flat
+weight layout maps one to one (`utils/weights.py`).
+
+Every BatchNorm is a `FlaxBatchNorm2d`: in eval mode `nn.BatchNorm2d`'s
+own computation, in train mode flax's (`use_fast_variance=False`), with
+the decay of the flax module it ports.
 """
 from __future__ import annotations
 
@@ -45,9 +48,52 @@ def same_pads(hw, kernel: int, stride: int) -> tuple[int, int, int, int]:
     return tuple(out)
 
 
+class FlaxBatchNorm2d(nn.BatchNorm2d):
+    """`nn.BatchNorm2d` that trains as flax's `nn.BatchNorm(use_fast_variance=
+    False)` does.
+
+    `momentum` is flax's decay `m` of the running statistics (0.9, 0.99 or
+    0.999: the flax module's own), not torch's update factor, which is set
+    to 1 - m. In eval mode the forward is `nn.BatchNorm2d`'s, so serving,
+    BN folding and the int8 paths see a plain BatchNorm. In train mode it
+    computes in float32 (or the input's dtype where that is wider): the batch mean over N,
+    H and W, the *biased* variance as the mean of (x - mean)^2 (two
+    passes), y = (x - mean) * (rsqrt(var + eps) * weight) + bias cast back
+    to the input's dtype, and, without gradient, running = m * running +
+    (1 - m) * batch with that biased variance (`nn.BatchNorm2d` stores the
+    unbiased one)."""
+
+    def __init__(self, num_features: int, momentum: float = 0.99, eps: float = 1e-5,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__(num_features, eps=eps, momentum=1.0 - momentum, dtype=dtype)
+        self.decay = momentum
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training:
+            return super().forward(x)
+        # Elementwise ops and means only: autocast leaves them in the dtype
+        # they are given.
+        dt = torch.promote_types(x.dtype, torch.float32)
+        xf = x.to(dt)
+        mean = xf.mean(dim=(0, 2, 3))
+        var = (xf - mean.view(1, -1, 1, 1)).square().mean(dim=(0, 2, 3))
+        with torch.no_grad():
+            # New tensors, not in-place updates: a forward in eval mode
+            # earlier in the same step (domain adaptation's features) saved
+            # the old ones for its backward.
+            m = self.decay
+            self.running_mean = m * self.running_mean + (1 - m) * mean
+            self.running_var = m * self.running_var + (1 - m) * var
+        mul = torch.rsqrt(var + self.eps) * self.weight.to(dt)
+        y = (xf - mean.view(1, -1, 1, 1)) * mul.view(1, -1, 1, 1)
+        y = y + self.bias.to(dt).view(1, -1, 1, 1)
+        return y.to(x.dtype)
+
+
 class ConvBN(nn.Module):
     """Conv2d + BatchNorm + activation, with flax's SAME padding. BN eps is
-    the flax module's 1e-5. `act` is the activation (ReLU by default, None
+    the flax module's 1e-5 and `momentum` its decay (0.9, the flax
+    `ConvBN`'s default). `act` is the activation (ReLU by default, None
     for none, any callable: PoseProposal's leaky ReLU); `bias` gives the conv
     a bias, as flax's `use_bias` does.
 
@@ -58,13 +104,13 @@ class ConvBN(nn.Module):
     def __init__(self, in_features: int, features: int,
                  dtype: torch.dtype = torch.float32, kernel: int = 3,
                  stride: int = 1, act: Callable | None = torch.relu,
-                 bias: bool = False):
+                 bias: bool = False, momentum: float = 0.9):
         super().__init__()
         self.kernel, self.stride, self.act = kernel, stride, act
         self.conv = nn.Conv2d(in_features, features, kernel, stride=stride,
                               padding=kernel // 2 if stride == 1 else 0,
                               bias=bias, dtype=dtype)
-        self.bn = nn.BatchNorm2d(features, eps=1e-5, dtype=dtype)
+        self.bn = FlaxBatchNorm2d(features, momentum, dtype=dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.stride > 1:
@@ -261,7 +307,7 @@ class Resnet50(nn.Module):
     pool, and bottleneck groups of 3, 4, 6 and 3 blocks (`b<g>_<i>`). With
     `scale_size=32` groups 3 and 4 also stride 2; `use_pool=False` with it is
     PifPaf's stride-16 trunk (368x432 -> 23x27). The pretraining head of the
-    flax module is not ported (it belongs to training)."""
+    flax module is not ported yet (only ImageNet pretraining builds it)."""
 
     out_channels = 2048
 
@@ -320,8 +366,8 @@ class Resnet18(nn.Module):
     `b3_2`, `b4_1` (256), `b4_2`, `b5_1` (512), the first block of each
     width with the projection `ds`. With `scale_size=32`, `b4_1` and `b5_1`
     also stride 2 (PoseProposal: 384x384 -> 12x12); at 8 the trunk has
-    stride 8. The pretraining head of the flax module is not ported (it
-    belongs to training)."""
+    stride 8. The pretraining head of the flax module is not ported yet
+    (only ImageNet pretraining builds it)."""
 
     out_channels = 512
 
@@ -367,15 +413,16 @@ class DepthwiseConv(nn.Module):
 
 class SeparableBlock(nn.Module):
     """Depthwise conv `dw` + BN `bn1` + ReLU, then the 1x1 conv `pw` + BN
-    `bn2` + ReLU (BN eps 1e-5, flax's default)."""
+    `bn2` + ReLU (BN eps 1e-5, flax's default; decay 0.99, the flax
+    module's)."""
 
     def __init__(self, in_features: int, features: int, stride: int = 1,
                  dilation: int = 1, dtype: torch.dtype = torch.float32):
         super().__init__()
         self.dw = DepthwiseConv(in_features, stride=stride, dilation=dilation, dtype=dtype)
-        self.bn1 = nn.BatchNorm2d(in_features, eps=1e-5, dtype=dtype)
+        self.bn1 = FlaxBatchNorm2d(in_features, 0.99, dtype=dtype)
         self.pw = nn.Conv2d(in_features, features, 1, bias=False, dtype=dtype)
-        self.bn2 = nn.BatchNorm2d(features, eps=1e-5, dtype=dtype)
+        self.bn2 = FlaxBatchNorm2d(features, 0.99, dtype=dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = torch.relu(self.bn1(self.dw(x)))
@@ -384,16 +431,17 @@ class SeparableBlock(nn.Module):
 
 class MobilenetDilated(nn.Module):
     """Dilated MobileNetV1 at stride 8, the Lightweight-OpenPose backbone:
-    a 3x3 stride-2 `stem` ConvBN (32), then separable blocks `sep_0` ..
-    `sep_10` (64, 128/2, 128, 256/2, 256, 512, 512 dilated 2, 512 x 4). With
-    `scale_size=32`, `sep_6` and `sep_8` also stride 2."""
+    a 3x3 stride-2 `stem` ConvBN (32, BN decay 0.999), then separable
+    blocks `sep_0` .. `sep_10` (64, 128/2, 128, 256/2, 256, 512, 512
+    dilated 2, 512 x 4). With `scale_size=32`, `sep_6` and `sep_8` also
+    stride 2."""
 
     out_channels = 512
 
     def __init__(self, scale_size: int = 8, dtype: torch.dtype = torch.float32):
         super().__init__()
         s = 2 if scale_size == 32 else 1
-        self.stem = ConvBN(3, 32, dtype, stride=2)
+        self.stem = ConvBN(3, 32, dtype, stride=2, momentum=0.999)
         plan = [(64, 1, 1), (128, 2, 1), (128, 1, 1), (256, 2, 1), (256, 1, 1),
                 (512, 1, 1), (512, s, 2), (512, 1, 1), (512, s, 1), (512, 1, 1),
                 (512, 1, 1)]
@@ -503,7 +551,7 @@ class InvertedResidual(nn.Module):
     ReLU6 (none at expansion 1), the 3x3 depthwise `dw` (carrying the
     stride) + `bn1` + ReLU6, the 1x1 `project` conv + `bn2` with no
     activation; plus the identity only where the stride is 1 and the widths
-    are equal."""
+    are equal. BN decay 0.99, flax's default."""
 
     def __init__(self, in_features: int, features: int, stride: int = 1,
                  exp_ratio: int = 6, dtype: torch.dtype = torch.float32):
@@ -513,11 +561,11 @@ class InvertedResidual(nn.Module):
         self.expand = self.bn0 = None
         if exp_ratio != 1:
             self.expand = nn.Conv2d(in_features, hidden, 1, bias=False, dtype=dtype)
-            self.bn0 = nn.BatchNorm2d(hidden, eps=1e-5, dtype=dtype)
+            self.bn0 = FlaxBatchNorm2d(hidden, 0.99, dtype=dtype)
         self.dw = DepthwiseConv(hidden, stride=stride, dtype=dtype)
-        self.bn1 = nn.BatchNorm2d(hidden, eps=1e-5, dtype=dtype)
+        self.bn1 = FlaxBatchNorm2d(hidden, 0.99, dtype=dtype)
         self.project = nn.Conv2d(hidden, features, 1, bias=False, dtype=dtype)
-        self.bn2 = nn.BatchNorm2d(features, eps=1e-5, dtype=dtype)
+        self.bn2 = FlaxBatchNorm2d(features, 0.99, dtype=dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         y = x if self.expand is None else F.relu6(self.bn0(self.expand(x)))

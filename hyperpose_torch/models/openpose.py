@@ -4,7 +4,7 @@ the MobileNet-Thin and MobileNet-Small OpenPose models.
 Counterpart of `hyperpose_tpu/models/openpose.py` `LightWeightOpenPose`,
 `prelu`, `PRelu`, `_ConvPRelu`, `_CmuStage`, `OpenPose`, `_SepBNBlock`,
 `SeparableConv`, `_SepSmallBlock`, `_SepStage`, `_ThinSmallOpenPose`,
-`MobilenetThinOpenpose` and `MobilenetSmallOpenpose` (reference:
+`MobilenetThinOpenpose`, `MobilenetSmallOpenpose` and `openpose_loss` (reference:
 hyperpose/Model/openpose/model/{openpose,lw_openpose,mbv2_th_openpose,
 mbv2_sm_openpose}.py). The networks run NCHW inside (channels-last memory is
 fine) and, like the flax modules, take NHWC images and return NHWC maps
@@ -22,7 +22,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from .backbones import (
-    ConvBN, DepthwiseConv, MobilenetDilated, MobilenetSmall, MobilenetThin, Vgg19,
+    ConvBN, DepthwiseConv, FlaxBatchNorm2d, MobilenetDilated, MobilenetSmall, MobilenetThin,
+    Vgg19,
 )
 
 N_CONFMAPS = 19   # 18 COCO parts + background
@@ -49,11 +50,12 @@ def _conv(cin: int, cout: int, k: int, dtype: torch.dtype) -> nn.Conv2d:
 
 
 class _LwConvBlock(nn.Module):
-    """conv3x3 + BN(relu) (reference: lw_openpose.py:193-198 conv_block)."""
+    """conv3x3 + BN(relu), BN decay 0.99 (reference: lw_openpose.py:193-198
+    conv_block)."""
 
     def __init__(self, cin: int, features: int, dtype: torch.dtype):
         super().__init__()
-        self.cb = ConvBN(cin, features, dtype=dtype)
+        self.cb = ConvBN(cin, features, dtype=dtype, momentum=0.99)
 
     def forward(self, x):
         return self.cb(x)
@@ -257,7 +259,7 @@ class OpenPose(nn.Module):
 class _SepBNBlock(nn.Module):
     """The thin variant's stage block: the depthwise conv `dw` + BN `bn1`
     + act, then the 1x1 conv `pw` (no bias) + BN `bn2` + act; act (ReLU, or
-    None for a stage's output block) runs after both BNs
+    None for a stage's output block) runs after both BNs; BN decay 0.99
     (reference: mbv2_th_openpose.py:171-178)."""
 
     def __init__(self, cin: int, features: int, kernel: int = 3,
@@ -265,9 +267,9 @@ class _SepBNBlock(nn.Module):
         super().__init__()
         self.act = act
         self.dw = DepthwiseConv(cin, kernel, dtype=dtype)
-        self.bn1 = nn.BatchNorm2d(cin, eps=1e-5, dtype=dtype)
+        self.bn1 = FlaxBatchNorm2d(cin, 0.99, dtype=dtype)
         self.pw = nn.Conv2d(cin, features, 1, bias=False, dtype=dtype)
-        self.bn2 = nn.BatchNorm2d(features, eps=1e-5, dtype=dtype)
+        self.bn2 = FlaxBatchNorm2d(features, 0.99, dtype=dtype)
 
     def forward(self, x):
         x = self.bn1(self.dw(x))
@@ -305,15 +307,15 @@ class SeparableConv(nn.Module):
 
 class _SepSmallBlock(nn.Module):
     """The small variant's stage block: `sep` (a SeparableConv with act) and
-    BN `bn` + act, so the activation runs twice, as the reference builds it
-    (mbv2_sm_openpose.py:166-171)."""
+    BN `bn` (decay 0.999) + act, so the activation runs twice, as the
+    reference builds it (mbv2_sm_openpose.py:166-171)."""
 
     def __init__(self, cin: int, features: int, kernel: int = 3,
                  act: Callable | None = torch.relu, dtype: torch.dtype = torch.float32):
         super().__init__()
         self.act = act
         self.sep = SeparableConv(cin, features, kernel, act, dtype)
-        self.bn = nn.BatchNorm2d(features, eps=1e-5, dtype=dtype)
+        self.bn = FlaxBatchNorm2d(features, 0.999, dtype=dtype)
 
     def forward(self, x):
         x = self.bn(self.sep(x))
@@ -403,3 +405,23 @@ def MobilenetSmallOpenpose(n_confmaps: int = N_CONFMAPS, n_pafmaps: int = N_PAFM
         n_confmaps, n_pafmaps, backbone or MobilenetSmall, 4,
         [(128, 3), (128, 3), (128, 3), (512, 1)],
         [(128, 7), (128, 7), (128, 7), (128, 1)], "small", dtype, ret_backbone)
+
+
+def openpose_loss(predict: dict, gt_conf: torch.Tensor, gt_paf: torch.Tensor,
+                  mask: torch.Tensor | None = None) -> tuple[torch.Tensor, dict]:
+    """Staged L2 loss: 0.5 * sum((gt - stage map) * mask)^2 for the conf and
+    PAF maps of every stage (tf.nn.l2_loss), their mean over stages, / batch
+    (reference: openpose/model/openpose.py:89-117 cal_loss). NHWC maps,
+    compared in float32; `mask` [B, H, W, 1] is 1 where the loss applies.
+    Returns (loss, {"conf_loss", "paf_loss"}: the last stage's, / batch)."""
+    batch = gt_conf.shape[0]
+    m = 1.0 if mask is None else mask
+    conf_losses, paf_losses, stage_losses = [], [], []
+    for conf, paf in zip(predict["stage_confs"], predict["stage_pafs"]):
+        lc = 0.5 * torch.sum(torch.square((gt_conf - conf.to(torch.float32)) * m))
+        lp = 0.5 * torch.sum(torch.square((gt_paf - paf.to(torch.float32)) * m))
+        stage_losses += [lc, lp]
+        conf_losses.append(lc)
+        paf_losses.append(lp)
+    pd_loss = torch.stack(stage_losses).mean() / batch
+    return pd_loss, {"conf_loss": conf_losses[-1] / batch, "paf_loss": paf_losses[-1] / batch}

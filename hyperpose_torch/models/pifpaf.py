@@ -1,9 +1,10 @@
 """PifPaf (composite fields) in PyTorch.
 
-Counterpart of `hyperpose_tpu/models/pifpaf.py` `pixel_shuffle_nhwc` and
-`Pifpaf` (reference: hyperpose/Model/pifpaf/model.py), and of the PifPaf
-branch of `hyperpose_tpu/models/__init__.py` `_fused_decode_for`
-(`pifpaf_fused_decode`). The losses wait for the training slice.
+Counterpart of `hyperpose_tpu/models/pifpaf.py` `pixel_shuffle_nhwc`,
+`Pifpaf` and its losses `soft_clamp`, `bce_loss`, `laplace_loss`,
+`scale_loss` and `pifpaf_loss` (reference: hyperpose/Model/pifpaf/model.py),
+and of the PifPaf branch of `hyperpose_tpu/models/__init__.py`
+`_fused_decode_for` (`pifpaf_fused_decode`).
 
 Like the flax module, the network takes NHWC images and returns raw
 (pre-activation) NHWC fields:
@@ -11,6 +12,9 @@ Like the flax module, the network takes NHWC images and returns raw
   pif_conf  [B, H, W, P]     pif_vec  [B, H, W, P, 2]
   pif_bmin  [B, H, W, P]     pif_scale [B, H, W, P]
   paf_*     the same with the L limb fields and src/dst pairs.
+
+(`pif_bmin` and the `paf_*_bmin` fields are the Laplace log-scales the
+losses read.)
 """
 from __future__ import annotations
 
@@ -45,12 +49,15 @@ class Pifpaf(nn.Module):
     (its fields then come out at half that backbone's stride). `hin` and
     `win` are the flax module's fields (the input size of the training
     targets); the forward does not read them. `dtype` is the compute and
-    parameter type."""
+    parameter type. `ret_backbone` adds the trunk's output, NHWC, as
+    `backbone_features` (the flax call argument; domain adaptation reads
+    it)."""
 
     def __init__(self, n_pos: int = 17, n_limbs: int = 19, hin: int = 368, win: int = 432,
                  quad_size: int = 2, backbone: Callable[..., nn.Module] | None = None,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, ret_backbone: bool = False):
         super().__init__()
+        self.ret_backbone = ret_backbone
         self.n_pos, self.n_limbs, self.quad_size = n_pos, n_limbs, quad_size
         self.hin, self.win, self.dtype = hin, win, dtype
         if backbone is None:
@@ -79,7 +86,7 @@ class Pifpaf(nn.Module):
 
         pif = fields(self.pif_head, self.n_pos, 5)
         paf = fields(self.paf_head, self.n_limbs, 9)
-        return {
+        out = {
             "pif_conf": pif[..., 0],
             "pif_vec": pif[..., 1:3],
             "pif_bmin": pif[..., 3],
@@ -92,6 +99,82 @@ class Pifpaf(nn.Module):
             "paf_src_scale": paf[..., 7],
             "paf_dst_scale": paf[..., 8],
         }
+        if self.ret_backbone:
+            out["backbone_features"] = bf.permute(0, 2, 3, 1)
+        return out
+
+
+def soft_clamp(x: torch.Tensor, max_value: float = 5.0) -> torch.Tensor:
+    """log-soften values above max_value (reference: model.py:95-100). The
+    gradient at x == max_value is JAX's: `torch.maximum` splits a tie in
+    half as `jnp.maximum` does (`clamp_min` would pass it whole)."""
+    d = x - max_value
+    return torch.where(x >= max_value,
+                       max_value + torch.log1p(torch.maximum(d, torch.zeros_like(d))), x)
+
+
+def _valid(gt: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """(not-NaN mask, gt with NaN as 0): NaN marks a don't-care target."""
+    valid = ~torch.isnan(gt)
+    return valid, torch.where(valid, gt, 0.0)
+
+
+def bce_loss(pd_conf: torch.Tensor, gt_conf: torch.Tensor, focal_gamma: float = 1.0):
+    """NaN-masked focal BCE on logits, summed and / batch (reference:
+    model.py:101-120 Bce_loss)."""
+    valid, gt = _valid(gt_conf)
+    z = torch.clamp(pd_conf, -30, 30)
+    bce = torch.maximum(z, torch.zeros_like(z)) - z * gt + torch.log1p(torch.exp(-z.abs()))
+    bce = soft_clamp(bce)
+    if focal_gamma != 0.0:
+        p = torch.sigmoid(z)
+        focal = 1.0 - (p * gt + (1 - p) * (1 - gt))
+        if focal_gamma != 1.0:
+            focal = (focal + 1e-4) ** focal_gamma
+        bce = focal * bce * 0.5
+    return torch.where(valid, bce, 0.0).sum() / pd_conf.shape[0]
+
+
+def laplace_loss(pd_vec, pd_logb, gt_vec, gt_bmin):
+    """NaN-masked Laplace regression of [..., 2] vectors with log-scale
+    3 * tanh(logb / 3), summed and / batch (reference: model.py:122-146)."""
+    valid = ~torch.isnan(gt_vec[..., 0])
+    gvx = torch.where(valid, gt_vec[..., 0], 0.0)
+    gvy = torch.where(valid, gt_vec[..., 1], 0.0)
+    gbm = torch.where(valid, torch.nan_to_num(gt_bmin), 0.0)
+    norm = torch.sqrt((pd_vec[..., 0] - gvx) ** 2 + (pd_vec[..., 1] - gvy) ** 2 + gbm ** 2)
+    logb = 3.0 * torch.tanh(pd_logb / 3.0)
+    loss = logb + soft_clamp(norm * torch.exp(-logb))
+    return torch.where(valid, loss, 0.0).sum() / pd_vec.shape[0]
+
+
+def scale_loss(pd_scale, gt_scale):
+    """NaN-masked relative L1 on softplus scales, summed and / batch
+    (reference: model.py:148-159). softplus is log(1 + e^x) as
+    `jax.nn.softplus` computes it (`F.softplus` returns x beyond 20)."""
+    valid, gt = _valid(gt_scale)
+    pd = torch.logaddexp(pd_scale, torch.zeros_like(pd_scale))
+    loss = soft_clamp((pd - gt).abs() / (10.0 * (0.1 + gt)))
+    return torch.where(valid, loss, 0.0).sum() / pd_scale.shape[0]
+
+
+def pifpaf_loss(predict: dict, target: dict) -> tuple[torch.Tensor, dict]:
+    """(total, parts): the eight composite-field losses under the JAX
+    package's names, every lambda 1 (reference: model.py:161-224 cal_loss)."""
+    parts = {
+        "loss_pif_conf": bce_loss(predict["pif_conf"], target["pif_conf"]),
+        "loss_pif_vec": laplace_loss(predict["pif_vec"], predict["pif_bmin"],
+                                     target["pif_vec"], target["pif_bmin"]),
+        "loss_pif_scale": scale_loss(predict["pif_scale"], target["pif_scale"]),
+        "loss_paf_conf": bce_loss(predict["paf_conf"], target["paf_conf"]),
+        "loss_paf_src_vec": laplace_loss(predict["paf_src_vec"], predict["paf_src_bmin"],
+                                         target["paf_src_vec"], target["paf_src_bmin"]),
+        "loss_paf_dst_vec": laplace_loss(predict["paf_dst_vec"], predict["paf_dst_bmin"],
+                                         target["paf_dst_vec"], target["paf_dst_bmin"]),
+        "loss_paf_src_scale": scale_loss(predict["paf_src_scale"], target["paf_src_scale"]),
+        "loss_paf_dst_scale": scale_loss(predict["paf_dst_scale"], target["paf_dst_scale"]),
+    }
+    return sum(parts.values()), parts
 
 
 def pifpaf_fused_decode(

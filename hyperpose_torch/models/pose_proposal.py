@@ -1,10 +1,10 @@
 """PoseProposal in PyTorch.
 
-Counterpart of `hyperpose_tpu/models/pose_proposal.py` `PoseProposal` and
-its `restore_coor` (reference: hyperpose/Model/pose_proposal/model.py:37-119),
-and of the PoseProposal branch of `hyperpose_tpu/models/__init__.py`
-`_fused_decode_for` (`ppn_fused_decode`). The loss waits for the training
-slice.
+Counterpart of `hyperpose_tpu/models/pose_proposal.py` `PoseProposal`, its
+`restore_coor`, `_iou` and `pose_proposal_loss` (reference:
+hyperpose/Model/pose_proposal/model.py:37-168), and of the PoseProposal
+branch of `hyperpose_tpu/models/__init__.py` `_fused_decode_for`
+(`ppn_fused_decode`).
 
 Like the flax module, the network takes NHWC images and returns, after a
 float32 sigmoid, the grid maps c, i, x, y, w, h as NHWC [B, hout, wout, K]
@@ -35,13 +35,20 @@ class PoseProposal(nn.Module):
     bias -> sigmoid in float32. `backbone` is a class built as
     `backbone(scale_size=32, dtype=dtype)`, as the flax module builds it.
     `hin` and `win` are the input size `restore_coor` scales to, as in the
-    flax module; `dtype` is the compute and parameter type."""
+    flax module; `dtype` is the compute and parameter type. `lmd_*` are the
+    loss weights `pose_proposal_loss` reads (reference: config_ppn.py);
+    `ret_backbone` adds the backbone's output, NHWC, as
+    `backbone_features`."""
 
     def __init__(self, K: int = 18, L: int = 17, hnei: int = 9, wnei: int = 9,
                  hin: int = 384, win: int = 384,
                  backbone: Callable[..., nn.Module] = Resnet18,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, lmd_rsp: float = 0.25,
+                 lmd_iou: float = 1.0, lmd_coor: float = 5.0, lmd_size: float = 5.0,
+                 lmd_limb: float = 0.5, ret_backbone: bool = False):
         super().__init__()
+        self.lmd_rsp, self.lmd_iou, self.lmd_coor = lmd_rsp, lmd_iou, lmd_coor
+        self.lmd_size, self.lmd_limb, self.ret_backbone = lmd_size, lmd_limb, ret_backbone
         self.K, self.L, self.hnei, self.wnei = K, L, hnei, wnei
         self.hin, self.win, self.dtype = hin, win, dtype
         self.backbone = backbone(scale_size=32, dtype=dtype)
@@ -53,12 +60,14 @@ class PoseProposal(nn.Module):
     def forward(self, x: torch.Tensor) -> dict:
         """x: NHWC images [B, H, W, 3]. Returns the flax module's dict of
         float32 views (see the module docstring)."""
-        y = self.add2(self.add1(self.backbone(x.permute(0, 3, 1, 2).to(self.dtype))))
-        y = torch.sigmoid(self.head(y).to(torch.float32))
+        bf = self.backbone(x.permute(0, 3, 1, 2).to(self.dtype))
+        y = torch.sigmoid(self.head(self.add2(self.add1(bf))).to(torch.float32))
         k = self.K
         maps = y.permute(0, 2, 3, 1)
         out = {name: maps[..., i * k:(i + 1) * k] for i, name in enumerate("cixywh")}
         out["e"] = y[:, 6 * k:].unflatten(1, (self.L, self.hnei, self.wnei))
+        if self.ret_backbone:
+            out["backbone_features"] = bf.permute(0, 2, 3, 1)
         return out
 
     def restore_coor(self, x, y, w, h, hout: int, wout: int):
@@ -70,6 +79,56 @@ class PoseProposal(nn.Module):
         gx = torch.arange(wout, dtype=torch.float32, device=x.device).reshape(1, 1, wout, 1)
         gy = torch.arange(hout, dtype=torch.float32, device=x.device).reshape(1, hout, 1, 1)
         return (x + gx) * gsx, (y + gy) * gsy, w * self.win, h * self.hin
+
+
+def _iou(b1, b2):
+    """IoU of center-format boxes (x, y, w, h) (reference: model.py cal_iou)."""
+    x1, y1, w1, h1 = b1
+    x2, y2, w2, h2 = b2
+    ix = torch.relu(torch.minimum(x1 + w1 / 2, x2 + w2 / 2)
+                    - torch.maximum(x1 - w1 / 2, x2 - w2 / 2))
+    iy = torch.relu(torch.minimum(y1 + h1 / 2, y2 + h2 / 2)
+                    - torch.maximum(y1 - h1 / 2, y2 - h2 / 2))
+    inter = ix * iy
+    return inter / (w1 * h1 + w2 * h2 - inter + 1e-6)
+
+
+def pose_proposal_loss(model: PoseProposal, predict: dict, target: dict,
+                       eps: float = 1e-6) -> tuple[torch.Tensor, dict]:
+    """(total, parts): the lambda-weighted squared errors of the response,
+    IoU, coordinates, box sizes and limbs, each summed per image and
+    averaged over the batch, with the ground truth's cell masks (reference:
+    model.py:133-168 cal_loss). `target` is `data.targets.ppn_targets`'s."""
+    pc, px, py = predict["c"], predict["x"], predict["y"]
+    pw, ph, pi, pe = predict["w"], predict["h"], predict["i"], predict["e"]
+    gc, gx, gy = target["c"], target["x"], target["y"]
+    gw, gh, ge, gem = target["w"], target["h"], target["e"], target["e_mask"]
+
+    hout, wout = gc.shape[1], gc.shape[2]
+    ti = _iou(model.restore_coor(gx, gy, gw, gh, hout, wout),
+              model.restore_coor(px, py, pw, ph, hout, wout))
+    mask_point = torch.clamp_max(gc + torch.where(gc < 0.5, 1e-5, 0.0), 1.0)
+    mask_edge = torch.clamp_max(gem + torch.where(gem < 0.5, 1e-5, 0.0), 1.0)
+    half = torch.where(gc < 0.5, 0.5, 0.0)
+
+    def msum(v):
+        return v.sum(dim=tuple(range(1, v.ndim))).mean()
+
+    def root(v):
+        return torch.sqrt(v + eps)
+
+    parts = {
+        "loss_rsp": model.lmd_rsp * msum((gc - pc) ** 2),
+        "loss_iou": model.lmd_iou * msum(gc * (ti - pi) ** 2),
+        "loss_coor": model.lmd_coor * msum(
+            mask_point * ((gx - px - half) ** 2 + (gy - py - half) ** 2)),
+        "loss_size": model.lmd_size * msum(
+            mask_point * ((root(gw) - root(pw)) ** 2 + (root(gh) - root(ph)) ** 2)),
+        "loss_limb": model.lmd_limb * msum(mask_edge * (ge - pe) ** 2),
+    }
+    total = (parts["loss_rsp"] + parts["loss_iou"] + parts["loss_coor"] + parts["loss_size"]
+             + parts["loss_limb"])
+    return total, parts
 
 
 def ppn_fused_decode(model: PoseProposal, cfg: PpnDecoderConfig | None = None,

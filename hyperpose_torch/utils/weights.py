@@ -6,7 +6,8 @@ The JAX package saves weights as one flat npz of "/"-joined flax paths
 `batch_stats/.../mean|var`. The port's modules carry the flax module names,
 so a path maps to a `state_dict` key by renaming its last part:
 
-    params/<p>/kernel   -> <p>.weight         (HWIO -> OIHW)
+    params/<p>/kernel   -> <p>.weight         (HWIO -> OIHW; a Dense kernel
+                                               [in, out] -> [out, in])
     params/<p>/bias     -> <p>.bias
     params/<p>/scale    -> <p>.weight         (BatchNorm)
     batch_stats/<p>/mean -> <p>.running_mean
@@ -70,7 +71,7 @@ def flax_to_state_dict(src) -> dict[str, torch.Tensor]:
         if table is None or leaf not in table or not path:
             raise KeyError(f"unexpected flax weight {name!r}")
         if leaf == "kernel":
-            arr = arr.transpose(3, 2, 0, 1)
+            arr = arr.transpose(3, 2, 0, 1) if arr.ndim == 4 else arr.T
         key = ".".join(path + [table[leaf]])
         out[key] = torch.from_numpy(np.ascontiguousarray(arr))
     return out
@@ -103,13 +104,15 @@ def load_flax_weights(model: nn.Module, src) -> nn.Module:
 
 
 def state_dict_to_flax(state_dict: Mapping[str, torch.Tensor]) -> dict[str, np.ndarray]:
-    """The inverse of `flax_to_state_dict`: flat flax-layout numpy arrays."""
+    """The inverse of `flax_to_state_dict`: flat flax-layout numpy arrays,
+    float32 (float64 for a float64 tensor)."""
     out = {}
     for key, t in state_dict.items():
         *path, leaf = key.split(".")
         if leaf == "num_batches_tracked":
             continue
-        arr = t.detach().to("cpu", torch.float32).numpy()
+        dtype = torch.float64 if t.dtype == torch.float64 else torch.float32
+        arr = t.detach().to("cpu", dtype).numpy()
         p = "/".join(path)
         if leaf in _BARE_PARAMS:
             out["/".join(["params", *path, leaf])] = arr
@@ -119,6 +122,8 @@ def state_dict_to_flax(state_dict: Mapping[str, torch.Tensor]) -> dict[str, np.n
         elif leaf == "weight" and arr.ndim == 4:
             out[f"params/{p}/kernel"] = np.ascontiguousarray(
                 arr.transpose(2, 3, 1, 0))
+        elif leaf == "weight" and arr.ndim == 2:
+            out[f"params/{p}/kernel"] = np.ascontiguousarray(arr.T)
         elif leaf == "weight" and arr.ndim == 1:
             out[f"params/{p}/scale"] = arr
         elif leaf == "bias":

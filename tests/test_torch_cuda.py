@@ -47,7 +47,12 @@ peak_topk exact on planes beyond a block's shared memory (the planes in
 scratch, and at 344x344 the survivor lists too); `jax_resize_cubic` within
 1e-6 of the largest value of the CPU's; one flagship batch's upsampled maps
 within 1e-4 of their largest value of the CPU's and its skeletons within
-the decode tolerances, with TF32 on outside the evaluator.
+the decode tolerances, with TF32 on outside the evaluator. Training: one
+f32 step (TF32 off) of the flagship, PoseProposal and PifPaf at a small size
+against the CPU, the loss within 1e-5 relative and the new BatchNorm
+statistics within 1e-5, the card's gradients within 2e-2 in relative L2 of a
+float64 step on the card over all and within 0.1 each
+(`chip_smoke.check_step1`).
 """
 import numpy as np
 import pytest
@@ -1108,3 +1113,34 @@ def test_family_int8_engines_on_card(cuda, kind):
         assert len(seen) == spec.n_int8 and sum(c.depthwise for c, _ in seen) == spec.n_dw
         _convs_equal_plain(seen, kind)        # both exit non-zero on a mismatch
         assert _convs_card_vs_cpu(seen, kind) == spec.n_int8
+
+
+# -- training: step 1 on the card against the CPU ------------------------------
+
+TRAIN_CASES = {  # name -> (model type, backbone, input, keypoint slots)
+    "flagship": ("LightweightOpenpose", "Vggtiny", (64, 80), 19),
+    "ppn": ("PoseProposal", "Default", (128, 128), 18),
+    "pifpaf": ("Pifpaf", "Default", (64, 64), 17),
+}
+
+
+@pytest.mark.parametrize("name", list(TRAIN_CASES))
+def test_train_step1_on_card_matches_cpu(cuda, tmp_path, name):
+    """One f32 training step (TF32 off) of the same flax-initialized trainer
+    on the card and on the CPU at a small size, batch 2, on a seeded batch
+    (tests/torch_train_cases.py): the loss, every new BatchNorm statistic,
+    and the gradients against a float64 step on the card, as
+    `chip_smoke.train_step1_vs_cpu` measures them and `check_step1` bounds
+    them."""
+    from chip_smoke import _train_cfg, check_step1, train_step1_vs_cpu
+    from torch_train_cases import bbxs_of, crowd_mask, random_people
+
+    model_type, backbone, hw, n_parts = TRAIN_CASES[name]
+    cfg = _train_cfg(model_type, "float32", f"card_test_{name}", backbone, hw=hw, batch=2)
+    cfg.model.model_dir = str(tmp_path)
+    kpts, valid = random_people(30, 2, 4, n_parts, hw)
+    rng = np.random.default_rng(31)
+    batch = {"images": rng.integers(0, 256, (2, *hw, 3), dtype=np.uint8), "kpts": kpts,
+             "valid": valid, "mask": crowd_mask(2, (cfg.model.hout, cfg.model.wout)),
+             "bbxs": bbxs_of(kpts, valid)}
+    check_step1(train_step1_vs_cpu(cfg, batch))    # exits non-zero on a mismatch

@@ -51,7 +51,11 @@ def test_port_has_sources():
                 "data/__init__.py", "data/augment.py", "data/base.py", "data/mscoco.py",
                 "data/mpii.py", "data/multi.py", "data/synthetic.py", "eval/__init__.py",
                 "eval/coco_eval.py", "eval/mpii_eval.py", "eval/evaluate.py",
-                "tools/__init__.py", "tools/eval.py", "tools/official_test.py"):
+                "tools/__init__.py", "tools/eval.py", "tools/official_test.py",
+                "tools/train.py", "data/targets.py", "data/pipeline.py", "data/dmadapt.py",
+                "train/__init__.py", "train/init.py", "train/optim.py",
+                "train/checkpoint.py", "train/trainer.py", "train/domainadapt.py",
+                "train/pretrain.py", "train/metrics.py"):
         assert f"hyperpose_torch/{rel}" in PORT_FILES
     assert len(PORT_FILES) >= 50
 
