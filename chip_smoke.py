@@ -66,8 +66,18 @@ batch in f32 and bf16 (timed), the trained npz served and scored, a
 checkpoint resumed bit for bit, the entry point
 `hyperpose_torch.tools.train --synthetic` for 2 steps and resumed for 2
 more, and one step each of PoseProposal, PifPaf and domain adaptation
-against the CPU; training launches none of the kernels. It checks that each path went
-through its kernels.
+against the CPU; training launches none of the kernels. Then `pretrain`
+(VggTiny's classifier pretraining at 224x224, batch 32, on a synthetic
+twin: step 1 against the CPU, timed f32 and bf16 steps, `single_pretrain`
+for 100 steps with the scheduled lr / 5, a resume bit for bit, the npz
+grafted into the flagship), `parallel` (ranks spawned by this script through
+tests/torch_dist_worker.py: 2-rank Sync_sgd at 368x432 against one process
+in float64 and float32, NCCL at world size 1, Sync_avg and Pair_avg
+against one process standing for the ranks on the card (and, recorded,
+against the CPU), the sharded stream engine on 16 bf16 frames with its kernels
+launched once per rank, a `device_profile` trace) and `tl_import` (the
+flagship written in the TensorLayer layout, imported back and served). It
+checks that each path went through its kernels.
 
 Every phase prints one line; any failure
 exits non-zero before the result line. The last line is
@@ -79,6 +89,7 @@ from __future__ import annotations
 import copy
 import itertools
 import json
+import math
 import os
 import re
 import shutil
@@ -3004,6 +3015,495 @@ def phase_train(card, frames) -> dict:
     return served
 
 
+# -- pretraining, multi-rank training and serving, the TensorLayer import ----------
+
+FLAGSHIP_NPZ = os.path.join(REPO, "weights", "flagship_tinyvgg.npz")
+PRETRAIN_ROOT = os.path.join(REPO, "build", "pretrain_synth")   # gitignored
+PRETRAIN_SIZE, PRETRAIN_BATCH = 224, 32   # PretrainConfig's batch, the reference's size
+PRETRAIN_STEPS = 30      # timed steps in each dtype
+PRETRAIN_RUN = 100       # steps of `single_pretrain`; the loss must fall below 0.8x
+PRETRAIN_LOSS_RTOL = 1e-5   # step 1, card vs CPU, f32 with TF32 off, 4 images
+
+
+def _pretrain_cfg(tag: str, **over):
+    """The port's pretraining config (PretrainConfig's lr 5e-4, wd 1e-5,
+    batch 32), its model dir emptied under PRETRAIN_ROOT/runs/<tag>."""
+    from hyperpose_torch import config as Config
+
+    Config.reset()
+    Config.set_pretrain(True)
+    kw = dict(log_interval=10 ** 9, val_interval=10 ** 9, save_interval=10 ** 9,
+              lr_decay_step=10 ** 9, pretrain_model_dir=os.path.join(PRETRAIN_ROOT, "runs", tag))
+    kw.update(over)
+    for k, v in kw.items():
+        Config._set("pretrain", k, v)
+    cfg = Config.get_config(create_dirs=False)
+    Config.reset()
+    shutil.rmtree(cfg.pretrain.pretrain_model_dir, ignore_errors=True)
+    return cfg
+
+
+def pretrain_resume(train_root: str) -> dict:
+    """`single_pretrain` on the card with cuDNN's deterministic algorithms
+    at 64x64, batch 8, lr / 5 every 2 steps: 2 steps (a checkpoint), then a
+    run that resumes to step 4, against the same 4 steps taken straight in
+    memory on the batches the resumed run reads (its data order restarts,
+    as the JAX loop's does). Equal bit for bit, and the decayed lr kept."""
+    import torch
+    from hyperpose_torch.models.backbones import VggTiny
+    from hyperpose_torch.train import pretrain as PP
+
+    det = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        cfg = _pretrain_cfg("resume", batch_size=8, lr_decay_step=2, save_interval=2)
+        ds, _ = PP.load_imagenet_splits(train_root, 64)
+        PP.single_pretrain(VggTiny, cfg, dataset=ds, n_step=2, device="cuda")
+        resumed, _ = PP.single_pretrain(VggTiny, cfg, dataset=ds, n_step=4, device="cuda")
+        lr_saved = torch.load(os.path.join(cfg.pretrain.pretrain_model_dir, "ckpt", "4.pt"),
+                              map_location="cpu")["optimizer"]["lr"]
+        model = PP.pretrain_model(VggTiny, 64, "cuda")
+        opt = PP.pretrain_optimizer(model, cfg)
+        step = PP.PretrainStep(model, opt, torch.float32)
+        for _ in range(2):      # each run's data: a fresh seed-0 epoch
+            for (images, labels), _ in zip(ds.batches(8, np.random.default_rng(0)), range(2)):
+                step(images, labels)
+            opt.set_learning_rate(opt.learning_rate / 5.0)
+    finally:
+        torch.backends.cudnn.deterministic = det
+    a, b = resumed.state_dict(), model.state_dict()
+    return {"bitwise": all(torch.equal(a[k], b[k]) for k in b),
+            "max_abs_diff": max(float((a[k].double() - b[k].double()).abs().max()) for k in b),
+            "lr_kept": lr_saved == opt.learning_rate, "lr": lr_saved}
+
+
+def phase_pretrain(card) -> dict:
+    """ImageNet pretraining on the card: VggTiny with its classifier head at
+    224x224, batch 32, Adam with decayed weights (lr 5e-4, wd 1e-5), on a
+    10-class synthetic twin the port generates at 224 (20 train and 5 val
+    images a class): step 1 on 4 images against the CPU in f32 (TF32 off);
+    PRETRAIN_STEPS timed steps in f32 and in bf16 on one batch (median /
+    p80, images/s, device busy ms, idle share, kernels a step, peak
+    memory); `single_pretrain` for PRETRAIN_RUN steps in bf16 (the loss must
+    fall below 0.8x; a scheduled lr / 5 at step 50; validation top-1 at
+    steps 50 and 100); a resume bit for bit (`pretrain_resume`); the npz
+    grafted into the flagship (its count). Pretraining launches none of the
+    kernels (counted over the timed steps)."""
+    import torch
+    from hyperpose_torch.data.synthetic import generate_synthetic_imagenet
+    from hyperpose_torch.models.backbones import VggTiny
+    from hyperpose_torch.models.openpose import LightWeightOpenPose
+    from hyperpose_torch.train import pretrain as PP
+
+    t_phase = time.perf_counter()
+    shutil.rmtree(PRETRAIN_ROOT, ignore_errors=True)
+    root = generate_synthetic_imagenet(os.path.join(PRETRAIN_ROOT, "data"), n_classes=10,
+                                       n_train_per_class=20, n_val_per_class=5,
+                                       size=PRETRAIN_SIZE, seed=0)
+    train_ds, val_ds = PP.load_imagenet_splits(root, PRETRAIN_SIZE)
+    images, labels = next(train_ds.batches(PRETRAIN_BATCH, np.random.default_rng(0)))
+    cfg = _pretrain_cfg("steps")
+    losses = {}
+    for device in ("cpu", "cuda"):
+        m = PP.pretrain_model(VggTiny, PRETRAIN_SIZE, device)
+        losses[device] = float(PP.PretrainStep(m, PP.pretrain_optimizer(m, cfg), torch.float32)
+                               .loss_and_grads(images[:4], labels[:4])[0])
+        del m
+    step1 = {"loss": losses["cuda"], "cpu_loss": losses["cpu"],
+             "loss_rel": abs(losses["cuda"] - losses["cpu"]) / abs(losses["cpu"])}
+    check(step1["loss_rel"] <= PRETRAIN_LOSS_RTOL, f"pretrain step 1 vs CPU: {step1}")
+    counters = _launch_counters()
+    for k in counters:
+        k.launches = 0
+    runs = {}
+    for key, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+        m = PP.pretrain_model(VggTiny, PRETRAIN_SIZE, "cuda")
+        step = PP.PretrainStep(m, PP.pretrain_optimizer(m, cfg), dtype)
+
+        def one():
+            step(images, labels)
+
+        med, p80 = wall_ms(one, iters=PRETRAIN_STEPS, warmup=3)
+        torch.cuda.reset_peak_memory_stats()
+        busy, kernels = device_busy(one, iters=3)
+        runs[key] = {"step_ms": med, "step_p80_ms": p80,
+                     "images_per_s": 1e3 * PRETRAIN_BATCH / med, "device_busy_ms": busy,
+                     "idle_share": 1.0 - busy / med, "kernels_per_step": kernels,
+                     "peak_memory_bytes": torch.cuda.max_memory_allocated()}
+        del m, step
+        torch.cuda.empty_cache()
+    launched = {k.__name__: k.launches for k in counters if k.launches}
+    check(not launched, f"a pretraining step launched a serving kernel: {launched}")
+    run_cfg = _pretrain_cfg("run", log_interval=1, val_interval=50, lr_decay_step=50)
+    t0 = time.perf_counter()
+    model, history = PP.single_pretrain(VggTiny, run_cfg, dataset=train_ds, val_dataset=val_ds,
+                                        n_step=PRETRAIN_RUN, device="cuda",
+                                        compute_dtype=torch.bfloat16)
+    run_s = time.perf_counter() - t0
+    first, last = history["log"][0]["loss"], history["log"][-1]["loss"]
+    check(last < 0.8 * first, f"pretraining loss {first} -> {last}")
+    check(history["lr_events"] == [("schedule", 50), ("schedule", 100)],
+          f"pretraining lr events {history['lr_events']}")
+    npz = os.path.join(run_cfg.pretrain.pretrain_model_dir, "newest_VggTiny.npz")
+    grafted = PP.load_pretrained_backbone(LightWeightOpenPose(backbone=VggTiny), npz)
+    check(grafted == 45, f"the pretrained npz grafted {grafted} tensors into the flagship")
+    del model
+    torch.cuda.empty_cache()
+    resume = pretrain_resume(os.path.join(root, "train"))
+    check(resume["bitwise"] and resume["lr_kept"], f"pretraining resume: {resume}")
+    out = {"model": "VggTiny (pretraining head, fc1 18816 -> 4096)", "input": PRETRAIN_SIZE,
+           "batch": PRETRAIN_BATCH, "optimizer": "Adam + decayed weights, lr 5e-4, wd 1e-5",
+           "step1_vs_cpu": step1, "runs": runs,
+           "single_pretrain": {"steps": PRETRAIN_RUN, "seconds": run_s, "first_loss": first,
+                               "last_loss": last, "loss_ratio": last / first,
+                               "lr_events": history["lr_events"], "val": history["val"]},
+           "resume": resume, "grafted_into_flagship": grafted,
+           "seconds": time.perf_counter() - t_phase}
+    emit("pretrain", card=card, **out)
+    return out
+
+
+PARALLEL_ROOT = os.path.join(REPO, "build", "parallel")   # gitignored
+PARALLEL_X64_RTOL = 1e-9     # ranks against one process on the same device, float64
+PARALLEL_MODES_SEED = 30
+PARALLEL_LOSS_RTOL = 1e-6    # the losses, which sum float32 casts of the maps
+PARALLEL_SMALL = {"model": "flagship", "model_type": "LightweightOpenpose", "hw": [64, 80],
+                  "out_hw": [8, 10], "batch": 8}   # the narrow flagship, as the CPU tests
+
+
+def _rank_inputs(tag: str, spec: dict, arrays: dict) -> str:
+    import torch_dist_worker as W
+
+    path = os.path.join(PARALLEL_ROOT, tag)
+    shutil.rmtree(path, ignore_errors=True)
+    W.write_inputs(path, spec, arrays)
+    return path
+
+
+def ranks_vs_one_process(ranks: list, ref: dict, tag: str,
+                         rtol: float = PARALLEL_X64_RTOL) -> float:
+    """The largest relative difference of any output under `tag` between a
+    rank and the one-process run (each tensor's max |value|, floored at
+    1e-6 of its collection's largest; the metrics, float32 losses, in their
+    own bound): fails beyond `rtol` (PARALLEL_LOSS_RTOL for the metrics)."""
+    keys = [k for k in ref if k.startswith(tag + "/") and not k.endswith("step_s")]
+    top: dict = {}
+    for k in keys:
+        g = k.split("/")[1]
+        top[g] = max(top.get(g, 0.0), float(np.abs(ref[k]).max()))
+    worst = 0.0
+    for r, out in enumerate(ranks):
+        for k in keys:
+            e = float(np.abs(np.asarray(out[k], np.float64) - ref[k]).max()) / max(
+                float(np.abs(ref[k]).max()), 1e-6 * top[k.split("/")[1]], 1e-30)
+            metric = "/metrics/" in k or k.split("/")[1].startswith("step")
+            bound = max(PARALLEL_LOSS_RTOL, rtol) if metric else rtol
+            check(e <= bound, f"rank {r} {k}: {e} from one process")
+            if not metric:
+                worst = max(worst, e)
+    return worst
+
+
+def _rel_l2(got: dict, want: dict) -> tuple[float, float]:
+    """(worst tensor, over all) relative L2 distance of the tensors `got`
+    from `want` (same keys; each norm floored at 1e-4 of the largest
+    tensor's)."""
+    top = max(float(np.linalg.norm(v)) for v in want.values())
+    per = {k: float(np.linalg.norm(got[k] - v)) / max(float(np.linalg.norm(v)), 1e-4 * top)
+           for k, v in want.items()}
+    whole = (sum(float(np.sum((got[k] - v) ** 2)) for k, v in want.items())
+             / sum(float(np.sum(v ** 2)) for v in want.values())) ** 0.5
+    return max(per.values()), whole
+
+
+def _grads_vs_f64(out: dict, ref: dict) -> tuple[float, float]:
+    """(worst tensor, over all) relative L2 distance of `out`'s float32
+    gradients from `ref`'s float64 ones (`_rel_l2`)."""
+    return _rel_l2({k[9:]: v for k, v in out.items() if k.startswith("f32/grads/")},
+                   {k[9:]: v for k, v in ref.items() if k.startswith("f64/grads/")})
+
+
+def _state_vs(out: dict, ref: dict, mode: str) -> tuple[float, float]:
+    """`_rel_l2` of the state a sync-modes rank holds after its steps (its
+    weights, statistics and Adam's moments) from `ref`'s."""
+    keys = [k for k in ref if k.startswith(mode + "/") and k.split("/")[1] in (
+        "after", "mu", "nu")]
+    return _rel_l2({k: np.asarray(out[k], np.float64) for k in keys}, {k: ref[k] for k in keys})
+
+
+def phase_parallel(card, frames) -> dict:
+    """Multi-process training and serving on the card, ranks spawned by this
+    script (tests/torch_dist_worker.py). Two ranks share the one card, so
+    they join a gloo group (NCCL refuses two ranks on one device), whose
+    all-gather and sends stage CUDA tensors through the host. Returns the
+    sharded engine's launches per rank.
+
+    - Sync_sgd: 2 ranks, each 4 rows of the flagship's batch 8 at 368x432
+      (the flagship checkpoint's weights, a seeded pipeline batch), one
+      Adam step in float64 and in float32, against one process on the card:
+      float64 within 1e-9, float32 held to that float64 step with PR 14's
+      bounds (0.1 a tensor, 2e-2 over all, relative L2);
+    - NCCL at world size 1: a float32 step with cuDNN deterministic equal
+      bit for bit to the one-process step;
+    - Sync_avg and Pair_avg, `sync_modes_on_card`;
+    - `ShardedStreamEngine`: 2 ranks, the bf16 flagship, 16 frames: the
+      people of one engine on the same 16 frames, and per rank one launch
+      of `peak_topk` and of `limb_scores` for its step;
+    - one step under `tracing.device_profile`: its trace lists CUDA kernels.
+
+    The walls are recorded: two ranks share one card, so they are not a
+    scaling number."""
+    import torch
+    import torch_dist_worker as W
+    from hyperpose_torch.models.backbones import VggTiny
+    from hyperpose_torch.models.openpose import LightWeightOpenPose
+    from hyperpose_torch.ops.image import resize_bilinear
+    from hyperpose_torch.runtime.engine import PoseEngine
+    from hyperpose_torch.utils.human import SkeletonBatch
+    from hyperpose_torch.utils.tracing import device_profile
+    from hyperpose_torch.utils.weights import read_flax_weights
+
+    t_phase = time.perf_counter()
+    shutil.rmtree(PARALLEL_ROOT, ignore_errors=True)
+    if not os.path.isdir(os.path.join(TRAIN_ROOT, "train2017")):
+        from hyperpose_torch.data.synthetic import generate_synthetic_coco
+
+        generate_synthetic_coco(TRAIN_ROOT, n_train=TRAIN_SCENES, n_val=8, seed=0,
+                                emit_mpii=False)
+    flagship = {f"w/{k}": v for k, v in read_flax_weights(FLAGSHIP_NPZ).items()}
+    cfg = _train_cfg("LightweightOpenpose", "float32", "parallel", "Vggtiny")
+    full = {"model": "flagship_full", "model_type": "LightweightOpenpose",
+            "hw": list(INPUT_HW), "out_hw": [INPUT_HW[0] // 8, INPUT_HW[1] // 8],
+            "batch": cfg.train.batch_size, "device": "cuda", "backend": "gloo"}
+    batch = {f"b0/{k}": v for k, v in _train_batches(cfg, 1)[0][0].items()}
+    sgd = _rank_inputs("sync_sgd", full, {**flagship, **batch})
+    nccl = _rank_inputs("nccl1", dict(full, backend="nccl", tags=["f32"], deterministic=True),
+                        {**flagship, **batch})
+    stream_frames = [resize_bilinear(f, INPUT_HW) for f in frames[:BATCH]]
+    stream_frames = np.stack(stream_frames + [f[:, ::-1] for f in stream_frames])
+    stream = _rank_inputs("stream", {"hw": list(INPUT_HW), "dtype": "bfloat16",
+                                     "device": "cuda"}, {**flagship, "frames": stream_frames})
+
+    t0 = time.perf_counter()
+    runs = {"sync_sgd": W.start("sync_sgd", 2, sgd, timeout=600)}
+    ref = W.run_case("sync_sgd", sgd)
+    ref_s = {k: float(v) for k, v in ref.items() if k.endswith("step_s")}
+    ranks = W.finish(runs.pop("sync_sgd"))
+    sgd_s = time.perf_counter() - t0
+    x64 = ranks_vs_one_process(ranks, ref, "f64")
+    f32 = [_grads_vs_f64(o, ref) for o in ranks + [ref]]
+    for tensor, whole in f32:
+        check(tensor <= TRAIN_GRAD_TENSOR and whole <= TRAIN_GRAD_L2,
+              f"2-rank float32 gradients vs float64: {tensor}, {whole}")
+
+    det = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        nccl_run = W.start("sync_sgd", 1, nccl, timeout=300)
+        nccl_ref = W.run_case("sync_sgd", nccl)
+        (nccl_out,) = W.finish(nccl_run)
+    finally:
+        torch.backends.cudnn.deterministic = det
+    nccl_equal = all(np.array_equal(nccl_out[k], v) for k, v in nccl_ref.items()
+                     if not k.endswith("step_s"))
+    check(nccl_equal, "an NCCL group of one changed the step")
+
+    modes = sync_modes_on_card(PARALLEL_MODES_SEED)
+
+    one = PoseEngine(LightWeightOpenPose(backbone=VggTiny, dtype=torch.bfloat16), FLAGSHIP_NPZ,
+                     input_hw=INPUT_HW, max_batch_size=BATCH, device="cuda")
+    one.warmup()
+    t0 = time.perf_counter()
+    stream_run = W.start("stream", 2, stream, timeout=300)
+    singles = [one.infer_batch_device(stream_frames[i:i + BATCH]) for i in (0, BATCH)]
+    stream_ranks = W.finish(stream_run)
+    stream_s = time.perf_counter() - t0
+    fields = ("coords", "part_scores", "part_valid", "scores", "valid")
+    ref_sk = SkeletonBatch(*(np.concatenate([getattr(d, f).cpu().numpy() for d in singles])
+                             for f in fields))
+    people, launches = 0, []
+    for r, out in enumerate(stream_ranks):
+        sk = SkeletonBatch(*(out[f"global/{f}"] for f in fields))
+        for i in range(len(stream_frames)):
+            want, got = ref_sk.to_humans(i), sk.to_humans(i)
+            d = find_people(want, got)
+            check(len(want) == len(got) and d is not None and d <= INT8_TOL["xy"],
+                  f"rank {r} frame {i}: {len(got)} people vs one engine's {len(want)} ({d})")
+            people += len(want) if r == 0 else 0
+        launches.append({"peak_topk": int(out["launches/peak_topk"]),
+                         "limb_scores": int(out["launches/limb_scores"])})
+        check(launches[-1] == {"peak_topk": 1, "limb_scores": 1},
+              f"rank {r}'s sharded step launched {launches[-1]}")
+
+    tr = _trainer(cfg, "cuda")
+    tr.step(_train_batches(cfg, 1)[0][0])
+    prof_dir = os.path.join(PARALLEL_ROOT, "profile")
+    with device_profile(prof_dir):
+        tr.step(_train_batches(cfg, 1)[0][0])
+        torch.cuda.synchronize()
+    with open(os.path.join(prof_dir, "trace.json")) as f:
+        trace_kernels = sum(e.get("cat") == "kernel" for e in json.load(f)["traceEvents"])
+    check(trace_kernels > 0, "device_profile's trace lists no CUDA kernel")
+    del tr, one
+    torch.cuda.empty_cache()
+    out = {"note": "two ranks share one card: not a scaling number",
+           "sync_sgd": {"ranks": 2, "rows_per_rank": full["batch"] // 2, "input": full["hw"],
+                        "f64_max_rel_vs_one_process": x64,
+                        "f32_grad_tensor_max_rel_l2_vs_f64": [t for t, _ in f32],
+                        "f32_grad_rel_l2_vs_f64": [w for _, w in f32],
+                        "rank_step_s": {k: [float(o[k]) for o in ranks]
+                                        for k in ("f64/step_s", "f32/step_s")},
+                        "one_process_step_s": ref_s, "wall_s": sgd_s},
+           "nccl_world_1_bitwise": nccl_equal,
+           "sync_modes": modes,
+           "stream": {"ranks": 2, "frames": len(stream_frames), "dtype": "bf16",
+                      "people": people, "launches_per_rank": launches,
+                      "rank_global_s": [float(o["global_s"]) for o in stream_ranks],
+                      "wall_s": stream_s},
+           "device_profile_kernels": trace_kernels,
+           "seconds": time.perf_counter() - t_phase}
+    emit("parallel", card=card, **out)
+    return launches
+
+
+def sync_modes_on_card(seed: int, gate: bool = True) -> dict:
+    """Sync_avg (2 ranks, 3 steps) and Pair_avg (4 ranks, 2 steps, so both
+    pairings) at the CPU tests' size (the narrow flagship, 64x80, batch 8,
+    random weights and batches from `seed`), float64 steps, cuDNN
+    deterministic: the card's gloo ranks within PARALLEL_X64_RTOL of one
+    process standing for them on the card
+    (`torch_dist_worker.one_process_sync_modes`; with `gate` False, nothing
+    fails). Recorded beside it, not bounded: the card's ranks against the
+    CPU's gloo ranks, and the target entries the two devices build more
+    than 1e-3 apart (none on seeds 30 to 42). The losses sum float32 casts
+    of the maps, so each device's float64 gradients carry float32 rounding,
+    and these few-row steps amplify it: on seeds 30 to 42 the card's state
+    after the steps lay 9e-9 to 0.06 apart from the CPU's in relative L2
+    (PERF.md §5), and on the CPU alone a 1e-7 relative change of the
+    initial weights moves seed 32's Sync_avg state by 0.35. No bound on the
+    card against the CPU holds for every seed."""
+    import torch
+    import torch_dist_worker as W
+    from hyperpose_torch.data.targets import openpose_targets
+    from hyperpose_torch.utils.topology import COCO_TOPOLOGY
+    from hyperpose_torch.utils.weights import random_flax_weights
+
+    small = {f"w/{k}": v for k, v in random_flax_weights(
+        W.make_model("flagship")[0], 5).items()}
+    rng = np.random.default_rng(seed)
+    for i in range(3):
+        small.update({f"b{i}/{k}": v for k, v in _small_batch(rng).items()})
+    # target entries that the two devices' float32 put on either side of a
+    # threshold (the Gaussian's cutoff, a limb band's edges)
+    apart = []
+    for i in range(3):
+        maps = [openpose_targets(*(torch.as_tensor(small[f"b{i}/{k}"][:, :, :18], device=d)
+                                   for k in ("kpts", "valid")), COCO_TOPOLOGY.limbs,
+                                 tuple(PARALLEL_SMALL["hw"]), tuple(PARALLEL_SMALL["out_hw"]))
+                for d in ("cuda", "cpu")]
+        apart.append(sum(int((maps[0][k].cpu() - maps[1][k]).abs().gt(1e-3).sum())
+                         for k in maps[1]))
+    paths = {}
+    for mode, world, steps in (("sync_avg", 2, 3), ("pair_avg", 4, 2)):
+        arrays = {k: v for k, v in small.items()
+                  if k.startswith("w/") or int(k[1]) < steps}
+        for device in ("cuda", "cpu"):
+            paths[mode, device] = (_rank_inputs(f"{mode}_{device}", dict(
+                PARALLEL_SMALL, modes=[mode], device=device, deterministic=True), arrays),
+                world)
+    t0 = time.perf_counter()
+    started = {key: W.start("sync_modes", world, path, timeout=600)
+               for key, (path, world) in paths.items()}
+    t1 = time.perf_counter()
+    one = {mode: W.one_process_sync_modes(*paths[mode, "cuda"]) for mode in ("sync_avg",
+                                                                            "pair_avg")}
+    one_s = time.perf_counter() - t1
+    done = {key: W.finish(run) for key, run in started.items()}
+    wall_s = time.perf_counter() - t0
+    out = {"seed": seed, "vs_one_process_on_card_max_rel": {}, "card_vs_cpu_max_rel": {},
+           "card_vs_cpu_rel_l2": {}, "target_entries_apart": apart}
+    for mode in ("sync_avg", "pair_avg"):
+        out["vs_one_process_on_card_max_rel"][mode] = max(
+            ranks_vs_one_process([a], b, mode, PARALLEL_X64_RTOL if gate else math.inf)
+            for a, b in zip(done[mode, "cuda"], one[mode]))
+        out["card_vs_cpu_max_rel"][mode] = max(
+            ranks_vs_one_process([a], b, mode, math.inf)
+            for a, b in zip(done[mode, "cuda"], done[mode, "cpu"]))
+        l2 = [_state_vs(a, b, mode) for a, b in zip(done[mode, "cuda"], done[mode, "cpu"])]
+        out["card_vs_cpu_rel_l2"][mode] = {"tensor": max(t for t, _ in l2),
+                                           "whole": max(w for _, w in l2)}
+    out.update(one_process_s=one_s, wall_s=wall_s)
+    for path, _ in paths.values():
+        shutil.rmtree(path, ignore_errors=True)   # float64 states: tens of MB a rank
+    return out
+
+
+def sync_modes_readings(seeds) -> None:
+    """`sync_modes_on_card` on each of `seeds` (one JSON line each, no
+    bound applied): how far the card and the CPU lie apart across data.
+    Needs no kernel."""
+    import torch
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    card = phase_card()
+    for seed in seeds:
+        emit("sync_modes_reading", card=card, **sync_modes_on_card(int(seed), gate=False))
+
+
+def _small_batch(rng) -> dict:
+    """A seeded batch of PARALLEL_SMALL's size (tests/torch_train_cases.py):
+    keypoints with every case the targets treat apart, a crowd mask."""
+    from torch_train_cases import bbxs_of, crowd_mask, random_people
+
+    (h, w), b = PARALLEL_SMALL["hw"], PARALLEL_SMALL["batch"]
+    kpts, valid = random_people(int(rng.integers(1 << 30)), b, 4, 19, (h, w))
+    kpts[:, :, 18] = -1000.0
+    valid[:, :, 18] = False
+    return {"images": rng.integers(0, 256, (b, h, w, 3), dtype=np.uint8), "kpts": kpts,
+            "valid": valid, "mask": crowd_mask(b, tuple(PARALLEL_SMALL["out_hw"])),
+            "bbxs": bbxs_of(kpts, valid)}
+
+
+def phase_tl_import(card) -> dict:
+    """The flagship checkpoint written in the reference's TensorLayer
+    npz_dict layout (tests/tl_fixtures.py's names and build order,
+    tests/torch_tl_layout.py), imported back by
+    `utils.weights_import.import_tl_checkpoint` and served on the card in
+    f32: the synthetic frame's 2 people with JAX's scores."""
+    import torch
+    from tl_fixtures import lw_openpose_entries, save_tl_npz_dict
+    from torch_tl_layout import tl_layout
+    from hyperpose_torch.models.backbones import VggTiny
+    from hyperpose_torch.models.openpose import LightWeightOpenPose
+    from hyperpose_torch.runtime.engine import PoseEngine
+    from hyperpose_torch.utils.tl_orders import ORDER_KEYS
+    from hyperpose_torch.utils.weights import read_flax_weights
+    from hyperpose_torch.utils.weights_import import import_tl_checkpoint
+
+    t0 = time.perf_counter()
+    order = ORDER_KEYS["LightweightOpenpose"]
+    path = os.path.join(REPO, "build", "tl_flagship.npz")
+    entries = tl_layout(lw_openpose_entries("vggtiny")[0], read_flax_weights(FLAGSHIP_NPZ),
+                        order)
+    save_tl_npz_dict(entries, path)
+    model = import_tl_checkpoint(LightWeightOpenPose(backbone=VggTiny), path, order)
+    eng = PoseEngine(model, None, input_hw=INPUT_HW, max_batch_size=1, device="cuda")
+    frame = np.load(os.path.join(REPO, "hyperpose_torch", "assets",
+                                 "synth_000000001601.npz"))["rgb"]
+    humans, launched = drive(eng, [frame])
+    scores = sorted((h.score for h in humans[0]), reverse=True)
+    check(len(scores) == 2 and float(np.abs(np.array(scores) - FLAGSHIP_SCORES).max()) <= 1e-3,
+          f"the TL-imported flagship found {scores}")
+    del eng, model
+    torch.cuda.empty_cache()
+    out = {"tl_entries": len(entries), "people": len(scores), "scores": scores,
+           "launches": {k: v for k, v in launched.items() if v},
+           "seconds": time.perf_counter() - t0}
+    emit("tl_import", card=card, **out)
+    return out
+
+
 def seeded_rng():
     """The generator of the painted maps, frames and stream frames: seed 0,
     past a [B, 19, 2, 46, 54] normal draw and two [B, 19, 2560] integer
@@ -3024,6 +3524,9 @@ def main() -> None:
         return
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this smoke test needs a GPU")
+    if sys.argv[1:2] == ["--sync-modes-readings"]:
+        sync_modes_readings(sys.argv[2:])
+        return
     from hyperpose_torch.utils.topology import COCO_TOPOLOGY
 
     torch.backends.cudnn.allow_tf32 = False
@@ -3079,6 +3582,11 @@ def main() -> None:
     t_train = time.perf_counter()
     train_served = phase_train(card, frames)
     t_train = time.perf_counter() - t_train
+    t_new = time.perf_counter()
+    phase_pretrain(card)
+    stream_launches = phase_parallel(card, frames)
+    phase_tl_import(card)
+    t_new = time.perf_counter() - t_new
     # The depthwise kernel's own path: the 11 depthwise convs of the int8
     # LightWeightOpenPose() step (bf16 activations).
     lw = dw_rows["lw_mobilenet"]
@@ -3106,7 +3614,8 @@ def main() -> None:
          facade_cli_phase_seconds=t_facade, lw_resnet18_f32_launches=lw_r18["f32"],
          facade_cli_launches=facade, evaluate_phase_seconds=t_eval,
          evaluate_launches=evaluation, train_phase_seconds=t_train,
-         train_serving_launches=train_served)
+         train_serving_launches=train_served, pretrain_parallel_tl_import_seconds=t_new,
+         sharded_stream_launches_per_rank=stream_launches)
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -58,8 +58,8 @@ class SYNC(Enum):
     """Distributed gradient-exchange modes, the JAX package's equivalents of
     the reference's KungFu options (reference: Config/define.py:33-36):
     Sync_sgd -> gradient all-reduce; Sync_avg -> weight averaging;
-    Pair_avg -> pairwise gossip averaging. The port trains Sync_sgd on one
-    device; the other two are not ported yet."""
+    Pair_avg -> pairwise gossip averaging. The port runs each across the
+    ranks of a `torch.distributed` group (`parallel/`)."""
 
     Sync_sgd = 0
     Sync_avg = 1

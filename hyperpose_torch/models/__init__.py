@@ -14,8 +14,8 @@ JAX package's flat npz (`utils/weights.py`). `get_evaluate` and `get_test`
 build the `Evaluator` (`eval/evaluate.py`). The training half:
 `get_loss_fn`, `get_augmentor`, `get_preprocessor` (the family's target
 generator, `data/targets.py`) and `get_train` (the `Trainer`,
-`train/trainer.py`). ImageNet pretraining (`get_pretrain`) is not ported
-yet.
+`train/trainer.py`), `get_pretrain` (`train/pretrain.py`) and
+`get_visualizer` (`utils/visualize.py`).
 """
 from __future__ import annotations
 
@@ -179,8 +179,9 @@ def get_train(config: Config):
     `Trainer` on `device` (and, with domain adaptation, the unlabeled images
     through `UnlabeledPipeline`); returns the trained model, whose weights
     are also in `<model_dir>/newest_model.npz` (reference:
-    Model/__init__.py:147-211). Single_train and Parallel_train both train
-    on one device here."""
+    Model/__init__.py:147-211). Single_train and Parallel_train map to the
+    same `Trainer`, which spans every rank of the process group when one is
+    initialised."""
     from ..data.pipeline import TrainPipeline
     from ..train.trainer import Trainer
 
@@ -318,3 +319,21 @@ def get_test(config: Config):
         return ev.test(limit=limit, test_dir=config.test.vis_dir)
 
     return test
+
+
+def get_visualizer(config: Config):
+    """The config's custom visualizer, or a `Visualizer` of its topology
+    writing under `train.vis_dir`."""
+    from ..utils.visualize import Visualizer
+
+    if config.model.custom_visualizer is not None:
+        return config.model.custom_visualizer
+    return Visualizer(topology=get_topology(config), save_dir=config.train.vis_dir)
+
+
+def get_pretrain(config: Config):
+    """`single_pretrain(backbone_cls, ...)` bound to `config` (reference:
+    Model/__init__.py:144, Model/pretrain.py:39)."""
+    from ..train.pretrain import single_pretrain
+
+    return partial(single_pretrain, config=config)

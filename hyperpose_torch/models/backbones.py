@@ -8,9 +8,9 @@ Counterpart of `hyperpose_tpu/models/backbones.py` `ConvBN`, `VggTiny`,
 `Resnet50`, `ResBlock18`, `Resnet18`, `DepthwiseConv`, `SeparableBlock`,
 `MobilenetV1`, `InvertedResidual`, `MobilenetV2`, `MobilenetDilated`,
 `MobilenetThin`, `MobilenetSmall`, `jax_resize_nearest` and the
-`BACKBONES` name table (the `pretraining` classifier heads, which only
-ImageNet pretraining builds, are not ported yet), with the numpy remaps that
-turn a VggTiny checkpoint into either serving form (reference:
+`BACKBONES` name table, each with the flax module's `pretraining` variant
+that ImageNet pretraining builds (`train/pretrain.py`), with the numpy remaps
+that turn a VggTiny checkpoint into either serving form (reference:
 hyperpose/Model/backbones.py:201-232, 343-391, 512-586, 587-697). Modules
 run NCHW; the submodule names follow the flax module names, so the flat
 weight layout maps one to one (`utils/weights.py`).
@@ -21,6 +21,8 @@ the decay of the flax module it ports.
 """
 from __future__ import annotations
 
+import contextlib
+import contextvars
 from typing import Callable
 
 import numpy as np
@@ -48,6 +50,34 @@ def same_pads(hw, kernel: int, stride: int) -> tuple[int, int, int, int]:
     return tuple(out)
 
 
+# The process group whose ranks' batches a train-mode FlaxBatchNorm2d
+# normalises together (`cross_rank_batchnorm`); None: this rank's batch.
+_BN_GROUP: contextvars.ContextVar = contextvars.ContextVar("hyperpose_bn_group", default=None)
+
+
+@contextlib.contextmanager
+def cross_rank_batchnorm(group):
+    """Inside the block, every train-mode `FlaxBatchNorm2d` takes its batch
+    statistics over the ranks of `group` (None: this rank's batch alone),
+    as flax's `jnp.mean` over a batch sharded across devices does: the
+    trainer's Sync_sgd step sets it, and Sync_avg / Pair_avg leave it
+    unset."""
+    token = _BN_GROUP.set(group)
+    try:
+        yield
+    finally:
+        _BN_GROUP.reset(token)
+
+
+def _group_sum(t: torch.Tensor, group) -> torch.Tensor:
+    """The sum of `t` over the ranks of `group`, differentiable: its
+    backward sums the ranks' gradients, since every rank's loss depends on
+    every rank's activations through the statistics."""
+    from torch.distributed.nn.functional import all_reduce
+
+    return all_reduce(t, group=group)
+
+
 class FlaxBatchNorm2d(nn.BatchNorm2d):
     """`nn.BatchNorm2d` that trains as flax's `nn.BatchNorm(use_fast_variance=
     False)` does.
@@ -61,7 +91,13 @@ class FlaxBatchNorm2d(nn.BatchNorm2d):
     passes), y = (x - mean) * (rsqrt(var + eps) * weight) + bias cast back
     to the input's dtype, and, without gradient, running = m * running +
     (1 - m) * batch with that biased variance (`nn.BatchNorm2d` stores the
-    unbiased one)."""
+    unbiased one).
+
+    Under `cross_rank_batchnorm(group)` with more than one rank, the mean
+    is the all-reduced sum over every rank's N, H and W over the all-reduced
+    count, and the variance the all-reduced sum of (x - mean)^2 over it: the
+    statistics of the global batch, with gradients that cross the ranks.
+    Outside it, or in a group of one, the computation above, bit for bit."""
 
     def __init__(self, num_features: int, momentum: float = 0.99, eps: float = 1e-5,
                  dtype: torch.dtype = torch.float32):
@@ -75,8 +111,17 @@ class FlaxBatchNorm2d(nn.BatchNorm2d):
         # they are given.
         dt = torch.promote_types(x.dtype, torch.float32)
         xf = x.to(dt)
-        mean = xf.mean(dim=(0, 2, 3))
-        var = (xf - mean.view(1, -1, 1, 1)).square().mean(dim=(0, 2, 3))
+        group = _BN_GROUP.get()
+        if group is not None and torch.distributed.get_world_size(group) > 1:
+            count = torch.full((1,), xf.numel() // xf.shape[1], dtype=dt, device=xf.device)
+            sums = _group_sum(torch.cat([xf.sum(dim=(0, 2, 3)), count]), group)
+            n = sums[-1]
+            mean = sums[:-1] / n
+            var = _group_sum((xf - mean.view(1, -1, 1, 1)).square().sum(dim=(0, 2, 3)),
+                             group) / n
+        else:
+            mean = xf.mean(dim=(0, 2, 3))
+            var = (xf - mean.view(1, -1, 1, 1)).square().mean(dim=(0, 2, 3))
         with torch.no_grad():
             # New tensors, not in-place updates: a forward in eval mode
             # earlier in the same step (domain adaptation's features) saved
@@ -147,33 +192,86 @@ def _run_blocks(module: nn.Module, plan: list, x: torch.Tensor) -> torch.Tensor:
     return x
 
 
+def _halved(image_size, times: int, first_floor: bool = False) -> tuple[int, int]:
+    """(H, W) of a square `image_size` (or an (H, W) pair) after `times`
+    halvings as SAME stride-2 convs and SAME 2x2 pools round (up); with
+    `first_floor` the first halving is a 2x2 packing (down)."""
+    hw = (image_size, image_size) if isinstance(image_size, int) else tuple(image_size)
+    out = []
+    for n in hw:
+        for i in range(times):
+            n = n // 2 if first_floor and i == 0 else -(-n // 2)
+        out.append(n)
+    return tuple(out)
+
+
+def _add_classifier_head(module: nn.Module, in_features: int, hidden,
+                         dtype: torch.dtype) -> None:
+    """flax `_classifier_head`'s dense layers on `module`: `fc1`, `fc2`, ...
+    of `hidden` widths (ReLU after each) and `fc_out` (1000 classes).
+    `in_features` is what flax's `Dense` infers at `init`: the H x W x C of
+    the features it flattens."""
+    module._fcs = []
+    for i, h in enumerate(hidden):
+        module.add_module(f"fc{i + 1}", nn.Linear(in_features, h, dtype=dtype))
+        module._fcs.append(f"fc{i + 1}")
+        in_features = h
+    module.fc_out = nn.Linear(in_features, 1000, dtype=dtype)
+
+
+def _run_classifier_head(module: nn.Module, x: torch.Tensor) -> torch.Tensor:
+    """NCHW features -> logits [N, 1000]: flattened in NHWC order, as flax
+    reshapes them (so a flax `fc1` kernel carries across), then the dense
+    layers of `_add_classifier_head`."""
+    x = x.permute(0, 2, 3, 1).reshape(x.shape[0], -1)
+    for name in module._fcs:
+        x = torch.relu(getattr(module, name)(x))
+    return module.fc_out(x)
+
+
+def _mean_head(x: torch.Tensor, fc_out: nn.Linear) -> torch.Tensor:
+    """The MobileNets' and ResNets' pretraining head: the mean over H and W,
+    then `fc_out`."""
+    return fc_out(x.mean(dim=(2, 3)))
+
+
 class _S32Tail(nn.Module):
     """The stride-32 tail of the TinyVGG backbones: `block_s32_{0,1,2}`,
-    ConvBN(384) at strides 2, 1, 2 (none at scale 8)."""
+    ConvBN(384) at strides 2, 1, 2 (none at scale 8 without pretraining),
+    and with `pretraining` the classifier head `fc1` (4096), `fc2` (4096),
+    `fc_out` on the flattened features of an `image_size` input."""
 
-    def _add_s32(self, scale_size: int, dtype: torch.dtype) -> None:
+    def _add_s32(self, scale_size: int, pretraining: bool, image_size, dtype: torch.dtype,
+                 halvings: int, first_floor: bool = False) -> None:
+        self.pretraining = pretraining
         self._s32 = []
-        if scale_size == 32:
+        if scale_size == 32 or pretraining:
             for j, s in enumerate((2, 1, 2)):
                 self.add_module(f"block_s32_{j}", ConvBN(384, 384, dtype=dtype, stride=s))
                 self._s32.append(f"block_s32_{j}")
+        if pretraining:
+            h, w = _halved(image_size, halvings, first_floor)
+            _add_classifier_head(self, h * w * 384, (4096, 4096), dtype)
 
     def _run_s32(self, x: torch.Tensor) -> torch.Tensor:
         for name in self._s32:
             x = getattr(self, name)(x)
-        return x
+        return _run_classifier_head(self, x) if self.pretraining else x
 
 
 class VggTiny(_S32Tail):
     """TinyVGG at scale 8: conv-BN stacks 32-64 / 128-128 / 200x3 / 384x2
-    with 3 pools, on RGB input; `scale_size=32` adds `block_s32_*`."""
+    with 3 pools, on RGB input; `scale_size=32` adds `block_s32_*`, and
+    `pretraining` adds them and the classifier head (logits [N, 1000]) for
+    `image_size` inputs."""
 
     out_channels = 384
 
-    def __init__(self, scale_size: int = 8, dtype: torch.dtype = torch.float32):
+    def __init__(self, scale_size: int = 8, dtype: torch.dtype = torch.float32,
+                 pretraining: bool = False, image_size=224):
         super().__init__()
         self._plan = _add_blocks(self, (32, 64, "pool") + _TAIL, 3, 0, dtype)
-        self._add_s32(scale_size, dtype)
+        self._add_s32(scale_size, pretraining, image_size, dtype, 5)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self._run_s32(_run_blocks(self, self._plan, x))
@@ -183,17 +281,19 @@ class VggTinyS2D(_S32Tail):
     """The trainable space-to-depth TinyVGG of the JAX package (no reference
     counterpart): each 2x2 patch packed into 12 channels (channel
     (py*2+px)*3 + c), then conv-BN stacks 64-64 / 128-128-200x3 / 384x2
-    with 2 pools, stride 8 in all; `scale_size=32` adds `block_s32_*`. Its
-    own weights: a VggTiny checkpoint does not map onto it (the exact remap
-    is `VggTinyS2DStem`)."""
+    with 2 pools, stride 8 in all; `scale_size=32` adds `block_s32_*` and
+    `pretraining` the classifier head too, as `VggTiny`'s. Its own weights:
+    a VggTiny checkpoint does not map onto it (the exact remap is
+    `VggTinyS2DStem`)."""
 
     out_channels = 384
 
-    def __init__(self, scale_size: int = 8, dtype: torch.dtype = torch.float32):
+    def __init__(self, scale_size: int = 8, dtype: torch.dtype = torch.float32,
+                 pretraining: bool = False, image_size=224):
         super().__init__()
         cfg = (64, 64, "pool", 128, 128, 200, 200, 200, "pool", 384, 384)
         self._plan = _add_blocks(self, cfg, 12, 0, dtype)
-        self._add_s32(scale_size, dtype)
+        self._add_s32(scale_size, pretraining, image_size, dtype, 5, first_floor=True)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         b, c, h, w = x.shape
@@ -212,23 +312,25 @@ def _check_even(name: str, x: torch.Tensor) -> None:
         )
 
 
-class VggTinyS2DStem(nn.Module):
+class VggTinyS2DStem(_S32Tail):
     """The exact space-to-depth serving form of VggTiny.
 
     The image is packed 2x2 into channels (H, W, 3) -> (H/2, W/2, 12), with
     channel (py*2+px)*3 + c; `s2d_0` (12->128) and `s2d_1` (128->256) are
     block_0 and block_1 computing all four output phases as channel groups
     (phase*C + c), and pool1 becomes the max over the four phase groups.
-    Blocks 2.. are VggTiny's. Build its weights from a VggTiny checkpoint
-    with `remap_vggtiny_to_s2d`."""
+    Blocks 2.. are VggTiny's, and so are `scale_size=32` and `pretraining`.
+    Build its weights from a VggTiny checkpoint with `remap_vggtiny_to_s2d`."""
 
     out_channels = 384
 
-    def __init__(self, dtype: torch.dtype = torch.float32):
+    def __init__(self, dtype: torch.dtype = torch.float32, scale_size: int = 8,
+                 pretraining: bool = False, image_size=224):
         super().__init__()
         self.s2d_0 = ConvBN(4 * 3, 4 * 32, dtype=dtype)
         self.s2d_1 = ConvBN(4 * 32, 4 * 64, dtype=dtype)
         self._plan = _add_blocks(self, _TAIL, 64, 2, dtype)
+        self._add_s32(scale_size, pretraining, image_size, dtype, 5, first_floor=True)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         _check_even("VggTinyS2DStem", x)
@@ -236,7 +338,7 @@ class VggTinyS2DStem(nn.Module):
         x = x.reshape(b, c, h // 2, 2, w // 2, 2).permute(0, 3, 5, 1, 2, 4)
         x = self.s2d_1(self.s2d_0(x.reshape(b, 4 * c, h // 2, w // 2)))
         x = x.reshape(b, 4, 64, h // 2, w // 2).amax(dim=1)
-        return _run_blocks(self, self._plan, x)
+        return self._run_s32(_run_blocks(self, self._plan, x))
 
 
 class VggTinyFusedStem(nn.Module):
@@ -249,12 +351,17 @@ class VggTinyFusedStem(nn.Module):
     3*px + c, and emits block_0's 32 channels at x = 2q+off for off in
     {-1, 0, 1, 2}: the x-direction im2col the kernel reads. `w1p`
     [3, 128, 128] (the compute dtype) and `b1p` [128] (float32) are block_1
-    with BN folded, packed for that layout."""
+    with BN folded, packed for that layout. It refuses `pretraining`, as the
+    flax module does."""
 
     out_channels = 384
 
-    def __init__(self, dtype: torch.dtype = torch.float32):
+    def __init__(self, dtype: torch.dtype = torch.float32, pretraining: bool = False):
         super().__init__()
+        if pretraining:
+            raise NotImplementedError(
+                "VggTinyFusedStem is a serving-only transform; pretrain VggTiny "
+                "and remap_vggtiny_to_fused the checkpoint")
         self.conv0p = nn.Conv2d(6, 128, 3, padding=1, bias=True, dtype=dtype)
         self.w1p = nn.Parameter(torch.zeros(3, 128, 128, dtype=dtype))
         self.b1p = nn.Parameter(torch.zeros(128, dtype=torch.float32))
@@ -306,16 +413,16 @@ class Resnet50(nn.Module):
     """ResNet50 trunk: the 7x7 stride-2 stem, the optional 3x3 stride-2 max
     pool, and bottleneck groups of 3, 4, 6 and 3 blocks (`b<g>_<i>`). With
     `scale_size=32` groups 3 and 4 also stride 2; `use_pool=False` with it is
-    PifPaf's stride-16 trunk (368x432 -> 23x27). The pretraining head of the
-    flax module is not ported yet (only ImageNet pretraining builds it)."""
+    PifPaf's stride-16 trunk (368x432 -> 23x27). `pretraining` strides as
+    scale 32 does and adds the mean over H and W and `fc_out` (logits)."""
 
     out_channels = 2048
 
     def __init__(self, scale_size: int = 8, use_pool: bool = True,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, pretraining: bool = False):
         super().__init__()
         self.use_pool = use_pool
-        s = 2 if scale_size == 32 else 1
+        s = 2 if scale_size == 32 or pretraining else 1
         self.stem = ConvBN(3, 64, dtype, kernel=7, stride=2)
         self._blocks, cin = [], 64
         for gi, (f, st, n) in enumerate(
@@ -326,6 +433,7 @@ class Resnet50(nn.Module):
                                                  dtype))
                 self._blocks.append(name)
                 cin = 4 * f
+        self.fc_out = nn.Linear(2048, 1000, dtype=dtype) if pretraining else None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = self.stem(x)
@@ -333,7 +441,7 @@ class Resnet50(nn.Module):
             x = _stem_pool(x)
         for name in self._blocks:
             x = getattr(self, name)(x)
-        return x
+        return x if self.fc_out is None else _mean_head(x, self.fc_out)
 
 
 def _stem_pool(x: torch.Tensor) -> torch.Tensor:
@@ -366,14 +474,15 @@ class Resnet18(nn.Module):
     `b3_2`, `b4_1` (256), `b4_2`, `b5_1` (512), the first block of each
     width with the projection `ds`. With `scale_size=32`, `b4_1` and `b5_1`
     also stride 2 (PoseProposal: 384x384 -> 12x12); at 8 the trunk has
-    stride 8. The pretraining head of the flax module is not ported yet
-    (only ImageNet pretraining builds it)."""
+    stride 8. `pretraining` strides as scale 32 does and adds `b5_2` (512),
+    the mean over H and W and `fc_out` (logits)."""
 
     out_channels = 512
 
-    def __init__(self, scale_size: int = 8, dtype: torch.dtype = torch.float32):
+    def __init__(self, scale_size: int = 8, dtype: torch.dtype = torch.float32,
+                 pretraining: bool = False):
         super().__init__()
-        s = 2 if scale_size == 32 else 1
+        s = 2 if scale_size == 32 or pretraining else 1
         self.stem = ConvBN(3, 64, dtype, kernel=7, stride=2)
         self._blocks, cin = [], 64
         for name, f, st, ds in (("b2_1", 64, 1, False), ("b2_2", 64, 1, False),
@@ -383,12 +492,17 @@ class Resnet18(nn.Module):
             self.add_module(name, ResBlock18(cin, f, st, ds, dtype))
             self._blocks.append(name)
             cin = f
+        self.fc_out = None
+        if pretraining:
+            self.b5_2 = ResBlock18(512, 512, dtype=dtype)
+            self._blocks.append("b5_2")
+            self.fc_out = nn.Linear(512, 1000, dtype=dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = _stem_pool(self.stem(x))
         for name in self._blocks:
             x = getattr(self, name)(x)
-        return x
+        return x if self.fc_out is None else _mean_head(x, self.fc_out)
 
 
 class DepthwiseConv(nn.Module):
@@ -434,13 +548,14 @@ class MobilenetDilated(nn.Module):
     a 3x3 stride-2 `stem` ConvBN (32, BN decay 0.999), then separable
     blocks `sep_0` .. `sep_10` (64, 128/2, 128, 256/2, 256, 512, 512
     dilated 2, 512 x 4). With `scale_size=32`, `sep_6` and `sep_8` also
-    stride 2."""
+    stride 2, and so with `pretraining`, which adds no head (as in flax)."""
 
     out_channels = 512
 
-    def __init__(self, scale_size: int = 8, dtype: torch.dtype = torch.float32):
+    def __init__(self, scale_size: int = 8, dtype: torch.dtype = torch.float32,
+                 pretraining: bool = False):
         super().__init__()
-        s = 2 if scale_size == 32 else 1
+        s = 2 if scale_size == 32 or pretraining else 1
         self.stem = ConvBN(3, 32, dtype, stride=2, momentum=0.999)
         plan = [(64, 1, 1), (128, 2, 1), (128, 1, 1), (256, 2, 1), (256, 1, 1),
                 (512, 1, 1), (512, s, 2), (512, 1, 1), (512, s, 1), (512, 1, 1),
@@ -470,8 +585,9 @@ class _VggTrunk(nn.Module):
 
     out_channels = 512
 
-    def __init__(self, cfg, dtype: torch.dtype):
+    def __init__(self, cfg, dtype: torch.dtype, pretraining: bool = False, image_size=224):
         super().__init__()
+        self.pretraining = pretraining
         self._plan, cin, b = [], 3, 0
         for item in cfg:
             if item == "pool":
@@ -482,36 +598,44 @@ class _VggTrunk(nn.Module):
                 self.add_module(f"conv_{b}", nn.Conv2d(cin, f, 3, padding=1, dtype=dtype))
                 self._plan.append(f"conv_{b}")
                 cin, b = f, b + 1
+        if pretraining:
+            h, w = _halved(image_size, self._plan.count(None))
+            _add_classifier_head(self, h * w * cin, (4096, 4096), dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         for name in self._plan:
             x = _max_pool(x) if name is None else torch.relu(getattr(self, name)(x))
-        return x
+        return _run_classifier_head(self, x) if self.pretraining else x
 
 
 class Vgg16(_VggTrunk):
     """VGG16's conv trunk at stride 8 (64x2 / 128x2 / 256x3 / 512x3, three
-    pools); with `scale_size=32`, a pool, 512x3 and a pool more."""
+    pools); with `scale_size=32` or `pretraining`, a pool, 512x3 and a pool
+    more, and with `pretraining` the classifier head (`fc1`, `fc2` 4096,
+    `fc_out`) on the flattened features of an `image_size` input."""
 
-    def __init__(self, scale_size: int = 8, dtype: torch.dtype = torch.float32):
+    def __init__(self, scale_size: int = 8, dtype: torch.dtype = torch.float32,
+                 pretraining: bool = False, image_size=224):
         cfg = [(64, 2), "pool", (128, 2), "pool", (256, 3), "pool", (512, 3)]
-        if scale_size == 32:
+        if scale_size == 32 or pretraining:
             cfg += ["pool", (512, 3), "pool"]
-        super().__init__(cfg, dtype)
+        super().__init__(cfg, dtype, pretraining, image_size)
 
 
 class Vgg19(_VggTrunk):
     """VGG19's trunk up to conv4_2 at stride 8 (64x2 / 128x2 / 256x4 /
-    512x2, three pools), the CMU OpenPose backbone; with `scale_size=32`,
-    512x2, a pool, 512x4 and a pool more. It first subtracts the BGR means
-    / 255 from the image in the compute dtype, as the flax module does
-    (its input is RGB in [0, 1]: the reference's order, kept)."""
+    512x2, three pools), the CMU OpenPose backbone; with `scale_size=32` or
+    `pretraining`, 512x2, a pool, 512x4 and a pool more, and with
+    `pretraining` the classifier head, as `Vgg16`'s. It first subtracts the
+    BGR means / 255 from the image in the compute dtype, as the flax module
+    does (its input is RGB in [0, 1]: the reference's order, kept)."""
 
-    def __init__(self, scale_size: int = 8, dtype: torch.dtype = torch.float32):
+    def __init__(self, scale_size: int = 8, dtype: torch.dtype = torch.float32,
+                 pretraining: bool = False, image_size=224):
         cfg = [(64, 2), "pool", (128, 2), "pool", (256, 4), "pool", (512, 2)]
-        if scale_size == 32:
+        if scale_size == 32 or pretraining:
             cfg += [(512, 2), "pool", (512, 4), "pool"]
-        super().__init__(cfg, dtype)
+        super().__init__(cfg, dtype, pretraining, image_size)
         mean = np.array([103.939, 116.779, 123.68], np.float32) / 255.0
         self.register_buffer("mean", torch.from_numpy(mean).to(dtype).view(1, 3, 1, 1),
                              persistent=False)
@@ -523,13 +647,15 @@ class Vgg19(_VggTrunk):
 class MobilenetV1(nn.Module):
     """MobileNetV1 at stride 8: the 3x3 stride-2 `stem` ConvBN (32), then
     separable blocks `sep_0` .. `sep_8` (64, 128/2, 128, 256/2, 256, 512
-    x 4); with `scale_size=32`, 512/2, 512, 1024/2, 1024 more."""
+    x 4); with `scale_size=32` or `pretraining`, 512/2, 512, 1024/2, 1024
+    more, and with `pretraining` the mean over H and W and `fc_out`."""
 
-    def __init__(self, scale_size: int = 8, dtype: torch.dtype = torch.float32):
+    def __init__(self, scale_size: int = 8, dtype: torch.dtype = torch.float32,
+                 pretraining: bool = False):
         super().__init__()
         plan = [(64, 1), (128, 2), (128, 1), (256, 2), (256, 1),
                 (512, 1), (512, 1), (512, 1), (512, 1)]
-        if scale_size == 32:
+        if scale_size == 32 or pretraining:
             plan += [(512, 2), (512, 1), (1024, 2), (1024, 1)]
         self.out_channels = plan[-1][0]
         self.stem = ConvBN(3, 32, dtype, stride=2)
@@ -538,12 +664,13 @@ class MobilenetV1(nn.Module):
             self.add_module(f"sep_{i}", SeparableBlock(cin, f, st, dtype=dtype))
             self._blocks.append(f"sep_{i}")
             cin = f
+        self.fc_out = nn.Linear(cin, 1000, dtype=dtype) if pretraining else None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = self.stem(x)
         for name in self._blocks:
             x = getattr(self, name)(x)
-        return x
+        return x if self.fc_out is None else _mean_head(x, self.fc_out)
 
 
 class InvertedResidual(nn.Module):
@@ -578,13 +705,16 @@ class MobilenetV2(nn.Module):
     """MobileNetV2 at stride 8: the 3x3 stride-2 `stem` ConvBN (32, ReLU6),
     then inverted residuals `ir_0` .. `ir_9` (16/e1, 24/2, 24, 32/2, 32 x 2,
     64 x 4, expansion 6); with `scale_size=32`, 96/2, 96 x 2, 160/2, 160 x
-    2, 320 more."""
+    2, 320 more (also with `pretraining`, which adds the 1x1 `head_conv` to
+    1280 channels with bias and no activation, the mean over H and W and
+    `fc_out`)."""
 
-    def __init__(self, scale_size: int = 8, dtype: torch.dtype = torch.float32):
+    def __init__(self, scale_size: int = 8, dtype: torch.dtype = torch.float32,
+                 pretraining: bool = False):
         super().__init__()
         plan = [(16, 1, 1), (24, 2, 6), (24, 1, 6), (32, 2, 6), (32, 1, 6),
                 (32, 1, 6), (64, 1, 6), (64, 1, 6), (64, 1, 6), (64, 1, 6)]
-        if scale_size == 32:
+        if scale_size == 32 or pretraining:
             plan += [(96, 2, 6), (96, 1, 6), (96, 1, 6),
                      (160, 2, 6), (160, 1, 6), (160, 1, 6), (320, 1, 6)]
         self.out_channels = plan[-1][0]
@@ -594,12 +724,16 @@ class MobilenetV2(nn.Module):
             self.add_module(f"ir_{i}", InvertedResidual(cin, f, st, e, dtype))
             self._blocks.append(f"ir_{i}")
             cin = f
+        self.head_conv = self.fc_out = None
+        if pretraining:
+            self.head_conv = nn.Conv2d(cin, 1280, 1, dtype=dtype)
+            self.fc_out = nn.Linear(1280, 1000, dtype=dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = self.stem(x)
         for name in self._blocks:
             x = getattr(self, name)(x)
-        return x
+        return x if self.fc_out is None else _mean_head(self.head_conv(x), self.fc_out)
 
 
 class MobilenetThin(nn.Module):
@@ -607,14 +741,16 @@ class MobilenetThin(nn.Module):
     `stem` ConvBN (32) and separable blocks `sep_0` .. `sep_10` (64, 128/2,
     128, 256/2, 256, 512 x 6); its features are the concat of `sep_2`
     max-pooled to stride 8, `sep_6` and the last block: 128 + 512 + 512 =
-    1152 channels. `scale_size=32` strides `sep_5` and `sep_8` as the flax
-    module does (whose concat then fails in both packages)."""
+    1152 channels. `scale_size=32` (or `pretraining`, which adds no head)
+    strides `sep_5` and `sep_8` as the flax module does (whose concat then
+    fails in both packages)."""
 
     out_channels = 1152
 
-    def __init__(self, scale_size: int = 8, dtype: torch.dtype = torch.float32):
+    def __init__(self, scale_size: int = 8, dtype: torch.dtype = torch.float32,
+                 pretraining: bool = False):
         super().__init__()
-        s = 2 if scale_size == 32 else 1
+        s = 2 if scale_size == 32 or pretraining else 1
         self.stem = ConvBN(3, 32, dtype, stride=2)
         plan = [(64, 1), (128, 2), (128, 1), (256, 2), (256, 1), (512, s),
                 (512, 1), (512, 1), (512, s), (512, 1), (512, 1)]
@@ -639,15 +775,17 @@ class MobilenetSmall(nn.Module):
     """MobileNet-Small, the backbone of MobilenetSmallOpenpose, at stride 4:
     the stride-2 `stem` ConvBN (32) and separable blocks `sep_0` (64),
     `sep_1` (128/2), `sep_2` (128), `sep_3` (256/2), `sep_4` (256), `sep_5`
-    and `sep_6` (512, strided at `scale_size=32`); its features are the
+    and `sep_6` (512, strided at `scale_size=32` and with `pretraining`,
+    where the concat fails in both packages); its features are the
     concat of `sep_0` max-pooled, `sep_2`, and `sep_6` resized x2 by
     nearest neighbour: 64 + 128 + 512 = 704 channels (368x432 -> 92x108)."""
 
     out_channels = 704
 
-    def __init__(self, scale_size: int = 8, dtype: torch.dtype = torch.float32):
+    def __init__(self, scale_size: int = 8, dtype: torch.dtype = torch.float32,
+                 pretraining: bool = False):
         super().__init__()
-        s = 2 if scale_size == 32 else 1
+        s = 2 if scale_size == 32 or pretraining else 1
         self.stem = ConvBN(3, 32, dtype, stride=2)
         plan = [(64, 1), (128, 2), (128, 1), (256, 2), (256, 1), (512, s), (512, s)]
         cin = 32

@@ -8,6 +8,15 @@ load.
 
     python -m hyperpose_torch.tools.train --synthetic \\
         --model_type LightweightOpenpose --model_backbone Vggtiny --n_step 1000
+
+Under `torchrun` (or `python -m torch.distributed.run`) every rank joins the
+process group the launcher describes (NCCL with one card a rank, gloo on
+the CPU and for ranks that share a card) and trains
+its rows of each global batch in `--sync_type`; rank 0 writes the
+checkpoint:
+
+    torchrun --nproc_per_node 2 -m hyperpose_torch.tools.train \\
+        --train_type Parallel_train --sync_type Sync_sgd --synthetic --device cpu
 """
 from __future__ import annotations
 
@@ -96,12 +105,13 @@ def configure(args):
         Config.set_model_inout(hin=hin, win=win, hout=hin // stride_h, wout=win // stride_w)
     if args.synthetic:
         from ..data.synthetic import ensure_synthetic_dataset
+        from ..parallel.mesh import rank0_first
 
         kw = {}
         if args.synthetic_train_scenes:
             kw["n_train"] = args.synthetic_train_scenes
-        args.dataset_path = ensure_synthetic_dataset(args.dataset_path,
-                                                     seed=args.synthetic_seed, **kw)
+        args.dataset_path = rank0_first(lambda: ensure_synthetic_dataset(
+            args.dataset_path, seed=args.synthetic_seed, **kw))
         if args.dataset_type == "MPII":
             # the MPII-format twin lives under <root>/mpii
             args.dataset_path = os.path.join(args.dataset_path, "mpii")
@@ -151,16 +161,26 @@ def configure(args):
 
 
 def run(argv=None):
-    """Parse `argv`, train, and return (trained model, config)."""
+    """Parse `argv`, train, and return (trained model, config). Under a
+    launcher the process group is joined first and left at the end."""
+    import torch.distributed as dist
+
+    from ..parallel import mesh
+
     args = parse_args(argv)
     device = check_device(args.device)
-    config = configure(args)
-    from .. import models as Model
-    from ..data.base import get_dataset
+    joined = not mesh.is_distributed() and mesh.init_from_env(device=device.type)
+    try:
+        config = configure(args)
+        from .. import models as Model
+        from ..data.base import get_dataset
 
-    model = Model.get_model(config)
-    train = Model.get_train(config)
-    return train(model, get_dataset(config), device=device), config
+        model = Model.get_model(config)
+        train = Model.get_train(config)
+        return train(model, get_dataset(config), device=device), config
+    finally:
+        if joined:
+            dist.destroy_process_group()
 
 
 def main(argv=None) -> None:

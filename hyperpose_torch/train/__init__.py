@@ -1,5 +1,5 @@
-"""Training of the PyTorch port: the single-device `Trainer` with its
+"""Training of the PyTorch port: the `Trainer` (one device, or every rank
+of a `torch.distributed` group in Sync_sgd, Sync_avg or Pair_avg) with its
 optax-equivalent optimizers, checkpoints in the JAX package's flat npz
-layout, flax's initialization and domain adaptation (a port of
-`hyperpose_tpu/train/`; ImageNet pretraining and the multi-device
-Sync_avg / Pair_avg modes are not ported yet)."""
+layout, flax's initialization, domain adaptation and ImageNet pretraining
+of the backbones (a port of `hyperpose_tpu/train/`)."""

@@ -12,6 +12,7 @@ the numbers come from `generator`, in the order of `model.modules()`.
 """
 from __future__ import annotations
 
+import copy
 import math
 
 import torch
@@ -60,4 +61,17 @@ def flax_init_(model: nn.Module, generator: torch.Generator) -> nn.Module:
             lecun_normal_(mod.dw_kernel, _fan_in(mod.dw_kernel), generator)
             lecun_normal_(mod.pw_kernel, _fan_in(mod.pw_kernel), generator)
             nn.init.zeros_(mod.bias)
+    return model
+
+
+def flax_init_on_cpu_(model: nn.Module, generator: torch.Generator) -> nn.Module:
+    """`flax_init_` drawn on a contiguous CPU copy of `model` and copied
+    into it, so every device and memory layout starts from the same numbers
+    (a generator fills a tensor in memory order, and the card's model is
+    channels-last). Returns `model`."""
+    shadow = copy.deepcopy(model).to("cpu").to(memory_format=torch.contiguous_format)
+    shadow = flax_init_(shadow, generator).state_dict()
+    with torch.no_grad():
+        for k, v in model.state_dict().items():
+            v.copy_(shadow[k])
     return model

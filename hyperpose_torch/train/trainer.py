@@ -1,4 +1,4 @@
-"""Single-device training of the PyTorch port.
+"""Training of the PyTorch port, on one device or across ranks.
 
 A port of `hyperpose_tpu/train/trainer.py` (reference: Model/train.py:94-325
 single_train): one step on the device builds the family's targets from the
@@ -13,8 +13,14 @@ and float32 `param_dtype` does. A float32 step runs with TF32 off (the
 flags restored after it), so it computes in float32 as the JAX package
 does on the CPU.
 
-The multi-device modes (Sync_avg, Pair_avg, spatial parallelism) are not
-ported yet.
+Under `torch.distributed` (`tools/train.py` under `torchrun`) the trainer
+spans every rank of the default group, as the JAX trainer spans every
+device: each rank steps on its rows of rank 0's global batch, in the
+config's `sync_type` (`parallel/train_step.py` Sync_sgd: BatchNorm over the
+global batch and averaged gradients, the one-device step on the global
+batch; `parallel/sync_modes.py` Sync_avg / Pair_avg: local steps, then the
+weights exchanged), and rank 0 alone writes checkpoints. Spatial
+parallelism (`spatial_parallel > 1`) is not ported (ROADMAP Queue 1 #6b).
 """
 from __future__ import annotations
 
@@ -30,10 +36,14 @@ from torch import nn
 
 from ..config import MODEL, OPTIM, SYNC, Config
 from ..data.targets import openpose_targets
+from ..models.backbones import cross_rank_batchnorm
 from ..models.openpose import openpose_loss
 from ..ops.image import no_tf32
+from ..parallel import mesh
+from ..parallel.sync_modes import local_step
+from ..parallel.train_step import sync_sgd_step
 from .checkpoint import CheckpointManager, save_weights_npz
-from .init import flax_init_
+from .init import flax_init_, flax_init_on_cpu_
 from .metrics import MetricManager
 from .optim import Optimizer
 
@@ -107,10 +117,11 @@ def check_device(device) -> torch.device:
 
 
 class Trainer:
-    """Train-loop driver of every model family on one device: targets +
-    forward + loss + update in one step, checkpoint and resume, metric
-    logging, periodic weight export, and adversarial domain adaptation
-    (reference: single_train; Model/train.py:230-262 optimize_step_dmadapt).
+    """Train-loop driver of every model family: targets + forward + loss +
+    update in one step, checkpoint and resume, metric logging, periodic
+    weight export and map images, and adversarial domain adaptation
+    (reference: single_train, parallel_train; Model/train.py:230-262
+    optimize_step_dmadapt).
 
     `model` is the configured network (`models.get_model`); the trainer
     makes it float32 and runs its forward in the config's compute dtype.
@@ -118,16 +129,34 @@ class Trainer:
     initial weights are drawn from seed 0 and the discriminator's from 1,
     as the JAX trainer's PRNGKey(0) and PRNGKey(1). `master_dtype` float64
     makes the reference step that a float32 step is held to (`twin`): it
-    computes in float64 whatever the config's compute dtype."""
+    computes in float64 whatever the config's compute dtype.
+
+    With a process group initialised, the trainer joins it (`group`,
+    `rank`, `world`): the world size must divide the batch (the losses
+    divide by the local batch) and equal `n_devices` when that is set;
+    Pair_avg needs an even world size. At world size 1 every `sync_type`
+    runs the one-device step, as the JAX trainer's does on one device."""
 
     def __init__(self, config: Config, model: nn.Module, limbs, device="cuda",
                  master_dtype: torch.dtype = torch.float32):
         t = config.train
-        if t.sync_type != SYNC.Sync_sgd or t.spatial_parallel > 1:
+        if t.spatial_parallel > 1:
             raise NotImplementedError(
-                f"sync_type {t.sync_type.name} / spatial_parallel {t.spatial_parallel}: "
-                "the multi-device modes are not ported yet (ROADMAP Queue 1 #6); "
-                "the port trains Sync_sgd on one device")
+                f"spatial_parallel {t.spatial_parallel}: spatial parallelism is not "
+                "ported (ROADMAP Queue 1 #6b)")
+        self.group, self.rank, self.world = None, mesh.rank(), mesh.world_size()
+        if t.n_devices and t.n_devices != self.world:
+            raise ValueError(f"n_devices {t.n_devices} but {self.world} ranks")
+        if t.batch_size % self.world:
+            raise ValueError(f"batch {t.batch_size} not divisible by {self.world} ranks "
+                             "(the losses divide by the local batch)")
+        self.sync_mode = None
+        if self.world > 1:
+            self.group = torch.distributed.group.WORLD
+            if t.sync_type != SYNC.Sync_sgd:
+                self.sync_mode = "sync_avg" if t.sync_type == SYNC.Sync_avg else "pair_avg"
+            if self.sync_mode == "pair_avg" and self.world % 2:
+                raise ValueError(f"Pair_avg needs an even number of ranks, got {self.world}")
         self.device = check_device(device)
         self.config = config
         self.master_dtype = master_dtype
@@ -157,6 +186,11 @@ class Trainer:
     def _autocast(self):
         return torch.autocast(self.device.type, dtype=torch.bfloat16,
                               enabled=self.compute_dtype == torch.bfloat16)
+
+    def _batchnorm_group(self):
+        """The train-mode forward's BatchNorm scope: across the ranks under
+        Sync_sgd, this rank's batch alone otherwise."""
+        return cross_rank_batchnorm(self.group if self.sync_mode is None else None)
 
     def _inputs(self, images) -> torch.Tensor:
         """uint8 NHWC images -> the network's input, / 255 in the compute
@@ -216,7 +250,7 @@ class Trainer:
         `<pretrain_model_dir>/newest_<Backbone>.npz` when that file exists
         (reference: Model/train.py:191-195), and a fresh optimizer."""
         cfg = self.config
-        self._init_on_cpu(self.model, torch.Generator().manual_seed(0))
+        flax_init_on_cpu_(self.model, torch.Generator().manual_seed(0))
         backbone = getattr(self.model, "backbone", None)
         if isinstance(backbone, nn.Module):
             pre_npz = os.path.join(cfg.pretrain.pretrain_model_dir,
@@ -226,19 +260,8 @@ class Trainer:
 
                 n = load_pretrained_backbone(self.model, pre_npz)
                 logger.info("loaded pretrained backbone %s (%d tensors)", pre_npz, n)
+        mesh.broadcast_state_(list(self.model.state_dict().values()), self.group)
         self.optimizer = make_optimizer(cfg, self.params)
-
-    @staticmethod
-    def _init_on_cpu(model: nn.Module, gen: torch.Generator) -> None:
-        """`flax_init_` drawn on a contiguous CPU copy of `model` and copied
-        into it, so every device and memory layout starts from the same
-        numbers (a generator fills a tensor in memory order, and the card's
-        model is channels-last)."""
-        shadow = copy.deepcopy(model).to("cpu").to(memory_format=torch.contiguous_format)
-        shadow = flax_init_(shadow, gen).state_dict()
-        with torch.no_grad():
-            for k, v in model.state_dict().items():
-                v.copy_(shadow[k])
 
     def _features(self, x: torch.Tensor) -> torch.Tensor:
         """The backbone features (`ret_backbone`) of `x` in eval mode, in the
@@ -267,6 +290,7 @@ class Trainer:
         disc = Discriminator(feats.shape[-1], tuple(feats.shape[1:3]))
         flax_init_(disc, torch.Generator().manual_seed(1))
         self.discriminator = disc.to(self.device)
+        mesh.broadcast_state_(list(disc.state_dict().values()), self.group)
         self.d_optimizer = Optimizer(list(disc.parameters()), "adam", staged_lr_schedule(cfg))
 
     def twin(self, master_dtype: torch.dtype = torch.float64) -> "Trainer":
@@ -314,36 +338,46 @@ class Trainer:
         return (self._inputs(batch["images"]), put("kpts", torch.float32),
                 put("valid", torch.bool), put("mask", torch.float32), put("bbxs", torch.float32))
 
-    def loss_and_grads(self, batch: dict, grads: bool = True) -> tuple[dict, list[torch.Tensor]]:
-        """The step before its update: targets, the train-mode forward
-        (which advances the BatchNorm statistics), the loss, and its
-        gradients with respect to `self.params` (none, and no autograd
-        graph, with `grads=False`). Returns (metrics, grads): the family's
-        loss parts, `loss_re`, `pd_loss` and `total_loss` as 0-d tensors on
-        the device."""
-        with self._precision(), torch.set_grad_enabled(grads):
+    def loss_and_grads(self, batch: dict, grads: bool = True,
+                       l2: bool = True) -> tuple[dict, list[torch.Tensor]]:
+        """This rank's step before its update and any exchange: targets, the
+        train-mode forward (which advances the BatchNorm statistics, taken
+        over every rank under Sync_sgd), the loss, and its gradients with
+        respect to `self.params` (none, and no autograd graph, with
+        `grads=False`). Returns (metrics, grads): the family's loss parts,
+        `loss_re`, `pd_loss` and `total_loss` as 0-d tensors on the device;
+        with `l2=False` (the Sync_avg / Pair_avg step) the parts and
+        `total_loss`, the family loss alone."""
+        with self._precision(), torch.set_grad_enabled(grads), self._batchnorm_group():
             x, kpts, valid, mask, bbxs = self._batch(batch)
             self.model.train()
             with self._autocast():
                 predict = self.model(x)
             pd_loss, parts = self.targets_loss(predict, kpts, valid, mask, bbxs)
-            re_loss = l2_regularization(self.model, self.config.train.weight_decay_factor)
-            total = pd_loss + re_loss
+            if l2:
+                re_loss = l2_regularization(self.model, self.config.train.weight_decay_factor)
+                total = pd_loss + re_loss
+                out = dict(parts, loss_re=re_loss, pd_loss=pd_loss, total_loss=total)
+            else:
+                total = pd_loss
+                out = dict(parts, total_loss=total)
             grads = torch.autograd.grad(total, self.params) if grads else []
-        out = dict(parts, loss_re=re_loss, pd_loss=pd_loss, total_loss=total)
         return {k: v.detach() for k, v in out.items()}, list(grads)
 
-    def step(self, batch: dict, unlabeled=None) -> dict[str, torch.Tensor]:
-        """One training step on a `TrainPipeline` batch (and, with domain
-        adaptation, a uint8 batch of unlabeled images). Returns the step's
-        metrics (`loss_and_grads`'s, and `g_loss`, `d_loss` with domain
-        adaptation)."""
+    def step(self, batch: dict, unlabeled=None, step_idx: int = 0) -> dict[str, torch.Tensor]:
+        """One training step on this rank's rows of a `TrainPipeline` batch
+        (the whole batch on one process; and, with domain adaptation, a uint8
+        batch of unlabeled images). `step_idx` picks Pair_avg's pairing.
+        Returns the step's metrics, averaged over the ranks
+        (`loss_and_grads`'s, and `g_loss`, `d_loss` with domain
+        adaptation). Sync_avg and Pair_avg skip domain adaptation across
+        ranks, as the JAX trainer's sync branch comes before its dmadapt
+        branch."""
+        if self.sync_mode is not None:
+            return local_step(self, batch, step_idx, self.sync_mode)
         if self.domainadapt:
             return self.dmadapt_step(batch, unlabeled)[0]
-        metrics, grads = self.loss_and_grads(batch)
-        with self._precision():
-            self.optimizer.step(grads)
-        return metrics
+        return sync_sgd_step(self, batch)
 
     def dmadapt_step(self, batch: dict, unlabeled) -> tuple[dict, list, list]:
         """One step of domain adaptation: pose loss + L2 + lambda_adapt x the
@@ -363,23 +397,26 @@ class Trainer:
         x_u = self._inputs(unlabeled)
         disc = self.discriminator
         u_feats = self._features(x_u)
-        with self._autocast():
+        with self._autocast(), self._batchnorm_group():
             predict = self.model(x_l)
         pd_loss, parts = self.targets_loss(predict, kpts, valid, mask, bbxs)
         re_loss = l2_regularization(self.model, self.config.train.weight_decay_factor)
         u_logits = disc(u_feats)
         g_loss = bce_logits(u_logits, torch.ones_like(u_logits))
         total = pd_loss + re_loss + self.config.train.lambda_adapt * g_loss
-        grads = torch.autograd.grad(total, self.params)
+        grads = list(torch.autograd.grad(total, self.params))
+        mesh.all_reduce_mean_(grads, self.group)
         self.optimizer.step(grads)
         with torch.no_grad():
             l_feats, u_feats = self._features(x_l), self._features(x_u)
         _, d_loss = discriminator_losses(disc(l_feats), disc(u_feats))
-        d_grads = torch.autograd.grad(d_loss, list(disc.parameters()))
+        d_grads = list(torch.autograd.grad(d_loss, list(disc.parameters())))
+        mesh.all_reduce_mean_(d_grads, self.group)
         self.d_optimizer.step(d_grads)
         out = dict(parts, loss_re=re_loss, pd_loss=pd_loss, g_loss=g_loss, total_loss=total,
                    d_loss=d_loss)
-        return {k: v.detach() for k, v in out.items()}, list(grads), list(d_grads)
+        out = mesh.mean_metrics({k: v.detach() for k, v in out.items()}, self.group)
+        return out, grads, d_grads
 
     # -- loop ------------------------------------------------------------------
 
@@ -389,10 +426,12 @@ class Trainer:
         batches, resuming from the newest checkpoint under
         `<model_dir>/ckpt` when there is one; log every `log_interval`
         steps, checkpoint and write `<model_dir>/newest_model.npz` every
-        `save_interval` steps and at the end. Returns the model."""
-        if visualizer is not None:
-            raise NotImplementedError(
-                "the training visualizer is not ported yet (ROADMAP Queue 1 #7)")
+        `save_interval` steps and at the end, and hand `visualizer` the
+        maps of the batch's first image every `vis_interval` steps. Across
+        ranks, rank 0 reads the pipelines and sends each rank its rows of
+        the global batch (one scatter a step), every rank steps on its
+        rows, and rank 0 alone writes (the others wait at a barrier) and
+        visualizes. Returns the model."""
         cfg = self.config
         n_step = n_step or cfg.train.n_step
         self.init_state()
@@ -412,22 +451,34 @@ class Trainer:
 
         mm = self.metric_manager
         log_every, save_every = cfg.log.log_interval, cfg.train.save_interval
-        it = iter(pipeline)
+        vis_every = cfg.train.vis_interval
+        it = iter(pipeline) if self.rank == 0 else None
         for step_idx in range(start_step, n_step):
-            try:
-                batch = next(it)
-            except StopIteration:
+            batch = parts = None
+            if self.rank == 0:
+                batch = next(it, None)
+                parts = [None] * self.world
+                if batch is not None:
+                    unlabeled = None
+                    if unlabeled_iter is not None:
+                        unlabeled = np.asarray(
+                            next(unlabeled_iter) if hasattr(unlabeled_iter, "__next__")
+                            else unlabeled_iter.next())
+                    parts = [(mesh.local_rows(batch, r, self.world),
+                              None if unlabeled is None else
+                              mesh.local_rows(unlabeled, r, self.world))
+                             for r in range(self.world)]
+            part = mesh.scatter_object(parts, self.group)
+            if part is None:
                 logger.info("pipeline exhausted at step %d", step_idx)
                 break
-            unlabeled = None
-            if unlabeled_iter is not None:
-                unlabeled = (next(unlabeled_iter) if hasattr(unlabeled_iter, "__next__")
-                             else unlabeled_iter.next())
-            metrics = self.step(batch, unlabeled)
+            metrics = self.step(*part, step_idx)
             if (step_idx + 1) % log_every == 0:
                 mm.update_dict({k: float(v) for k, v in metrics.items()})
                 logger.info("step %d: %s [%s]", step_idx + 1, mm.report_train(),
                             mm.report_timing(log_every))
+            if visualizer is not None and (step_idx + 1) % vis_every == 0 and self.rank == 0:
+                self._visualize(visualizer, batch, step_idx + 1)
             if (step_idx + 1) % save_every == 0:
                 self.save(step_idx + 1)
         self.save(n_step)
@@ -436,10 +487,46 @@ class Trainer:
     def save(self, step: int) -> str:
         """Checkpoint the training state at `step` and write the model's
         weights as `<model_dir>/newest_model.npz` (the flat flax layout both
-        packages load). Returns the npz path."""
-        self.ckpt.save(step, self.state_dict(step))
+        packages load): on rank 0, the other ranks waiting for it at a
+        barrier. Returns the npz path."""
         npz_path = os.path.join(self.config.model.model_dir, "newest_model.npz")
-        save_weights_npz(self.model, npz_path)
-        logger.info("saved checkpoint at step %d -> %s", step, npz_path)
+        if self.rank == 0:
+            self.ckpt.save(step, self.state_dict(step))
+            save_weights_npz(self.model, npz_path)
+            logger.info("saved checkpoint at step %d -> %s", step, npz_path)
+        if self.group is not None:
+            torch.distributed.barrier(self.group)
         return npz_path
 
+    def _visualize(self, visualizer, batch: dict, step: int) -> None:
+        """The first image of `batch`, the network's eval-mode conf and PAF
+        maps of it and their targets, handed to
+        `visualizer.visualize_maps` (reference: Model/train.py:303-307,567):
+        the OpenPose family only; a failure is logged and never stops
+        training."""
+        if self.config.model.model_type in (MODEL.PoseProposal, MODEL.Pifpaf):
+            return  # map-grid visualization is OpenPose-family specific
+        try:
+            m = self.config.model
+            n_parts = m.n_pos - 1
+            self.model.eval()
+            with torch.no_grad(), self._precision(), self._autocast():
+                out = self.model(self._inputs(batch["images"][:1]))
+            kpts = torch.as_tensor(np.asarray(batch["kpts"][:1, :, :n_parts]),
+                                   dtype=torch.float32, device=self.device)
+            valid = torch.as_tensor(np.asarray(batch["valid"][:1, :, :n_parts]),
+                                    dtype=torch.bool, device=self.device)
+            targets = openpose_targets(kpts, valid, self.limbs, (m.hin, m.win),
+                                       (m.hout, m.wout))
+            visualizer.visualize_maps(
+                np.asarray(batch["images"][0]),
+                out["conf_map"][0].to(torch.float32).cpu().numpy(),
+                out["paf_map"][0].to(torch.float32).cpu().numpy(),
+                f"train_step_{step}",
+                gt_conf=targets["conf_map"][0].cpu().numpy(),
+                gt_paf=targets["paf_map"][0].cpu().numpy(),
+            )
+        except Exception as exc:  # visualization must never kill training
+            logger.warning("visualization failed at step %d: %s", step, exc)
+        finally:
+            self.model.train()

@@ -3,11 +3,13 @@
 Counterpart of `hyperpose_tpu/utils/tracing.py` (reference: src/trace.hpp:3-16;
 instrumented sites src/tensorrt.cpp:368-399, src/paf.cpp:302,337). Scopes are
 cheap wall-clock accumulators that also open a
-`torch.profiler.record_function` range, so they show up in profiler traces.
+`torch.profiler.record_function` range, so they show up in profiler traces;
+`device_profile` records a `torch.profiler` trace of a block.
 """
 from __future__ import annotations
 
 import contextlib
+import os
 import threading
 import time
 from collections import defaultdict
@@ -56,3 +58,19 @@ def reset() -> None:
     with _lock:
         _totals.clear()
         _counts.clear()
+
+
+@contextlib.contextmanager
+def device_profile(logdir: str):
+    """Profile the block with `torch.profiler` (CPU activity, and CUDA
+    activity where a GPU is present: the device's kernels) and write it to
+    `logdir` as a Chrome trace, `trace.json`; the profiler is yielded."""
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    os.makedirs(logdir, exist_ok=True)
+    with profile(activities=activities) as prof:
+        yield prof
+    prof.export_chrome_trace(os.path.join(logdir, "trace.json"))

@@ -1144,3 +1144,60 @@ def test_train_step1_on_card_matches_cpu(cuda, tmp_path, name):
              "valid": valid, "mask": crowd_mask(2, (cfg.model.hout, cfg.model.wout)),
              "bbxs": bbxs_of(kpts, valid)}
     check_step1(train_step1_vs_cpu(cfg, batch))    # exits non-zero on a mismatch
+
+
+# -- pretraining and the multi-rank step on the card against the CPU -------------
+
+def test_pretrain_step1_on_card_matches_cpu(cuda, tmp_path):
+    """One f32 pretraining step (TF32 off) of VggTiny with its classifier
+    head at 64x64, batch 4, seeded images: the loss within 1e-5 relative
+    (`chip_smoke.PRETRAIN_LOSS_RTOL`) and the gradients within 2e-2 over
+    all in relative L2 of the CPU's (`chip_smoke.TRAIN_GRAD_L2`)."""
+    from chip_smoke import PRETRAIN_LOSS_RTOL, TRAIN_GRAD_L2, _pretrain_cfg
+    from hyperpose_torch.train import pretrain as PP
+
+    cfg = _pretrain_cfg("card_test")
+    rng = np.random.default_rng(5)
+    images = rng.uniform(0, 1, (4, 64, 64, 3)).astype(np.float32)
+    labels = rng.integers(0, 10, 4)
+    out = {}
+    for device in ("cpu", cuda):
+        m = PP.pretrain_model(VggTiny, 64, device)
+        loss, _, grads = PP.PretrainStep(m, PP.pretrain_optimizer(m, cfg),
+                                         torch.float32).loss_and_grads(images, labels)
+        out[str(device)] = (float(loss), [g.cpu().double() for g in grads])
+    (lc, gc), (lg, gg) = out["cpu"], out[str(cuda)]
+    assert abs(lg - lc) <= PRETRAIN_LOSS_RTOL * abs(lc), (lg, lc)
+    d = sum(float(((a - b) ** 2).sum()) for a, b in zip(gg, gc))
+    n = sum(float((b ** 2).sum()) for b in gc)
+    assert (d / n) ** 0.5 <= TRAIN_GRAD_L2
+
+
+RANKS_ON_CARD_VS_CPU_RTOL = 1e-6
+
+
+def test_two_rank_float64_step_on_card_matches_cpu(cuda, tmp_path):
+    """Two gloo ranks on the card (tests/torch_dist_worker.py), each on 2
+    rows of the narrow flagship's batch 4 at 64x80, one float64 Sync_sgd
+    step: every gradient, statistic, weight and moment within 1e-6 of one
+    process on the CPU (`chip_smoke.ranks_vs_one_process` with
+    `RANKS_ON_CARD_VS_CPU_RTOL`: each device builds the targets in float32,
+    so the float64 steps of two devices carry float32 rounding; 7.8e-9 read
+    on an H100 for this batch and this one step: over several steps the two
+    devices drift further apart, PERF.md §5)."""
+    import torch_dist_worker as W
+    from chip_smoke import PARALLEL_SMALL, _small_batch, ranks_vs_one_process
+
+    spec = dict(PARALLEL_SMALL, batch=4, tags=["f64"])
+    arrays = {f"w/{k}": v for k, v in random_flax_weights(
+        W.make_model("flagship")[0], 5).items()}
+    b = _small_batch(np.random.default_rng(3))
+    arrays.update({f"b0/{k}": v[:4] for k, v in b.items()})
+    card = str(tmp_path / "card")
+    W.write_inputs(card, dict(spec, device="cuda"), arrays)
+    ranks = W.launch("sync_sgd", 2, card, timeout=300)
+    cpu = str(tmp_path / "cpu")
+    W.write_inputs(cpu, spec, arrays)
+    ref = W.run_case("sync_sgd", cpu)
+    assert (ranks_vs_one_process(ranks, ref, "f64", RANKS_ON_CARD_VS_CPU_RTOL)
+            <= RANKS_ON_CARD_VS_CPU_RTOL)

@@ -552,11 +552,13 @@ def test_pretrained_backbone_graft_matches_jax(tmp_path):
 
 
 def test_trainer_refuses_what_is_not_ported(tmp_path):
+    """Spatial parallelism (ROADMAP Queue 1 #6b) raises; the sync types
+    train across ranks (tests/test_torch_sync_modes.py)."""
     _, cfg = _configs(tmp_path, "LightweightOpenpose", (64, 80), (8, 10))
-    cfg.train.sync_type = PC.SYNC.Sync_avg
-    with pytest.raises(NotImplementedError, match="Queue 1 #6"):
+    cfg.train.spatial_parallel = 2
+    with pytest.raises(NotImplementedError, match="Queue 1 #6b"):
         Trainer(cfg, _lw_vggtiny_p(), COCO_TOPOLOGY.limbs, device="cpu")
-    cfg.train.sync_type = PC.SYNC.Sync_sgd
+    cfg.train.spatial_parallel = 1
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             Trainer(cfg, _lw_vggtiny_p(), COCO_TOPOLOGY.limbs)
