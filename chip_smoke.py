@@ -75,9 +75,15 @@ tests/torch_dist_worker.py: 2-rank Sync_sgd at 368x432 against one process
 in float64 and float32, NCCL at world size 1, Sync_avg and Pair_avg
 against one process standing for the ranks on the card (and, recorded,
 against the CPU), the sharded stream engine on 16 bf16 frames with its kernels
-launched once per rank, a `device_profile` trace) and `tl_import` (the
-flagship written in the TensorLayer layout, imported back and served). It
-checks that each path went through its kernels.
+launched once per rank, a `device_profile` trace), `tl_import` (the
+flagship written in the TensorLayer layout, imported back and served) and
+`spatial` (image rows split over ranks: a 2-rank and a 4-rank group on the
+card, the flagship's Sync_sgd step at 368x432 against the `parallel`
+phase's one process in float64 and float32, the row-sharded stream engine
+in bf16 plain, bf16 fused-stem and int8 form against one engine with its
+kernels launched on every rank; grouped int8 convs against their plain
+version; the export and FLOP-count tools). It checks that each path went
+through its kernels.
 
 Every phase prints one line; any failure
 exits non-zero before the result line. The last line is
@@ -3252,7 +3258,8 @@ def phase_parallel(card, frames) -> dict:
     - one step under `tracing.device_profile`: its trace lists CUDA kernels.
 
     The walls are recorded: two ranks share one card, so they are not a
-    scaling number."""
+    scaling number. Also returns the Sync_sgd step's (spec, inputs,
+    one-process outputs), which `phase_spatial` holds its ranks to."""
     import torch
     import torch_dist_worker as W
     from hyperpose_torch.models.backbones import VggTiny
@@ -3363,6 +3370,196 @@ def phase_parallel(card, frames) -> dict:
            "device_profile_kernels": trace_kernels,
            "seconds": time.perf_counter() - t_phase}
     emit("parallel", card=card, **out)
+    return launches, (full, {**flagship, **batch}, ref)
+
+
+SPATIAL_FORMS = ("plain", "fused", "int8")
+GROUPED_INT8 = ((2, 3, 1), (2, 1, 2), (4, 3, 1), (4, 1, 2))   # groups, kernel, stride
+
+
+def grouped_int8_on_card() -> dict:
+    """Grouped int8 convs (`Int8Conv2d.parts`, one dense int8 conv a group)
+    at 128 channels on 46x54 maps, batch 8, bf16 activations, channels-last:
+    the kernels' output equal to the plain version (`int8_quantize_plain`,
+    then each group's `conv_plain`) on the card, bit for bit, and
+    `int8_conv` launched once a group."""
+    import torch
+    from hyperpose_torch import quant
+    from hyperpose_torch.ops.kernels.int8_gemm import int8_conv, int8_quantize_plain
+
+    rng = np.random.default_rng(7)
+    out = {}
+    for groups, k, stride in GROUPED_INT8:
+        cin = cout = 128
+        conv = torch.nn.Conv2d(cin, cout, k, stride=stride, groups=groups,
+                               padding=k // 2 if stride == 1 else 0)
+        kernel = (rng.normal(0, 1, (k, k, cin // groups, cout)) / k).astype(np.float32)
+        bias = rng.normal(0, 0.1, cout).astype(np.float32)
+        q = quant.Int8Conv2d.from_conv(conv, kernel, bias, 4.0).cuda()
+        x = torch.from_numpy(rng.normal(0, 1, (BATCH, cin, *FEAT_HW)).astype(np.float32)).to(
+            "cuda", torch.bfloat16).contiguous(memory_format=torch.channels_last)
+        int8_conv.launches = 0
+        got = q.rows(x)
+        launched = int8_conv.launches
+        n = cin // groups
+        want = torch.cat([p.conv_plain(int8_quantize_plain(x[:, g * n:(g + 1) * n], p.inv_s,
+                                                           p.w_taps.shape[-1], p.fold), x.dtype)
+                          for g, p in enumerate(q.parts)], dim=1)
+        key = f"g{groups}_{k}x{k}_s{stride}"
+        check(torch.equal(got, want), f"grouped int8 conv {key}: kernels vs plain differ")
+        check(launched == groups, f"grouped int8 conv {key}: {launched} int8_conv launches")
+        out[key] = {"equal": True, "int8_conv_launches": launched}
+    return out
+
+
+def tools_on_card(frames) -> dict:
+    """`tools.export_model --with_decode` of the flagship (batch 8, the
+    config's bf16) on the card: its `.pt2` loads and equals the eager step
+    bit for bit on `frames`; `tools.measure_flops` on the card counts what
+    it counts from the shapes alone (the meta device)."""
+    import contextlib
+    import io
+
+    import torch
+    from hyperpose_torch.runtime.engine import PoseEngine
+    from hyperpose_torch.tools import export_model, measure_flops
+
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        res = export_model.run(["--model_backbone", "Vggtiny", "--weights", FLAGSHIP_NPZ,
+                                "--with_decode", "--batch_size", str(BATCH), "--model_name",
+                                "flagship", "--output_dir", os.path.join(REPO, "build", "export")])
+        export_s = time.perf_counter() - t0
+        x = torch.from_numpy(frames[:BATCH]).cuda()
+        eager = res["engine"]._step(x)
+        loaded = PoseEngine.load_executable(res["executable"])(x)
+        equal = all(torch.equal(t, getattr(eager, f)) for f, t in zip(FIELDS, loaded))
+        card, meta = measure_flops.run([]), measure_flops.run(["--device", "meta"])
+    check(equal, "export_model's program differs from the eager step")
+    check(card["flops"] == meta["flops"] > 0 and card["params"] == meta["params"],
+          f"measure_flops on the card {card} vs the shapes {meta}")
+    del res
+    torch.cuda.empty_cache()
+    return {"export_s": export_s, "pt2_equals_eager": equal,
+            "gflop_frame": card["flops"] / 1e9, "params": card["params"]}
+
+
+def phase_spatial(card, frames, step) -> dict:
+    """Spatial parallelism on the card (`parallel/spatial.py`): ranks
+    spawned by this script share the one card over gloo (NCCL refuses two
+    ranks on one device), whose sends and all-gathers stage CUDA tensors
+    through the host. Two groups run one after the other, 2 ranks (sp = 2)
+    and 4 ranks (dp = 2 x sp = 2), each rank taking 184 of the 368 rows:
+
+    - training: the flagship checkpoint at 368x432, batch 8 (`step`: the
+      `parallel` phase's inputs and its one-process step on the card), one
+      Adam step in float64 within 1e-9 of one process, and in float32 its
+      gradients held to that float64 step with the `train` phase's bounds
+      (TRAIN_GRAD_TENSOR a tensor, TRAIN_GRAD_L2 over all, relative L2);
+    - serving: `ShardedStreamEngine(spatial=2)` on 16 frames in bf16 with the
+      plain stem, bf16 with the fused stem and int8 (bf16 activations): every
+      rank finds one engine's people on the same frames (`find_people`,
+      INT8_TOL), and each rank's measured global batch launched `peak_topk`
+      and `limb_scores`, `conv1_pool` (fused) and `int8_conv` (int8);
+    - meanwhile (the 2 ranks') in this process: grouped int8 convs
+      (`grouped_int8_on_card`) and the export and FLOP-count tools
+      (`tools_on_card`).
+
+    The walls are recorded: the ranks share one card, so they are not a
+    scaling number. Returns each form's launches per rank."""
+    import torch
+    import torch_dist_worker as W
+    from hyperpose_torch.ops.image import resize_bilinear
+    from hyperpose_torch.utils.human import SkeletonBatch
+
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    spec, arrays, ref = step
+    weights = {k: v for k, v in arrays.items() if k.startswith("w/")}
+    stream_frames = [resize_bilinear(f, INPUT_HW) for f in frames[:BATCH]]
+    stream_frames = np.stack(stream_frames + [f[:, ::-1] for f in stream_frames])
+    stream_spec = {"hw": list(INPUT_HW), "dtype": "bfloat16", "device": "cuda", "spatial": 2,
+                   "forms": list(SPATIAL_FORMS)}
+    groups = {}
+    for world in (2, 4):
+        train = _rank_inputs(f"spatial{world}/train", dict(spec, spatial=2), arrays)
+        stream = _rank_inputs(f"spatial{world}/stream", stream_spec,
+                              {**weights, "frames": stream_frames})
+        top = os.path.join(PARALLEL_ROOT, f"spatial{world}")
+        W.write_inputs(top, {"runs": [["sync_sgd", train], ["stream", stream]],
+                             "device": "cuda"}, {})
+        groups[world] = (train, stream, top)
+    # One group at a time: a float64 step's activations take tens of GB a rank.
+    t0 = time.perf_counter()
+    first = W.start("group", 2, groups[2][2], timeout=900)
+    grouped = grouped_int8_on_card()
+    tools = tools_on_card(stream_frames)
+    one = {}
+    for form in SPATIAL_FORMS:
+        eng = W.stream_engine(stream_spec, {**weights, "frames": stream_frames}, form,
+                              len(stream_frames), "cuda")
+        d = eng.infer_batch_device(stream_frames)
+        one[form] = SkeletonBatch(*(getattr(d, f).cpu().numpy() for f in FIELDS))
+        del eng
+    torch.cuda.empty_cache()
+    out = {"note": "the ranks share one card: not a scaling number",
+           "grouped_int8": grouped, "tools": tools, "train": {}, "stream": {}}
+    launches = {}
+    for world, (train, stream, top) in groups.items():
+        if world == 2:
+            W.finish(first)
+        else:
+            t0 = time.perf_counter()
+            W.launch("group", world, top, timeout=900)
+        wall = time.perf_counter() - t0
+        ranks = W.read_outputs(train, world)
+        x64 = ranks_vs_one_process(ranks, ref, "f64")
+        f32 = [_grads_vs_f64(o, ref) for o in ranks]
+        for tensor, whole in f32:
+            check(tensor <= TRAIN_GRAD_TENSOR and whole <= TRAIN_GRAD_L2,
+                  f"sp ranks (world {world}) float32 gradients vs float64: {tensor}, {whole}")
+        geometry = [o["geometry"].tolist() for o in ranks]
+        half = INPUT_HW[0] // 2
+        check(all(g[1:] == [2, r % 2, half * (r % 2), half * (r % 2 + 1)]
+                  for r, g in enumerate(geometry)), f"sp ranks' rows: {geometry}")
+        out["train"][f"world{world}"] = {
+            "dp": world // 2, "sp": 2, "rows_per_rank": half,
+            "images_per_rank": spec["batch"] // (world // 2),
+            "f64_max_rel_vs_one_process": x64,
+            "f32_grad_tensor_max_rel_l2_vs_f64": [t for t, _ in f32],
+            "f32_grad_rel_l2_vs_f64": [w for _, w in f32],
+            "rank_step_s": {k: [float(o[k]) for o in ranks]
+                            for k in ("f64/step_s", "f32/step_s")},
+            "peak_bytes": {case: [int(o[f"peak_bytes/{case}"]) for o in W.read_outputs(top, world)]
+                           for case in ("sync_sgd", "stream")}}
+        sranks = W.read_outputs(stream, world)
+        people, launched = 0, {}
+        for form in SPATIAL_FORMS:
+            want_sk, rows = one[form], []
+            for r, o in enumerate(sranks):
+                sk = SkeletonBatch(*(o[f"{form}/global/{f}"] for f in FIELDS))
+                for i in range(len(stream_frames)):
+                    want, got = want_sk.to_humans(i), sk.to_humans(i)
+                    d = find_people(want, got)
+                    check(len(want) == len(got) and d is not None and d <= INT8_TOL["xy"],
+                          f"{form} sp rank {r} (world {world}) frame {i}: {len(got)} people "
+                          f"vs one engine's {len(want)} ({d})")
+                    people += len(want) if r == 0 else 0
+                n = {k: int(o[f"{form}/launches/{k}"]) for k in W.STREAM_KERNELS}
+                need = ["peak_topk", "limb_scores"] + {"fused": ["conv1_pool"],
+                                                       "int8": ["int8_conv"]}.get(form, [])
+                check(all(n[k] > 0 for k in need), f"{form} sp rank {r} launched {n}")
+                rows.append({k: v for k, v in n.items() if v})
+            launched[form] = rows
+            out["stream"].setdefault(f"world{world}", {})[form] = {
+                "launches_per_rank": rows,
+                "rank_global_s": [float(o[f"{form}/global_s"]) for o in sranks]}
+        out["stream"][f"world{world}"]["people"] = people
+        out["train"][f"world{world}"]["wall_s"] = wall
+        launches[f"world{world}"] = launched
+    shutil.rmtree(PARALLEL_ROOT, ignore_errors=True)   # float64 states: tens of MB a rank
+    out["seconds"] = time.perf_counter() - t_phase
+    emit("spatial", card=card, **out)
     return launches
 
 
@@ -3584,9 +3781,12 @@ def main() -> None:
     t_train = time.perf_counter() - t_train
     t_new = time.perf_counter()
     phase_pretrain(card)
-    stream_launches = phase_parallel(card, frames)
+    stream_launches, step = phase_parallel(card, frames)
     phase_tl_import(card)
     t_new = time.perf_counter() - t_new
+    t_spatial = time.perf_counter()
+    spatial_launches = phase_spatial(card, frames, step)
+    t_spatial = time.perf_counter() - t_spatial
     # The depthwise kernel's own path: the 11 depthwise convs of the int8
     # LightWeightOpenPose() step (bf16 activations).
     lw = dw_rows["lw_mobilenet"]
@@ -3615,7 +3815,8 @@ def main() -> None:
          facade_cli_launches=facade, evaluate_phase_seconds=t_eval,
          evaluate_launches=evaluation, train_phase_seconds=t_train,
          train_serving_launches=train_served, pretrain_parallel_tl_import_seconds=t_new,
-         sharded_stream_launches_per_rank=stream_launches)
+         sharded_stream_launches_per_rank=stream_launches, spatial_phase_seconds=t_spatial,
+         spatial_stream_launches_per_rank=spatial_launches)
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

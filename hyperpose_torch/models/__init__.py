@@ -249,7 +249,7 @@ def _custom_fused(model: nn.Module, post, restore: bool):
     `restore_coor` where `restore`, then `post`."""
     model.eval()
 
-    def decode(out: dict):
+    def decode(out: dict, image_hw=None):
         if restore:
             hout, wout = out["c"].shape[1:3]
             rx, ry, rw, rh = model.restore_coor(out["x"], out["y"], out["w"], out["h"],

@@ -31,6 +31,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.kernels.conv1_pool import conv1_pool
+from ..parallel import spatial
 from ..utils.weights import read_flax_weights
 
 # VggTiny after its first pool: block_2 onwards, on 64 input channels.
@@ -48,6 +49,18 @@ def same_pads(hw, kernel: int, stride: int) -> tuple[int, int, int, int]:
         total = max((-(-n // stride) - 1) * stride + kernel - n, 0)
         out += [total // 2, total - total // 2]
     return tuple(out)
+
+
+def _same(op, x: torch.Tensor, span: int, stride: int, value: float = 0.0,
+          what: str = "a strided SAME layer") -> torch.Tensor:
+    """`op` (a conv or pool with no padding of its own) on `x` padded to
+    XLA's SAME for a `span`-wide window at `stride` (`same_pads`) with
+    `value`. With image rows split over ranks (`parallel/spatial.py`), the
+    row pads are the whole image's, filled from the neighbouring ranks'
+    rows inside it."""
+    if spatial.active() is not None:
+        return spatial.same(op, x, span, stride, value, what)
+    return op(F.pad(x, same_pads(x.shape[-2:], span, stride), value=value))
 
 
 # The process group whose ranks' batches a train-mode FlaxBatchNorm2d
@@ -144,7 +157,7 @@ class ConvBN(nn.Module):
 
     At stride 1 an odd kernel's SAME padding is `padding=kernel // 2` on
     both sides; at a larger stride it depends on the input size
-    (`same_pads`), so the forward pads first."""
+    (`same_pads`), so the forward pads first (`_same`)."""
 
     def __init__(self, in_features: int, features: int,
                  dtype: torch.dtype = torch.float32, kernel: int = 3,
@@ -159,8 +172,9 @@ class ConvBN(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.stride > 1:
-            x = F.pad(x, same_pads(x.shape[-2:], self.kernel, self.stride))
-        x = self.bn(self.conv(x))
+            x = self.bn(_same(self.conv, x, self.kernel, self.stride))
+        else:
+            x = self.bn(self.conv(x))
         return x if self.act is None else self.act(x)
 
 
@@ -384,8 +398,25 @@ class VggTinyFusedStem(nn.Module):
                 "and remap_vggtiny_to_fused the checkpoint (call .eval())"
             )
         _check_even("VggTinyFusedStem", x)
-        y = conv1_pool(self.conv0_packed(x), self.w1p, self.b1p)
+        btp = self.conv0_packed(x)
+        if spatial.active() is None:
+            y = conv1_pool(btp, self.w1p, self.b1p)
+        else:
+            y = self._conv1_pool_rows(btp)
         return _run_blocks(self, self._plan, y.permute(0, 3, 1, 2))
+
+    def _conv1_pool_rows(self, btp: torch.Tensor) -> torch.Tensor:
+        """`conv1_pool` on this rank's rows of the image: the kernel pads
+        rows -1 and H of what it is given with zeros, so it takes `btp` with
+        2 rows of each neighbour (the 2x2 pool keeps its pairs) and the
+        pooled row beside each such halo, which read that zero row, is
+        dropped; at the image's real top and bottom nothing is added."""
+        shard = spatial.active()
+        top, bottom = shard.index > 0, shard.index + 1 < shard.size
+        ext = spatial.halo(btp.permute(0, 3, 1, 2), 2, 2, None)
+        with spatial.routed():
+            y = conv1_pool(ext.permute(0, 2, 3, 1), self.w1p, self.b1p)
+        return y[:, int(top):y.shape[1] - int(bottom)]
 
 
 class Bottleneck(nn.Module):
@@ -447,7 +478,7 @@ class Resnet50(nn.Module):
 def _stem_pool(x: torch.Tensor) -> torch.Tensor:
     """flax `nn.max_pool(x, (3, 3), (2, 2), padding="SAME")`: padded with
     -inf as XLA pads, asymmetrically on even sizes (`same_pads`)."""
-    return F.max_pool2d(F.pad(x, same_pads(x.shape[-2:], 3, 2), value=float("-inf")), 3, 2)
+    return _same(lambda t: F.max_pool2d(t, 3, 2), x, 3, 2, float("-inf"), "3x3 max pool")
 
 
 class ResBlock18(nn.Module):
@@ -521,7 +552,7 @@ class DepthwiseConv(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.stride > 1:
-            x = F.pad(x, same_pads(x.shape[-2:], self.span, self.stride))
+            return _same(self.dwconv, x, self.span, self.stride)
         return self.dwconv(x)
 
 

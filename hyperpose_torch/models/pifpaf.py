@@ -194,16 +194,20 @@ def pifpaf_fused_decode(
     the step is inference (BatchNorm on its running statistics). The step's
     `rebuild(other_model)` makes the same step on another model object (the
     int8 clone `quant.quantize_engine` makes); its `body` is the step
-    outside inference mode (what `torch.export` traces)."""
+    outside inference mode (what `torch.export` traces), and its
+    `decode(outputs, image_hw)` the part after the network, for images of
+    `image_hw`."""
     model.eval()
 
-    def body(images_u8: torch.Tensor):
-        out = model(images_u8.to(model.dtype) / 255.0)
-        hw = in_hw or tuple(images_u8.shape[1:3])
+    def decode(out: dict, image_hw):
+        hw = in_hw or tuple(image_hw)
         s = stride or hw[0] // out["pif_conf"].shape[1]
         return pifpaf_decode_batch(out, cfg, s, hw, topology)
 
+    def body(images_u8: torch.Tensor):
+        return decode(model(images_u8.to(model.dtype) / 255.0), images_u8.shape[1:3])
+
     fused = torch.inference_mode()(body)
-    fused.body = body
+    fused.body, fused.decode = body, decode
     fused.rebuild = lambda other: pifpaf_fused_decode(other, cfg, stride, in_hw, topology)
     return fused

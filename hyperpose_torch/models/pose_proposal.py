@@ -38,7 +38,11 @@ class PoseProposal(nn.Module):
     flax module; `dtype` is the compute and parameter type. `lmd_*` are the
     loss weights `pose_proposal_loss` reads (reference: config_ppn.py);
     `ret_backbone` adds the backbone's output, NHWC, as
-    `backbone_features`."""
+    `backbone_features`. `output_row_dims` names the dim of an output that
+    holds the grid's rows where it is not dim 1 (spatial parallelism
+    gathers the outputs along it, `parallel/spatial.py`)."""
+
+    output_row_dims = {"e": 4}
 
     def __init__(self, K: int = 18, L: int = 17, hnei: int = 9, wnei: int = 9,
                  hin: int = 384, win: int = 384,
@@ -143,7 +147,8 @@ def ppn_fused_decode(model: PoseProposal, cfg: PpnDecoderConfig | None = None,
     `Config.set_ppn_decoder`), and the model's own `hnei` / `wnei` and input
     size (`hin`, `win`), the values `restore_coor` and the head were built
     with. Puts `model` in eval mode. The step's `decode(outputs)` is its
-    part after the network (`restore_coor`, then the decode), `body` the
+    part after the network (`restore_coor`, then the decode; an image size
+    it is given is not read: the model's is), `body` the
     step outside inference mode (what `torch.export` traces), and
     `rebuild(other_model)` makes the same step on another model object (the
     int8 clone `quant.quantize_engine` makes)."""
@@ -151,7 +156,7 @@ def ppn_fused_decode(model: PoseProposal, cfg: PpnDecoderConfig | None = None,
     if cfg is None:
         cfg = PpnDecoderConfig(instance_part=instance_part_idx(topology))
 
-    def decode(out: dict):
+    def decode(out: dict, image_hw=None):
         hout, wout = out["c"].shape[1:3]
         rx, ry, rw, rh = model.restore_coor(out["x"], out["y"], out["w"], out["h"], hout, wout)
         pred = {"c": out["c"], "i": out["i"], "x": rx, "y": ry, "w": rw, "h": rh,

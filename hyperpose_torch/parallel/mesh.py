@@ -6,8 +6,10 @@ and XLA inserts the collectives; the port runs one process per rank under
 `torch.distributed` (started by `torchrun`) and calls the collectives
 itself. What stands in for the JAX module's placements:
 
-- `batch_sharding(mesh)` (the batch split over "dp"): each rank takes its
-  rows `[r*B/R, (r+1)*B/R)` of the global batch, `local_rows`;
+- `batch_sharding(mesh)` (the batch split over "dp" and image rows over
+  "sp"): each rank takes its rows `[r*B/R, (r+1)*B/R)` of the global batch,
+  `local_rows`, and under spatial parallelism (`spatial.py`) each of a dp
+  shard's sp ranks its rows of those images;
 - `replicated(mesh)` (parameters on every device): every rank holds the
   whole model, drawn from the same seed, and `broadcast_state_` checks it
   equal to rank 0's.
@@ -96,21 +98,37 @@ def rank0_first(fn):
 
 def make_mesh(n_devices: int | None = None, spatial: int = 1, device_type: str | None = None):
     """The ("dp", "sp") `DeviceMesh` over every rank of the group:
-    data-parallel x spatial-parallel. A process group cannot drop ranks, so
-    `n_devices`, when given, must be the world size; spatial parallelism
-    (image rows across ranks, with a halo exchange around every conv) is
-    not ported (ROADMAP Queue 1 #6b), so `spatial` must be 1."""
+    data-parallel x spatial-parallel (image rows across ranks, with a halo
+    exchange around every conv: `spatial.py`). Rank r sits at (r // spatial,
+    r % spatial), as the JAX mesh reshapes its devices to (n // spatial,
+    spatial); `mesh.get_group("sp")` holds the ranks that share a dp shard,
+    `get_group("dp")` those with the same sp index. A process group cannot
+    drop ranks, so `n_devices`, when given, must be the world size, and
+    `spatial` must divide it."""
     from torch.distributed.device_mesh import init_device_mesh
 
     n = world_size()
     if n_devices is not None and n_devices != n:
         raise ValueError(f"a mesh of {n_devices} devices in a group of {n} ranks")
-    if spatial != 1:
-        raise NotImplementedError(
-            f"spatial={spatial}: spatial parallelism is not ported (ROADMAP Queue 1 #6b)")
+    if n % spatial:
+        raise ValueError(f"{n} devices not divisible by spatial={spatial}")
     if device_type is None:
         device_type = "cuda" if dist.get_backend() == "nccl" else "cpu"
     return init_device_mesh(device_type, (n // spatial, spatial), mesh_dim_names=("dp", "sp"))
+
+
+# (world group, spatial) -> its mesh: `make_mesh` makes new process groups
+_MESHES: dict = {}
+
+
+def dp_sp_mesh(spatial: int):
+    """`make_mesh(spatial=spatial)` over the process group, made once a
+    group: the trainer, its float64 twin and the sharded stream engine share
+    its "dp" and "sp" groups."""
+    key = (dist.group.WORLD, spatial)
+    if key not in _MESHES:
+        _MESHES[key] = make_mesh(spatial=spatial)
+    return _MESHES[key]
 
 
 def host_local_batch_size(global_batch: int) -> int:
@@ -152,17 +170,19 @@ def _buckets(tensors: Sequence[torch.Tensor]) -> dict:
 
 
 @torch.no_grad()
-def all_reduce_mean_(tensors: Sequence[torch.Tensor], group=None) -> None:
+def all_reduce_mean_(tensors: Sequence[torch.Tensor], group=None,
+                     count: int | None = None) -> None:
     """Replace each tensor by its mean over the ranks, in place: one
     all-reduce (sum, then / world) of a flattened bucket per device and
-    dtype."""
+    dtype. `count` replaces the world as the divisor: under spatial
+    parallelism a gradient is summed over "sp" and averaged over "dp"."""
     n = group_size(group)
     if n == 1 or not tensors:
         return
     for idx in _buckets(tensors).values():
         flat = torch.cat([tensors[i].reshape(-1) for i in idx])
         dist.all_reduce(flat, group=group)
-        flat /= n
+        flat /= n if count is None else count
         off = 0
         for i in idx:
             t = tensors[i]

@@ -28,9 +28,11 @@ def sync_sgd_loss_and_grads(trainer, batch: dict):
     """`trainer.loss_and_grads` of this rank's rows (BatchNorm over
     `trainer.group`), its gradients and metrics averaged over the ranks:
     (metrics, grads) of the global batch. With no group, the trainer's
-    own."""
+    own. Row-sharded (spatial parallelism), a rank's gradient is its image
+    rows' share of its dp shard's, so the gradients are summed over "sp"
+    and averaged over "dp": the all-reduced sum over the world / dp."""
     metrics, grads = trainer.loss_and_grads(batch)
-    all_reduce_mean_(grads, trainer.group)
+    all_reduce_mean_(grads, trainer.group, trainer.dp)
     return mean_metrics(metrics, trainer.group), grads
 
 

@@ -34,6 +34,7 @@ from .ops.kernels.int8_gemm import (
     conv_out_hw, dw_channels, int8_conv, int8_conv_plain, int8_dwconv, int8_dwconv_plain,
     int8_quantize, padded_channels,
 )
+from .parallel import spatial
 from .utils.weights import read_flax_weights, state_dict_to_flax
 
 Skip = Callable[[str], bool]
@@ -85,13 +86,19 @@ class Int8Conv2d(nn.Module):
     output. Its two stages stay for the tests and the exact sums: `quantize`
     and `conv_plain` are its plain version, step by step.
 
+    A grouped conv (1 < `groups` < channels, JAX's `feature_group_count`)
+    holds one dense `Int8Conv2d` a group in `parts`, each on its slice of the
+    input channels (padded to 32 on its own) with the layer's s_in and its
+    output channels' weight scales; its `rows` runs theirs and sets their
+    outputs side by side, and it has no stages of its own.
+
     On a CUDA tensor each stage runs its kernel or raises: there is no float
     fallback. `int8_conv_sums_plain(xq, q.w_taps, *q.taps_geometry)` gives
     the exact s32 sums of stage 2 (`int8_dwconv_sums_plain` where
     depthwise)."""
 
     def __init__(self, w_q: np.ndarray, s_w: np.ndarray, bias, s_in: float,
-                 stride=1, padding=0, dilation=1, depthwise: bool = False):
+                 stride=1, padding=0, dilation=1, depthwise: bool = False, groups: int = 1):
         super().__init__()
         kh, kw, cin, cout = w_q.shape
         self.depthwise = depthwise
@@ -99,11 +106,30 @@ class Int8Conv2d(nn.Module):
             if cin != 1:
                 raise ValueError(f"a depthwise kernel is [kh, kw, 1, C], got {w_q.shape}")
             cin = cout
-        self.kernel_size, self.in_channels, self.out_channels = (kh, kw), cin, cout
+        self.groups = 1 if depthwise else int(groups)
+        if cout % self.groups:
+            raise ValueError(f"{cout} output channels in {self.groups} groups")
+        self.kernel_size, self.in_channels = (kh, kw), cin * self.groups
+        self.out_channels = cout
         self.stride, self.padding = _pair(stride), _pair(padding)
         self.dilation = _pair(dilation)
         self.s_in = float(s_in)
         self.inv_s = float(np.float32(1.0 / self.s_in))
+        self.parts = None
+        if self.groups > 1:
+            # One dense int8 conv a group on its channel slice, each with the
+            # layer's s_in and its own output channels' weight scales.
+            n = cout // self.groups
+            bias = None if bias is None else np.asarray(bias, np.float32)
+            self.parts = nn.ModuleList(
+                Int8Conv2d(w_q[..., g * n:(g + 1) * n], np.asarray(s_w)[g * n:(g + 1) * n],
+                           None if bias is None else bias[g * n:(g + 1) * n], s_in,
+                           stride, padding, dilation)
+                for g in range(self.groups))
+            self.folded = False
+            for name in ("w_q", "s_w", "dq", "bias"):
+                self.register_buffer(name, None)
+            return
         # A conv on a few input channels (the networks' first convs) folds its
         # taps into the quantized buffer's channels and runs as 1x1: the
         # conv kernel then loads one wide box per tile instead of kh * kw
@@ -132,11 +158,6 @@ class Int8Conv2d(nn.Module):
         """Replace `conv`, whose float32 weights are `kernel` (flax HWIO)
         and `bias` (or None), calibrated to input abs-max `s_abs`."""
         depthwise = conv.groups == conv.in_channels == conv.out_channels > 1
-        if conv.groups != 1 and not depthwise:
-            raise NotImplementedError(
-                f"grouped int8 convolutions with 1 < groups < channels ({conv.groups} "
-                f"groups on {conv.in_channels} channels) are not ported yet: ROADMAP "
-                "Queue 1 #3; depthwise convs (groups = channels) are")
         if isinstance(conv.padding, str) or conv.padding_mode != "zeros":
             raise NotImplementedError(
                 f"Int8Conv2d takes explicit zero padding, not {conv.padding!r} "
@@ -147,8 +168,19 @@ class Int8Conv2d(nn.Module):
                              f"weight {tuple(conv.weight.shape)}")
         w_q, s_w = weight_scales(kernel)
         q = cls(w_q, s_w, bias, s_abs / 127.0, conv.stride, conv.padding,
-                conv.dilation, depthwise)
+                conv.dilation, depthwise, conv.groups)
         return q.to(conv.weight.device)
+
+    def with_padding(self, padding) -> "Int8Conv2d":
+        """This conv with another zero padding, sharing its buffers (and, where
+        grouped, its groups' buffers): a row-sharded forward runs it on rows
+        that carry their halo, with no row padding."""
+        q = copy.copy(self)
+        q.padding = _pair(padding)
+        if self.parts is not None:
+            q._modules = dict(self._modules)
+            q.parts = nn.ModuleList(p.with_padding(padding) for p in self.parts)
+        return q
 
     @property
     def w_taps(self) -> torch.Tensor:
@@ -182,14 +214,21 @@ class Int8Conv2d(nn.Module):
     def quantize(self, x: torch.Tensor) -> torch.Tensor:
         """NCHW x -> int8 [B, H, W, Cp], channels >= C zero (folded:
         [B, Ho, Wo, Cp], see `int8_quantize_plain`)."""
+        self._ungrouped("quantize")
         if x.shape[1] != self.in_channels:
             raise ValueError(f"Int8Conv2d: {x.shape[1]} input channels, "
                              f"expected {self.in_channels}")
         return int8_quantize(x, self.inv_s, self.w_taps.shape[-1], self.fold)
 
+    def _ungrouped(self, what: str) -> None:
+        if self.parts is not None:
+            raise TypeError(f"Int8Conv2d.{what}: a grouped conv runs its groups' stages "
+                            "(`parts`)")
+
     def conv(self, xq: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
         """A dense conv's stage 2: the quantized buffer -> [B*Ho*Wo, cout] in
         `dtype` (`int8_conv`). A depthwise conv has no such stage."""
+        self._ungrouped("conv")
         if self.depthwise:
             raise TypeError("Int8Conv2d.conv: a depthwise conv runs fused from x "
                             "(`rows`); its stage 2 is `conv_plain`")
@@ -197,12 +236,22 @@ class Int8Conv2d(nn.Module):
 
     def conv_plain(self, xq: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
         """Stage 2's plain version, on any device."""
+        self._ungrouped("conv_plain")
         fn = int8_dwconv_plain if self.depthwise else int8_conv_plain
         return fn(xq, self.w_taps, self.dq, self.bias, *self.taps_geometry, dtype)
 
     def rows(self, x: torch.Tensor) -> torch.Tensor:
         """NCHW x -> [B*Ho*Wo, cout] in x's dtype on the kernels: one
-        `int8_dwconv` where depthwise, else `quantize` then `conv`."""
+        `int8_dwconv` where depthwise, else `quantize` then `conv` (where
+        grouped, those of each group on its channel slice, the groups'
+        outputs side by side)."""
+        if self.parts is not None:
+            if x.shape[1] != self.in_channels:
+                raise ValueError(f"Int8Conv2d: {x.shape[1]} input channels, "
+                                 f"expected {self.in_channels}")
+            n = self.in_channels // self.groups
+            return torch.cat([p.rows(x[:, g * n:(g + 1) * n])
+                              for g, p in enumerate(self.parts)], dim=1)
         if not self.depthwise:
             return self.conv(self.quantize(x), x.dtype)
         if x.shape[1] != self.in_channels:
@@ -212,6 +261,16 @@ class Int8Conv2d(nn.Module):
                            *self.taps_geometry)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if spatial.active() is not None:
+            # this rank's rows of the image with the rows the kernels read of
+            # the neighbours, and no row padding (`parallel/spatial.py`)
+            span = self.dilation[0] * (self.kernel_size[0] - 1) + 1
+            x = spatial.window(x, span, self.stride[0], self.padding[0], 0.0, "int8 conv")
+            with spatial.routed():
+                return self.with_padding((0, self.padding[1]))._run(x)
+        return self._run(x)
+
+    def _run(self, x: torch.Tensor) -> torch.Tensor:
         b, _, h, w = x.shape
         ho, wo = self.out_hw(h, w)
         return self.rows(x).view(b, ho, wo, -1).permute(0, 3, 1, 2)

@@ -150,7 +150,14 @@ class PoseEngine:
             x = (yuv420_to_rgb(images_u8) / 255.0).to(self.dtype)
         else:
             x = images_u8.to(self.dtype) / 255.0
-        out = self.model(x)
+        return self.decode_outputs(self.model(x))
+
+    def decode_outputs(self, out: dict) -> DecodedSkeletons:
+        """The step's part after the network: its outputs `out`, of images
+        of `input_hw`, decoded (the PAF decoder, or the `fused_decode`'s
+        `decode`, which a row-sharded step needs: `parallel/stream_shard.py`)."""
+        if self.fused_decode is not None:
+            return self.fused_decode.decode(out, self.input_hw)
         conf = out["conf_map"].to(torch.float32)
         paf = out["paf_map"].to(torch.float32)
         feat_hw = (conf.shape[1], conf.shape[2])

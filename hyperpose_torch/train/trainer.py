@@ -19,8 +19,12 @@ device: each rank steps on its rows of rank 0's global batch, in the
 config's `sync_type` (`parallel/train_step.py` Sync_sgd: BatchNorm over the
 global batch and averaged gradients, the one-device step on the global
 batch; `parallel/sync_modes.py` Sync_avg / Pair_avg: local steps, then the
-weights exchanged), and rank 0 alone writes checkpoints. Spatial
-parallelism (`spatial_parallel > 1`) is not ported (ROADMAP Queue 1 #6b).
+weights exchanged), and rank 0 alone writes checkpoints. With
+`spatial_parallel` sp > 1 the ranks form a dp x sp mesh, as the JAX
+trainer's (`parallel/mesh.py` `make_mesh`): the sp ranks of a dp shard
+each hold its images' rows and run the forward with a halo exchange around
+every conv (`parallel/spatial.py`), the step equal to the one-device step
+on the global batch.
 """
 from __future__ import annotations
 
@@ -39,7 +43,7 @@ from ..data.targets import openpose_targets
 from ..models.backbones import cross_rank_batchnorm
 from ..models.openpose import openpose_loss
 from ..ops.image import no_tf32
-from ..parallel import mesh
+from ..parallel import mesh, spatial
 from ..parallel.sync_modes import local_step
 from ..parallel.train_step import sync_sgd_step
 from .checkpoint import CheckpointManager, save_weights_npz
@@ -132,31 +136,46 @@ class Trainer:
     computes in float64 whatever the config's compute dtype.
 
     With a process group initialised, the trainer joins it (`group`,
-    `rank`, `world`): the world size must divide the batch (the losses
-    divide by the local batch) and equal `n_devices` when that is set;
-    Pair_avg needs an even world size. At world size 1 every `sync_type`
-    runs the one-device step, as the JAX trainer's does on one device."""
+    `rank`, `world`) as a dp x sp mesh, sp the config's `spatial_parallel`:
+    sp must divide the world size, dp = world / sp must divide the batch
+    (the losses divide by the local batch), the world must equal
+    `n_devices` when that is set, and Pair_avg needs an even dp. At dp = 1
+    every `sync_type` runs the one-device step, as the JAX trainer's does
+    on one device (and on a mesh with dp = 1). Under Sync_sgd with sp > 1
+    the forward is row-sharded (`row_shard`); Sync_avg and Pair_avg with
+    dp > 1 run each dp shard's whole local step on every one of its sp
+    ranks, as the JAX sync step shards images on "dp" alone, and exchange
+    the weights among the ranks of one sp index (`group`, the "dp"
+    group)."""
 
     def __init__(self, config: Config, model: nn.Module, limbs, device="cuda",
                  master_dtype: torch.dtype = torch.float32):
         t = config.train
-        if t.spatial_parallel > 1:
-            raise NotImplementedError(
-                f"spatial_parallel {t.spatial_parallel}: spatial parallelism is not "
-                "ported (ROADMAP Queue 1 #6b)")
         self.group, self.rank, self.world = None, mesh.rank(), mesh.world_size()
+        self.sp = max(int(t.spatial_parallel), 1)
         if t.n_devices and t.n_devices != self.world:
             raise ValueError(f"n_devices {t.n_devices} but {self.world} ranks")
-        if t.batch_size % self.world:
-            raise ValueError(f"batch {t.batch_size} not divisible by {self.world} ranks "
-                             "(the losses divide by the local batch)")
+        if self.world % self.sp:
+            raise ValueError(f"{self.world} ranks are not dp x sp with spatial_parallel "
+                             f"{self.sp}")
+        self.dp = self.world // self.sp
+        if t.batch_size % self.dp:
+            raise ValueError(f"batch {t.batch_size} not divisible by {self.dp} ranks "
+                             "(the losses divide by the local batch)"
+                             + (f"; spatial_parallel {self.sp}" if self.sp > 1 else ""))
         self.sync_mode = None
-        if self.world > 1:
-            self.group = torch.distributed.group.WORLD
-            if t.sync_type != SYNC.Sync_sgd:
-                self.sync_mode = "sync_avg" if t.sync_type == SYNC.Sync_avg else "pair_avg"
-            if self.sync_mode == "pair_avg" and self.world % 2:
-                raise ValueError(f"Pair_avg needs an even number of ranks, got {self.world}")
+        self.world_group = torch.distributed.group.WORLD if self.world > 1 else None
+        self.group = self.world_group
+        if self.dp > 1 and t.sync_type != SYNC.Sync_sgd:
+            self.sync_mode = "sync_avg" if t.sync_type == SYNC.Sync_avg else "pair_avg"
+            if self.sync_mode == "pair_avg" and self.dp % 2:
+                raise ValueError(f"Pair_avg needs an even number of ranks, got {self.dp}")
+        self.sp_index, self.sp_group = self.rank % self.sp, None
+        if self.sp > 1:
+            dp_sp = mesh.dp_sp_mesh(self.sp)
+            self.sp_group = dp_sp.get_group("sp")
+            if self.sync_mode is not None:
+                self.group = dp_sp.get_group("dp")
         self.device = check_device(device)
         self.config = config
         self.master_dtype = master_dtype
@@ -176,6 +195,10 @@ class Trainer:
         self.domainadapt = bool(config.data.domainadapt_flag)
         self.discriminator: nn.Module | None = None
         self.d_optimizer: Optimizer | None = None
+        self.row_shard = None
+        if self.sp > 1 and self.sync_mode is None:
+            self.row_shard = spatial.make_shard(self.model, config.model.hin, self.sp_group,
+                                                master_dtype, self.device)
 
     # -- precision -------------------------------------------------------------
 
@@ -191,6 +214,37 @@ class Trainer:
         """The train-mode forward's BatchNorm scope: across the ranks under
         Sync_sgd, this rank's batch alone otherwise."""
         return cross_rank_batchnorm(self.group if self.sync_mode is None else None)
+
+    def _forward(self, x: torch.Tensor) -> dict:
+        """The model's outputs on `x`; row-sharded, on this rank's rows with
+        the halos (`parallel/spatial.py`), the maps then gathered over the
+        sp ranks, so every one of them holds its dp shard's whole maps."""
+        if self.row_shard is None:
+            return self.model(x)
+        with spatial.row_sharded(self.row_shard):
+            return spatial.gather_outputs(self.model(x),
+                                          getattr(self.model, "output_row_dims", None))
+
+    @property
+    def _l2_here(self) -> bool:
+        """Whether this rank differentiates the objective's terms that do
+        not pass through the gathered maps (the L2 term): row-sharded, the
+        first sp rank alone, so that the sum of the sp ranks' gradients
+        counts them once."""
+        return self.row_shard is None or self.sp_index == 0
+
+    def rank_part(self, batch: dict, unlabeled, r: int) -> tuple:
+        """Rank `r`'s part of a global batch (and of a batch of unlabeled
+        images): its dp shard's rows [d*B/dp, (d+1)*B/dp), d = r // sp,
+        and row-sharded, only its rows of the images."""
+        d = r // self.sp
+        part = mesh.local_rows(batch, d, self.dp)
+        unl = None if unlabeled is None else mesh.local_rows(unlabeled, d, self.dp)
+        if self.row_shard is not None:
+            lo, hi = self.row_shard.bounds[r % self.sp], self.row_shard.bounds[r % self.sp + 1]
+            part = dict(part, images=part["images"][:, lo:hi])
+            unl = None if unl is None else unl[:, lo:hi]
+        return part, unl
 
     def _inputs(self, images) -> torch.Tensor:
         """uint8 NHWC images -> the network's input, / 255 in the compute
@@ -260,18 +314,23 @@ class Trainer:
 
                 n = load_pretrained_backbone(self.model, pre_npz)
                 logger.info("loaded pretrained backbone %s (%d tensors)", pre_npz, n)
-        mesh.broadcast_state_(list(self.model.state_dict().values()), self.group)
+        mesh.broadcast_state_(list(self.model.state_dict().values()), self.world_group)
         self.optimizer = make_optimizer(cfg, self.params)
 
-    def _features(self, x: torch.Tensor) -> torch.Tensor:
+    def _features(self, x: torch.Tensor, rows: bool = False) -> torch.Tensor:
         """The backbone features (`ret_backbone`) of `x` in eval mode, in the
-        master dtype (the discriminator's)."""
+        master dtype (the discriminator's); with `rows`, of this rank's rows
+        of the images, gathered over the sp ranks where row-sharded."""
         model = self.model
         was = model.ret_backbone
         model.eval()
         model.ret_backbone = True
         try:
             with self._autocast():
+                if rows and self.row_shard is not None:
+                    with spatial.row_sharded(self.row_shard):
+                        feats = spatial.gather_rows(model(x)["backbone_features"], 1)
+                    return feats.to(self.master_dtype)
                 return model(x)["backbone_features"].to(self.master_dtype)
         finally:
             model.ret_backbone = was
@@ -290,7 +349,7 @@ class Trainer:
         disc = Discriminator(feats.shape[-1], tuple(feats.shape[1:3]))
         flax_init_(disc, torch.Generator().manual_seed(1))
         self.discriminator = disc.to(self.device)
-        mesh.broadcast_state_(list(disc.state_dict().values()), self.group)
+        mesh.broadcast_state_(list(disc.state_dict().values()), self.world_group)
         self.d_optimizer = Optimizer(list(disc.parameters()), "adam", staged_lr_schedule(cfg))
 
     def twin(self, master_dtype: torch.dtype = torch.float64) -> "Trainer":
@@ -352,16 +411,17 @@ class Trainer:
             x, kpts, valid, mask, bbxs = self._batch(batch)
             self.model.train()
             with self._autocast():
-                predict = self.model(x)
+                predict = self._forward(x)
             pd_loss, parts = self.targets_loss(predict, kpts, valid, mask, bbxs)
             if l2:
                 re_loss = l2_regularization(self.model, self.config.train.weight_decay_factor)
                 total = pd_loss + re_loss
                 out = dict(parts, loss_re=re_loss, pd_loss=pd_loss, total_loss=total)
+                objective = total if self._l2_here else pd_loss
             else:
-                total = pd_loss
+                objective = total = pd_loss
                 out = dict(parts, total_loss=total)
-            grads = torch.autograd.grad(total, self.params) if grads else []
+            grads = torch.autograd.grad(objective, self.params) if grads else []
         return {k: v.detach() for k, v in out.items()}, list(grads)
 
     def step(self, batch: dict, unlabeled=None, step_idx: int = 0) -> dict[str, torch.Tensor]:
@@ -396,21 +456,25 @@ class Trainer:
         x_l, kpts, valid, mask, bbxs = self._batch(batch)
         x_u = self._inputs(unlabeled)
         disc = self.discriminator
-        u_feats = self._features(x_u)
+        u_feats = self._features(x_u, rows=True)
         with self._autocast(), self._batchnorm_group():
-            predict = self.model(x_l)
+            predict = self._forward(x_l)
         pd_loss, parts = self.targets_loss(predict, kpts, valid, mask, bbxs)
         re_loss = l2_regularization(self.model, self.config.train.weight_decay_factor)
         u_logits = disc(u_feats)
         g_loss = bce_logits(u_logits, torch.ones_like(u_logits))
-        total = pd_loss + re_loss + self.config.train.lambda_adapt * g_loss
-        grads = list(torch.autograd.grad(total, self.params))
-        mesh.all_reduce_mean_(grads, self.group)
+        adapt = self.config.train.lambda_adapt * g_loss
+        total = pd_loss + re_loss + adapt
+        objective = total if self._l2_here else pd_loss + adapt
+        grads = list(torch.autograd.grad(objective, self.params))
+        mesh.all_reduce_mean_(grads, self.group, self.dp)
         self.optimizer.step(grads)
         with torch.no_grad():
-            l_feats, u_feats = self._features(x_l), self._features(x_u)
+            l_feats, u_feats = self._features(x_l, rows=True), self._features(x_u, rows=True)
         _, d_loss = discriminator_losses(disc(l_feats), disc(u_feats))
         d_grads = list(torch.autograd.grad(d_loss, list(disc.parameters())))
+        # the same on the sp ranks of a dp shard: the mean over the world is
+        # the mean over "dp"
         mesh.all_reduce_mean_(d_grads, self.group)
         self.d_optimizer.step(d_grads)
         out = dict(parts, loss_re=re_loss, pd_loss=pd_loss, g_loss=g_loss, total_loss=total,
@@ -464,11 +528,8 @@ class Trainer:
                         unlabeled = np.asarray(
                             next(unlabeled_iter) if hasattr(unlabeled_iter, "__next__")
                             else unlabeled_iter.next())
-                    parts = [(mesh.local_rows(batch, r, self.world),
-                              None if unlabeled is None else
-                              mesh.local_rows(unlabeled, r, self.world))
-                             for r in range(self.world)]
-            part = mesh.scatter_object(parts, self.group)
+                    parts = [self.rank_part(batch, unlabeled, r) for r in range(self.world)]
+            part = mesh.scatter_object(parts, self.world_group)
             if part is None:
                 logger.info("pipeline exhausted at step %d", step_idx)
                 break
@@ -494,8 +555,8 @@ class Trainer:
             self.ckpt.save(step, self.state_dict(step))
             save_weights_npz(self.model, npz_path)
             logger.info("saved checkpoint at step %d -> %s", step, npz_path)
-        if self.group is not None:
-            torch.distributed.barrier(self.group)
+        if self.world_group is not None:
+            torch.distributed.barrier(self.world_group)
         return npz_path
 
     def _visualize(self, visualizer, batch: dict, step: int) -> None:

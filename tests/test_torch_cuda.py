@@ -678,8 +678,9 @@ def test_int8_kernels_refuse_what_they_do_not_take(cuda):
     with pytest.raises(ValueError):
         int8_quantize(torch.zeros(1, 40, 4, 4, device=cuda), 1.0, 32)
     conv = torch.nn.Conv2d(8, 8, 3, padding=1, groups=4)
-    with pytest.raises(NotImplementedError, match="grouped"):
-        Int8Conv2d.from_conv(conv, np.zeros((3, 3, 2, 8), np.float32), None, 1.0)
+    grouped = Int8Conv2d.from_conv(conv, np.zeros((3, 3, 2, 8), np.float32), None, 1.0)
+    with pytest.raises(TypeError, match="grouped"):
+        grouped.to(cuda).quantize(torch.zeros(1, 8, 4, 4, device=cuda))
 
 
 @pytest.mark.parametrize("cin,cout,k,stride,dtype", [

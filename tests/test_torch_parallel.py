@@ -104,11 +104,11 @@ def _rel(got, want, floor=0.0) -> float:
                  / max(float(np.abs(want).max()), floor, 1e-30))
 
 
-def check_ranks_equal_one_process(ranks, ref, tag, rtol=X64_RTOL):
+def check_ranks_equal_one_process(ranks, ref, tag, rtol=X64_RTOL, stats=True):
     """Every output under `tag` of each rank against the one-process run's
-    (module docstring)."""
+    (module docstring); `stats`: the network has BatchNorm statistics."""
     keys = [k for k in ref if k.startswith(tag + "/") and not k.endswith("/step_s")]
-    assert any("/after/batch_stats/" in k for k in keys)
+    assert stats == any("/after/batch_stats/" in k for k in keys)
     group_max: dict = {}
     for k in keys:
         g = k.split("/")[1]
@@ -209,9 +209,11 @@ def test_mesh_helpers():
 
 def test_trainer_refuses_what_a_group_cannot_do(tmp_path, monkeypatch):
     """A world size that does not divide the batch, `n_devices` other than
-    the world size, an odd world size under Pair_avg and
-    `spatial_parallel > 1` raise (ROADMAP Queue 3: the JAX trainer takes the
-    largest divisor of the batch instead)."""
+    the world size, and a world that is not dp x sp with `spatial_parallel`
+    2 raise (ROADMAP Queue 3: the JAX trainer takes the largest divisor of
+    the batch instead); so does a dp that does not divide the batch. The
+    dp x sp trainer that 4 ranks build with `spatial_parallel` 2 is
+    tests/test_torch_spatial.py's (`test_ranks_form_the_dp_x_sp_mesh`)."""
     from hyperpose_torch.train.trainer import Trainer
 
     spec = dict(CASES["flagship"], batch=4)
@@ -226,7 +228,13 @@ def test_trainer_refuses_what_a_group_cannot_do(tmp_path, monkeypatch):
         Trainer(cfg, model, limbs, device="cpu")
     cfg = W.port_config(spec, str(tmp_path))
     cfg.train.spatial_parallel = 2
-    with pytest.raises(NotImplementedError, match="#6b"):
+    for world in (1, 3):
+        monkeypatch.setattr(mesh, "world_size", lambda: world)
+        with pytest.raises(ValueError, match="not dp x sp"):
+            Trainer(cfg, model, limbs, device="cpu")
+    monkeypatch.setattr(mesh, "world_size", lambda: 4)
+    cfg.train.batch_size = 3
+    with pytest.raises(ValueError, match="not divisible by 2 ranks.*spatial_parallel 2"):
         Trainer(cfg, model, limbs, device="cpu")
 
 

@@ -244,13 +244,130 @@ def test_int8_conv_output_is_a_channels_last_view():
     assert got.permute(0, 2, 3, 1).is_contiguous()
 
 
-def test_grouped_int8_conv_raises():
-    """1 < groups < channels stays unported (no model of the package has
-    such a conv); depthwise convs (groups = channels) are ported."""
-    conv = torch.nn.Conv2d(8, 8, 3, padding=1, groups=4)
-    kernel = np.zeros((3, 3, 2, 8), np.float32)
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 #3"):
-        quant.Int8Conv2d.from_conv(conv, kernel, None, 1.0)
+class _OneGroupedConv(fnn.Module):
+    features: int
+    kernel: int
+    groups: int
+    strides: int = 1
+    dtype: jnp.dtype = jnp.float32
+
+    @fnn.compact
+    def __call__(self, x):
+        return fnn.Conv(self.features, (self.kernel, self.kernel), strides=self.strides,
+                        padding="SAME", feature_group_count=self.groups, dtype=self.dtype,
+                        name="conv")(x)
+
+
+GROUPED_CASES = [(g, k, s) for g in (2, 4) for k in (1, 3) for s in (1, 2)]
+
+
+@pytest.mark.parametrize("groups,k,stride", GROUPED_CASES)
+def test_grouped_int8_conv_raises(groups, k, stride):
+    """A grouped conv (1 < groups < channels) quantizes as JAX's
+    `_quantized_conv` with `feature_group_count` does: one dense int8 conv a
+    group (`parts`) on its channel slice, the layer's s_in, each output
+    channel's weight scale. Its s32 sums equal JAX's exactly and its output
+    lies within 1 float32 ulp; the stages of a grouped conv raise (it runs
+    its groups' stages), and so does an input of the wrong width."""
+    cin, cout, hw = 8 * groups, 6 * groups, (13, 17)
+    rng = np.random.default_rng(groups * 10 + k + stride)
+    x = rng.normal(0, 1, (2, *hw, cin)).astype(np.float32)
+    kernel = (rng.normal(0, 1, (k, k, cin // groups, cout)) / k).astype(np.float32)
+    bias = rng.normal(0, 0.1, cout).astype(np.float32)
+    s_abs = float(np.abs(x).max()) * 0.8          # some inputs clip at +-127
+    variables = {"params": {"conv": {"kernel": kernel, "bias": bias}}}
+    want = np.asarray(jquant.quantized_apply(_OneGroupedConv(cout, k, groups, stride),
+                                             {"conv": s_abs})(variables, jnp.asarray(x)))
+    s_in = s_abs / 127.0
+    s_w = jnp.maximum(jnp.max(jnp.abs(kernel), axis=(0, 1, 2)), 1e-8) / 127.0
+    w_q = jnp.clip(jnp.round(kernel / s_w), -127, 127).astype(jnp.int8)
+    x_q = jnp.clip(jnp.round(jnp.asarray(x) * (1.0 / s_in)), -127, 127).astype(jnp.int8)
+    dn = lax.conv_dimension_numbers(x_q.shape, w_q.shape, ("NHWC", "HWIO", "NHWC"))
+    acc_want = np.asarray(lax.conv_general_dilated(
+        x_q, w_q, (stride, stride), "SAME", dimension_numbers=dn, feature_group_count=groups,
+        preferred_element_type=jnp.int32))
+
+    model = _PortOneConv(cin, cout, k, stride, 1, torch.float32)
+    model.conv = torch.nn.Conv2d(cin, cout, k, stride=stride, groups=groups,
+                                 padding=k // 2 if stride == 1 else 0)
+    quant.quantize_model(model, {"conv": s_abs},
+                         weights={"params/conv/kernel": kernel, "params/conv/bias": bias})
+    q = model.conv
+    assert isinstance(q, quant.Int8Conv2d) and q.groups == groups and len(q.parts) == groups
+    assert all(p.w_taps.shape[-1] % 32 == 0 for p in q.parts)
+    xt = torch.from_numpy(x).permute(0, 3, 1, 2)
+    with torch.inference_mode():
+        got = model(xt).permute(0, 2, 3, 1).numpy()
+        xin = F.pad(xt, same_pads(xt.shape[-2:], k, stride)) if stride > 1 else xt
+        n = cin // groups
+        acc = torch.cat([int8_conv_sums_plain(p.quantize(xin[:, g * n:(g + 1) * n]), p.w_taps,
+                                              *p.taps_geometry)[:, :cout // groups]
+                         for g, p in enumerate(q.parts)], dim=1)
+    np.testing.assert_array_equal(acc.numpy().reshape(acc_want.shape), acc_want)
+    assert got.shape == want.shape
+    np.testing.assert_array_max_ulp(got, want, maxulp=1)
+    for stage in (lambda: q.quantize(xt), lambda: q.conv(None, torch.float32),
+                  lambda: q.conv_plain(None, torch.float32)):
+        with pytest.raises(TypeError, match="grouped"):
+            stage()
+    with pytest.raises(ValueError, match="input channels"):
+        q(xt[:, :cin - 1])
+
+
+class _GroupedNet(torch.nn.Module):
+    """A small PAF-family network with a grouped conv (no built-in model has
+    one; a user's `model_arch` can): NHWC in, NHWC conf / PAF maps out."""
+
+    def __init__(self):
+        super().__init__()
+        self.dtype = torch.float32
+        self.conv0 = torch.nn.Conv2d(3, 16, 3, padding=1)
+        self.gconv = torch.nn.Conv2d(16, 16, 3, padding=1, groups=4)
+        self.conf = torch.nn.Conv2d(16, 19, 1)
+        self.paf = torch.nn.Conv2d(16, 38, 1)
+
+    def forward(self, x):
+        y = torch.relu(self.gconv(torch.relu(self.conv0(x.permute(0, 3, 1, 2)))))
+        return {"conf_map": self.conf(y).permute(0, 2, 3, 1),
+                "paf_map": self.paf(y).permute(0, 2, 3, 1)}
+
+
+class _JaxGroupedNet(fnn.Module):
+    @fnn.compact
+    def __call__(self, x):
+        y = jax.nn.relu(fnn.Conv(16, (3, 3), padding="SAME", name="conv0")(x))
+        y = jax.nn.relu(fnn.Conv(16, (3, 3), padding="SAME", feature_group_count=4,
+                                 name="gconv")(y))
+        return {"conf_map": fnn.Conv(19, (1, 1), name="conf")(y),
+                "paf_map": fnn.Conv(38, (1, 1), name="paf")(y)}
+
+
+def test_quantize_engine_takes_a_grouped_conv():
+    """`quantize_engine` on a network with a 4-group conv: every conv in
+    int8, the grouped one as 4 dense parts; the int8 maps against JAX's
+    `quantized_apply` on the same scale table within the networks' bound
+    (module docstring), and the int8 engine decodes."""
+    from hyperpose_torch.runtime.engine import PoseEngine
+    from hyperpose_torch.utils.weights import random_flax_weights
+
+    hw = (24, 32)
+    flat = random_flax_weights(_GroupedNet(), 3)
+    frames = np.random.default_rng(4).integers(0, 256, (2, *hw, 3), dtype=np.uint8)
+    eng = PoseEngine(_GroupedNet(), flat, input_hw=hw, max_batch_size=2, device="cpu")
+    qeng = quant.quantize_engine(eng, [frames])
+    g = qeng.model.gconv
+    assert isinstance(g, quant.Int8Conv2d) and g.groups == 4 and len(g.parts) == 4
+    assert sorted(qeng.quant_scales) == ["conf", "conv0", "gconv", "paf"]
+    x = frames.astype(np.float32) / 255.0
+    want = jquant.quantized_apply(_JaxGroupedNet(), qeng.quant_scales)(
+        nest(flat), jnp.asarray(x))
+    with torch.inference_mode():
+        got = qeng.model(torch.from_numpy(x))
+    for k in ("conf_map", "paf_map"):
+        w = np.asarray(want[k])
+        assert np.abs(got[k].numpy() - w).max() <= 0.1 * np.abs(w).max(), k
+    d = qeng.infer_batch_device(frames)
+    assert tuple(d.coords.shape[:1]) == (2,)
 
 
 # -- the depthwise Int8Conv2d against _quantized_conv(feature_group_count=C) -----------

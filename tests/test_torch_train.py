@@ -552,11 +552,12 @@ def test_pretrained_backbone_graft_matches_jax(tmp_path):
 
 
 def test_trainer_refuses_what_is_not_ported(tmp_path):
-    """Spatial parallelism (ROADMAP Queue 1 #6b) raises; the sync types
-    train across ranks (tests/test_torch_sync_modes.py)."""
+    """Spatial parallelism needs a dp x sp group of ranks: one process with
+    `spatial_parallel` 2 raises (tests/test_torch_spatial.py trains on 2 and
+    4 ranks); without a GPU the default device raises."""
     _, cfg = _configs(tmp_path, "LightweightOpenpose", (64, 80), (8, 10))
     cfg.train.spatial_parallel = 2
-    with pytest.raises(NotImplementedError, match="Queue 1 #6b"):
+    with pytest.raises(ValueError, match="1 ranks are not dp x sp with spatial_parallel 2"):
         Trainer(cfg, _lw_vggtiny_p(), COCO_TOPOLOGY.limbs, device="cpu")
     cfg.train.spatial_parallel = 1
     if not torch.cuda.is_available():

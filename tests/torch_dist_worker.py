@@ -102,12 +102,23 @@ def launch(case: str, world: int, path: str, timeout: float = 150) -> list[dict]
     return finish(start(case, world, path, timeout))
 
 
+def read_outputs(path: str, world: int) -> list[dict]:
+    """Each rank's outputs of a case in `path` (a "group" run's)."""
+    outs = []
+    for r in range(world):
+        with np.load(os.path.join(path, f"out_{r}.npz")) as data:
+            outs.append({k: data[k] for k in data.files})
+    return outs
+
+
 # -- the cases -------------------------------------------------------------------
 
 def port_config(spec: dict, tmp: str, sync_type: str = "Sync_sgd"):
     """The port's config of a case (tests/test_torch_train.py `_configs`):
     the model type and sizes, Adam at lr 1e-4, float32, the global batch
-    size, the sync type, domain adaptation when asked."""
+    size, the sync type, domain adaptation when asked, and in a process
+    group spec "spatial" as `spatial_parallel` (one process takes the
+    unsharded step)."""
     PC.reset()
     PC.set_model_type(PC.MODEL[spec["model_type"]])
     (h, w), (ho, wo) = spec["hw"], spec["out_hw"]
@@ -119,6 +130,7 @@ def port_config(spec: dict, tmp: str, sync_type: str = "Sync_sgd"):
     PC.set_kungfu_option(PC.SYNC[sync_type])
     if spec.get("dmadapt"):
         PC.set_domainadapt_dataset(["unused.jpg"])
+    PC.set_train_devices(0, spec.get("spatial", 1) if mesh.is_distributed() else 1)
     cfg = PC.get_config(create_dirs=False)
     cfg.model.model_dir = tmp
     PC.reset()
@@ -138,6 +150,20 @@ def make_model(name: str):
         return PO.LightWeightOpenPose(backbone=PB.VggTiny), COCO_TOPOLOGY.limbs
     if name == "ppn":
         return PPP.PoseProposal(hin=128, win=128), PPN_TOPOLOGY.limbs
+    if name == "pifpaf":
+        from hyperpose_torch.models.pifpaf import Pifpaf
+        from hyperpose_torch.utils.topology import PIFPAF_TOPOLOGY
+
+        return Pifpaf(hin=64, win=64), PIFPAF_TOPOLOGY.limbs
+    if name == "lw_mobilenet":  # MobilenetDilated: a dilated depthwise conv, halo 2
+        return PO.LightWeightOpenPose(num_channels=32), COCO_TOPOLOGY.limbs
+    if name == "openpose":      # 7x7 stages: halo 3
+        return PO.OpenPose(n_refinements=1), COCO_TOPOLOGY.limbs
+    if name == "mbsmall_openpose":  # 7x7 SeparableConvs, a x2 resize
+        return PO.MobilenetSmallOpenpose(), COCO_TOPOLOGY.limbs
+    if name == "lw_s2d":        # the space-to-depth stem
+        return (PO.LightWeightOpenPose(backbone=PB.VggTinyS2DStem, num_channels=32),
+                COCO_TOPOLOGY.limbs)
     raise KeyError(name)
 
 
@@ -213,15 +239,15 @@ def case_sync_sgd(spec, arrays, rank, world, tmp) -> dict:
     from hyperpose_torch.parallel.train_step import sync_sgd_loss_and_grads
 
     torch.backends.cudnn.deterministic = bool(spec.get("deterministic"))
-    batch = mesh.local_rows(_batches(arrays)[0], rank, world)
     tr = _trainer(spec, arrays, tmp)
+    batch, unl = tr.rank_part(_batches(arrays)[0], arrays.get("u0"), rank)
     tags = spec.get("tags", ["f64", "f32"])
     what = spec.get("record", ["grads", "params", "stats"])
-    out = {}
+    out = {"geometry": np.asarray([tr.dp, tr.sp, tr.sp_index,
+                                   *(tr.row_shard.rows if tr.row_shard else (0, 0))])}
     for tag, t in [(t, tr.twin() if t == "f64" else tr) for t in tags]:
         t0 = time.perf_counter()
         if spec.get("dmadapt"):
-            unl = mesh.local_rows(arrays["u0"], rank, world)
             metrics, grads, d_grads = t.dmadapt_step(batch, unl)
             out[f"{tag}/step_s"] = np.asarray(_synced_s(t0, spec))
             _record(out, tag, t, what, metrics, grads, d_grads)
@@ -255,7 +281,7 @@ def case_sync_modes(spec, arrays, rank, world, tmp) -> dict:
     for mode in spec["modes"]:
         tw = _trainer(spec, arrays, os.path.join(tmp, mode), SYNC_TYPES[mode]).twin()
         for i, b in enumerate(_batches(arrays)):
-            metrics = tw.step(mesh.local_rows(b, rank, world), None, i)
+            metrics = tw.step(tw.rank_part(b, None, rank)[0], None, i)
             for k, v in metrics.items():
                 out[f"{mode}/step{i}/{k}"] = np.asarray(float(v))
         _record_modes_state(out, mode, tw, rank, spec)
@@ -326,46 +352,105 @@ def one_process_sync_modes(path: str, world: int) -> list[dict]:
     return outs
 
 
-def case_stream(spec, arrays, rank, world, tmp) -> dict:
-    """`ShardedStreamEngine` over a `PoseEngine` of the flagship weights "w/"
-    at spec["hw"] (in spec "dtype", float32 by default): the global batch
-    "frames" by `infer_global_batch` (after a warm-up, with the decoder
-    kernels' launch counts set to 0 just before and read just after, and its
-    synced wall seconds) and by `infer_local_shard`, and the ("dp", "sp")
-    mesh's shape."""
-    from hyperpose_torch.models.backbones import VggTiny
+def stream_engine(spec, arrays, form: str, batch: int, device: str | None = None):
+    """The flagship `PoseEngine` of a stream case on the weights "w/" at
+    spec["hw"] (in spec "dtype", float32 by default), batch `batch`, in
+    `form`: "plain" (VggTiny), "fused" (`VggTinyFusedStem`, the weights
+    remapped) or "int8" (`quant.quantize_engine` of the plain engine,
+    calibrated on every frame of "frames"), warmed up."""
+    from hyperpose_torch import quant
+    from hyperpose_torch.models.backbones import VggTiny, VggTinyFusedStem, remap_vggtiny_to_fused
     from hyperpose_torch.models.openpose import LightWeightOpenPose
-    from hyperpose_torch.ops.kernels.line_gather import limb_scores
-    from hyperpose_torch.ops.kernels.peak_topk import peak_topk
-    from hyperpose_torch.parallel.stream_shard import ShardedStreamEngine, make_distributed_mesh
     from hyperpose_torch.runtime.engine import PoseEngine
 
-    frames = arrays["frames"]
-    n = frames.shape[0] // world
+    weights = {k[2:]: v for k, v in arrays.items() if k.startswith("w/")}
     dtype = getattr(torch, spec.get("dtype", "float32"))
-    engine = PoseEngine(LightWeightOpenPose(backbone=VggTiny, dtype=dtype),
-                        {k[2:]: v for k, v in arrays.items() if k.startswith("w/")},
-                        input_hw=tuple(spec["hw"]), max_batch_size=n, device=_device(spec))
+    kw = dict(input_hw=tuple(spec["hw"]), max_batch_size=batch,
+              device=device or _device(spec))
+    if form == "fused":
+        engine = PoseEngine(LightWeightOpenPose(backbone=VggTinyFusedStem, dtype=dtype),
+                            remap_vggtiny_to_fused(weights), **kw)
+    else:
+        engine = PoseEngine(LightWeightOpenPose(backbone=VggTiny, dtype=dtype), weights, **kw)
+        if form == "int8":
+            engine = quant.quantize_engine(engine, [arrays["frames"]])
     engine.warmup()
-    sharded = ShardedStreamEngine(engine)
-    limb_scores.launches = peak_topk.launches = 0
-    t0 = time.perf_counter()
-    d = sharded.infer_global_batch(frames)
-    out = {"global_s": np.asarray(_synced_s(t0, spec)),
-           "launches/limb_scores": np.asarray(limb_scores.launches),
-           "launches/peak_topk": np.asarray(peak_topk.launches)}
-    for tag, d in (("global", d),
-                   ("local", sharded.infer_local_shard(frames[rank * n:(rank + 1) * n]))):
-        for f in ("coords", "part_scores", "part_valid", "scores", "valid"):
-            out[f"{tag}/{f}"] = getattr(d, f).cpu().numpy()
+    return engine
+
+
+STREAM_KERNELS = ("peak_topk", "limb_scores", "conv1_pool", "int8_conv", "int8_dwconv")
+
+
+def _stream_counters() -> dict:
+    from hyperpose_torch.ops.kernels.conv1_pool import conv1_pool
+    from hyperpose_torch.ops.kernels.int8_gemm import int8_conv, int8_dwconv
+    from hyperpose_torch.ops.kernels.line_gather import limb_scores
+    from hyperpose_torch.ops.kernels.peak_topk import peak_topk
+
+    return {"peak_topk": peak_topk, "limb_scores": limb_scores, "conv1_pool": conv1_pool,
+            "int8_conv": int8_conv, "int8_dwconv": int8_dwconv}
+
+
+def case_stream(spec, arrays, rank, world, tmp) -> dict:
+    """`ShardedStreamEngine` (spec "spatial" sp, 1 by default: dp = world /
+    sp ranks split the frames) over `stream_engine` in each of spec "forms"
+    (outputs prefixed "<form>/"; without "forms", the plain engine,
+    unprefixed): the global batch "frames" by `infer_global_batch` (after a
+    warm-up, with the kernels' launch counts set to 0 just before and read
+    just after, and its synced wall seconds) and by `infer_local_shard`,
+    and the ("dp", "sp") mesh's shape."""
+    from hyperpose_torch.parallel.stream_shard import ShardedStreamEngine, make_distributed_mesh
+
+    frames = arrays["frames"]
+    sp = spec.get("spatial", 1)
+    n = frames.shape[0] // (world // sp)
+    d = rank // sp
+    counters = _stream_counters()
+    out = {}
+    for form in spec.get("forms", [None]):
+        pre = "" if form is None else f"{form}/"
+        sharded = ShardedStreamEngine(stream_engine(spec, arrays, form or "plain", n),
+                                      spatial=sp)
+        sharded.infer_global_batch(frames)
+        for c in counters.values():
+            c.launches = 0
+        t0 = time.perf_counter()
+        dec = sharded.infer_global_batch(frames)
+        out[f"{pre}global_s"] = np.asarray(_synced_s(t0, spec))
+        out.update({f"{pre}launches/{k}": np.asarray(c.launches) for k, c in counters.items()})
+        for tag, dec in (("global", dec),
+                         ("local", sharded.infer_local_shard(frames[d * n:(d + 1) * n]))):
+            for f in ("coords", "part_scores", "part_valid", "scores", "valid"):
+                out[f"{pre}{tag}/{f}"] = getattr(dec, f).cpu().numpy()
     if world > 1:
-        m = make_distributed_mesh()
+        m = make_distributed_mesh(sp)
         out["mesh_shape"] = np.asarray(m.mesh.shape)
         out["mesh_dims"] = np.asarray(m.mesh_dim_names)
+        out["mesh_coords"] = np.asarray(m.get_coordinate())
     return out
 
 
-CASES = {"sync_sgd": case_sync_sgd, "sync_modes": case_sync_modes, "stream": case_stream}
+def case_group(spec, arrays, rank, world, tmp) -> dict:
+    """Each (case, directory) of spec["runs"] in turn on these ranks, each
+    writing its outputs to its own directory (one start-up for several
+    cases); returns the rank's peak device memory in each case
+    ("peak_bytes/<case>", 0 on the CPU), whose memory it frees after it."""
+    cuda = _device(spec) == "cuda"
+    peaks = {}
+    for case, path in spec["runs"]:
+        if cuda:
+            torch.cuda.reset_peak_memory_stats()
+        out = run_case(case, path, rank, world)
+        np.savez(os.path.join(path, f"out_{rank}.npz"), **out)
+        del out
+        if cuda:
+            peaks[f"peak_bytes/{case}"] = np.asarray(torch.cuda.max_memory_allocated())
+            torch.cuda.empty_cache()
+    return peaks
+
+
+CASES = {"sync_sgd": case_sync_sgd, "sync_modes": case_sync_modes, "stream": case_stream,
+         "group": case_group}
 
 
 def run_case(case: str, path: str, rank: int = 0, world: int = 1) -> dict:
