@@ -3412,11 +3412,141 @@ def grouped_int8_on_card() -> dict:
     return out
 
 
+def tf_plan_families() -> list:
+    """(name, () -> the float32 model with its weights, served input size)
+    of every model the TF exports take, the slowest to plan first: each
+    served family (`served_weights`), Lightweight-OpenPose on every other
+    backbone, and on the flagship checkpoint in its three serving forms
+    (plain, S2D stem, fused stem)."""
+    from hyperpose_torch.models import backbones as B
+    from hyperpose_torch.models.openpose import LightWeightOpenPose
+    from hyperpose_torch.utils.weights import load_flax_weights, random_flax_weights
+
+    def lw(backbone, weights=None):
+        def make():
+            model = LightWeightOpenPose(backbone=backbone)
+            return load_flax_weights(model, random_flax_weights(model, 0)
+                                     if weights is None else weights())
+        return make
+
+    out = [(spec.name, lambda spec=spec: load_flax_weights(spec.model(), served_weights(spec)),
+            spec.hw)
+           for spec in (MBTHIN_OPENPOSE, OPENPOSE_VGG19, MBSMALL_OPENPOSE, PIFPAF,
+                        LW_MOBILENET, LW_RESNET18, PPN)]
+    out += [(f"lw_{b.__name__.lower()}", lw(b), INPUT_HW)
+            for b in (B.MobilenetV2, B.Vgg16, B.Vgg19, B.MobilenetV1, B.VggTinyS2D)]
+    return out + [
+        ("flagship", lw(B.VggTiny, lambda: FLAGSHIP_NPZ), INPUT_HW),
+        ("flagship_s2d_stem", lw(B.VggTinyS2DStem,
+                                 lambda: B.remap_vggtiny_to_s2d(FLAGSHIP_NPZ)), INPUT_HW),
+        ("flagship_fused_stem", lw(B.VggTinyFusedStem,
+                                   lambda: B.remap_vggtiny_to_fused(FLAGSHIP_NPZ)), INPUT_HW)]
+
+
+TF_PLAN_WORKERS = 4   # processes planning the families (8 host cores on the card's machine)
+
+
+def tf_plan_one(name: str) -> dict:
+    """In a worker: the `tf_plan_families` model `name` on the card, its
+    float32 forward at its served size, batch 1, captured there and planned
+    as TF ops (`utils/tf_lower.py`, non-strict: unlowered ops are listed)."""
+    from hyperpose_torch.utils import tf_lower
+
+    make, hw = {n: (m, hw) for n, m, hw in tf_plan_families()}[name]
+    t0 = time.perf_counter()
+    plan = tf_lower.plan_forward(make().cuda().eval(), (1, *hw, 3), strict=False)
+    return {"family": name, "hw": list(hw), "nodes": plan.nodes, "tf_ops": len(plan.steps),
+            "unlowered": plan.unlowered, "histogram": plan.histogram(),
+            "seconds": time.perf_counter() - t0}
+
+
+def tf_plans_start():
+    """Plan every family in TF_PLAN_WORKERS spawned processes while this one
+    goes on (capture and lowering are host work, about 90 s in one process
+    on the card's machine); `tf_plans_finish` collects them."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+
+    pool = ProcessPoolExecutor(TF_PLAN_WORKERS, mp_context=multiprocessing.get_context("spawn"))
+    return time.perf_counter(), pool, [pool.submit(tf_plan_one, name)
+                                       for name, _, _ in tf_plan_families()]
+
+
+def tf_plans_finish(started) -> dict:
+    """One line a family (graph nodes, TF ops by name, unlowered ops, which
+    fail the run) and the workers stopped."""
+    t0, pool, futures = started
+    try:
+        rows = [f.result(timeout=600) for f in futures]
+    finally:
+        pool.shutdown(wait=True, cancel_futures=True)
+    for r in rows:
+        emit("tf_plan", **{**r, "unlowered": len(r["unlowered"])})
+        check(not r["unlowered"], f"tf_lower: {r['family']} has unlowered ops {r['unlowered']}")
+    return {"families": len(rows), "unlowered": 0,
+            "tf_ops": {r["family"]: r["tf_ops"] for r in rows},
+            "plans_wall_s": time.perf_counter() - t0}
+
+
+def tf_export_tool(out_dir: str, device: str) -> dict:
+    """`tools.export_model --format pb` of the flagship on `device`. Where
+    `import tensorflow` fails (the card's machine has no TensorFlow), the
+    tool must raise an ImportError naming tensorflow and write nothing.
+    Where it works, the reloaded `.pb`'s maps of the synthetic frame at
+    368x432, decoded by the engine's decoder, hold the flagship's two people
+    (17.0187 and 8.584, within 1e-3; tests/test_torch_export_tflite.py)."""
+    import contextlib
+    import io
+    import shutil
+
+    import torch
+    from hyperpose_torch.ops.image import resize_bilinear
+    from hyperpose_torch.tools import export_model
+    from hyperpose_torch.utils.human import SkeletonBatch
+
+    shutil.rmtree(out_dir, ignore_errors=True)
+    argv = ["--model_backbone", "Vggtiny", "--weights", FLAGSHIP_NPZ, "--model_name",
+            "flagship", "--format", "pb", "--output_dir", out_dir, "--device", device]
+    try:
+        import tensorflow as tf
+    except ImportError:
+        try:
+            export_model.run(argv)
+        except ImportError as e:
+            check("tensorflow" in str(e), f"export_model without tensorflow: {e}")
+            check(not os.path.exists(out_dir), "export_model wrote files without tensorflow")
+            return {"tensorflow": False, "refused_with_import_error": True}
+        fail("export_model --format pb ran without tensorflow")
+    with contextlib.redirect_stdout(io.StringIO()):
+        res = export_model.run(argv)
+    graph_def = tf.compat.v1.GraphDef()
+    with open(res["pb"], "rb") as f:
+        graph_def.ParseFromString(f.read())
+    frame = np.load(os.path.join(REPO, "hyperpose_torch", "assets",
+                                 "synth_000000001601.npz"))["rgb"]
+    x = resize_bilinear(frame, INPUT_HW)[None].astype(np.float32) / 255.0
+    conf, paf = tf.function(lambda inp: tf.graph_util.import_graph_def(
+        graph_def, input_map={"input:0": inp},
+        return_elements=["Identity:0", "Identity_1:0"]))(tf.constant(x))
+    engine = res["engine"]
+    d = engine.decode_outputs({"conf_map": torch.from_numpy(conf.numpy()).to(engine.device),
+                               "paf_map": torch.from_numpy(paf.numpy()).to(engine.device)})
+    scores = sorted((h.score for h in SkeletonBatch(*(
+        getattr(d, f).cpu().numpy() for f in FIELDS)).to_humans(0)), reverse=True)
+    check(len(scores) == 2 and np.allclose(scores, [17.0187, 8.584], rtol=0, atol=1e-3),
+          f"the flagship's .pb decoded to scores {scores}")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    return {"tensorflow": True, "people": scores}
+
+
 def tools_on_card(frames) -> dict:
     """`tools.export_model --with_decode` of the flagship (batch 8, the
     config's bf16) on the card: its `.pt2` loads and equals the eager step
     bit for bit on `frames`; `tools.measure_flops` on the card counts what
-    it counts from the shapes alone (the meta device)."""
+    it counts from the shapes alone (the meta device); meanwhile every
+    family planned as TF ops on the card (`tf_plans_start`), then the TF
+    export tool (`tf_export_tool`: on the card's machine, its refusal
+    without TensorFlow)."""
     import contextlib
     import io
 
@@ -3424,6 +3554,7 @@ def tools_on_card(frames) -> dict:
     from hyperpose_torch.runtime.engine import PoseEngine
     from hyperpose_torch.tools import export_model, measure_flops
 
+    plans = tf_plans_start()
     t0 = time.perf_counter()
     with contextlib.redirect_stdout(io.StringIO()):
         res = export_model.run(["--model_backbone", "Vggtiny", "--weights", FLAGSHIP_NPZ,
@@ -3439,9 +3570,14 @@ def tools_on_card(frames) -> dict:
     check(card["flops"] == meta["flops"] > 0 and card["params"] == meta["params"],
           f"measure_flops on the card {card} vs the shapes {meta}")
     del res
+    tf_export = tf_plans_finish(plans)
+    t0 = time.perf_counter()
+    tf_export["tool"] = tf_export_tool(os.path.join(REPO, "build", "export_tf"), "cuda")
+    tf_export["tool_s"] = time.perf_counter() - t0
     torch.cuda.empty_cache()
     return {"export_s": export_s, "pt2_equals_eager": equal,
-            "gflop_frame": card["flops"] / 1e9, "params": card["params"]}
+            "gflop_frame": card["flops"] / 1e9, "params": card["params"],
+            "tf_export": tf_export}
 
 
 def phase_spatial(card, frames, step) -> dict:

@@ -4,8 +4,9 @@ Counterpart of `hyperpose_tpu/ops/image.py` (reference:
 src/post_process.hpp:56-102 smooth/same_max_pool_3x3, src/data.cpp:53-69
 non_scaling_resize). The device ops take NHWC tensors like their JAX
 counterparts. The host ops are numpy only: the serving path needs no OpenCV.
-`jax_resize_cubic` is the evaluator's map upsample, `jax.image.resize(...,
-"cubic")` of the JAX evaluator.
+`resize_nhwc` is `jax.image.resize` on NHWC tensors (nearest, bilinear,
+cubic); `jax_resize_cubic`, its cubic, is the evaluator's map
+upsample, as in the JAX evaluator.
 """
 from __future__ import annotations
 
@@ -79,17 +80,26 @@ def _keys_cubic(x: np.ndarray) -> np.ndarray:
     return np.where(x >= 2.0, 0.0, out)
 
 
-def cubic_weights(n_in: int, n_out: int) -> np.ndarray:
-    """[n_in, n_out] float64 weights of one axis of `jax.image.resize(...,
-    "cubic")` (`jax.image.scale_and_translate`'s weight matrix, antialias
-    on): half-pixel centres; when downsampling the kernel is widened by
-    n_in / n_out; taps outside the input are dropped and each column is
-    divided by the sum of the rest (torch clamps at the edge instead)."""
+def _triangle(x: np.ndarray) -> np.ndarray:
+    return np.maximum(0.0, 1.0 - x)
+
+
+# jax.image.resize's kernels by method name
+_KERNELS = {"bilinear": _triangle, "cubic": _keys_cubic}
+
+
+def resize_weights(n_in: int, n_out: int, kernel=_keys_cubic) -> np.ndarray:
+    """[n_in, n_out] float64 weights of one axis of `jax.image.resize`
+    with `kernel` (`jax.image.scale_and_translate`'s weight matrix,
+    antialias on): half-pixel centres; when downsampling the kernel is
+    widened by n_in / n_out (the antialiasing that `F.interpolate` lacks);
+    taps outside the input are dropped and each column is divided by the
+    sum of the rest (torch clamps at the edge instead)."""
     inv_scale = n_in / n_out
     kernel_scale = max(inv_scale, 1.0)
     sample = (np.arange(n_out, dtype=np.float64) + 0.5) * inv_scale - 0.5
     dist = np.abs(sample[None, :] - np.arange(n_in, dtype=np.float64)[:, None])
-    w = _keys_cubic(dist / kernel_scale)
+    w = kernel(dist / kernel_scale)
     total = w.sum(axis=0, keepdims=True)
     w = np.where(np.abs(total) > 1000.0 * float(np.finfo(np.float32).eps),
                  w / np.where(total != 0, total, 1.0), 0.0)
@@ -97,9 +107,24 @@ def cubic_weights(n_in: int, n_out: int) -> np.ndarray:
     return np.where(inside[None, :], w, 0.0)
 
 
+def cubic_weights(n_in: int, n_out: int) -> np.ndarray:
+    """`resize_weights` of `jax.image.resize(..., "cubic")`."""
+    return resize_weights(n_in, n_out, _keys_cubic)
+
+
 @functools.lru_cache(maxsize=64)
-def _cubic_matrix(n_in: int, n_out: int, device: torch.device) -> torch.Tensor:
-    return torch.from_numpy(cubic_weights(n_in, n_out).astype(np.float32)).to(device)
+def _resize_matrix(n_in: int, n_out: int, method: str, dtype: torch.dtype,
+                   device: torch.device) -> torch.Tensor:
+    w = resize_weights(n_in, n_out, _KERNELS[method]).astype(np.float32)
+    return torch.from_numpy(w).to(device=device, dtype=dtype)
+
+
+def nearest_indices(n_in: int, n_out: int) -> np.ndarray:
+    """Input index of each output index of `jax.image.resize(...,
+    "nearest")`: floor((i + 0.5) * n_in / n_out) in float32, as JAX
+    computes it."""
+    f = (np.arange(n_out, dtype=np.float32) + np.float32(0.5)) * np.float32(n_in)
+    return np.floor(f / np.float32(n_out)).astype(np.int64)
 
 
 @contextlib.contextmanager
@@ -115,21 +140,44 @@ def no_tf32():
         torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = prev
 
 
+def resize_nhwc(x: torch.Tensor, out_hw: tuple[int, int],
+                method: str = "bilinear") -> torch.Tensor:
+    """[B, H, W, C] resized to [B, *out_hw, C] as `jax.image.resize(x, (B,
+    *out_hw, C), method)` resizes it (the counterpart of
+    `hyperpose_tpu/ops/image.py` `resize_nhwc`), on the device of `x`.
+    "nearest" reads input floor((i + 0.5) * in / out) (`nearest_indices`);
+    "bilinear" (the default) and "cubic" are a contraction of each axis
+    with its `resize_weights` matrix in x's dtype,
+    H first, then W, with TF32 off. These antialias on downscale, as JAX's
+    default `antialias=True` does, which `F.interpolate` does not. An axis
+    whose size does not change is left alone, as JAX leaves it."""
+    b, h, w, c = x.shape
+    oh, ow = out_hw
+    if method == "nearest":
+        if oh != h:
+            x = x[:, torch.from_numpy(nearest_indices(h, oh)).to(x.device)]
+        if ow != w:
+            x = x[:, :, torch.from_numpy(nearest_indices(w, ow)).to(x.device)]
+        return x
+    if method not in _KERNELS:
+        raise ValueError(f"resize_nhwc: unknown method {method!r}; one of "
+                         f"{['nearest', *_KERNELS]}")
+    with no_tf32():
+        if oh != h:
+            x = torch.einsum("bhwc,hy->bywc", x,
+                             _resize_matrix(h, oh, method, x.dtype, x.device))
+        if ow != w:
+            x = torch.einsum("bywc,wx->byxc", x,
+                             _resize_matrix(w, ow, method, x.dtype, x.device))
+    return x
+
+
 def jax_resize_cubic(x: torch.Tensor, out_hw: tuple[int, int]) -> torch.Tensor:
     """[B, H, W, C] float32 resized to [B, *out_hw, C] as
     `jax.image.resize(x, (B, *out_hw, C), "cubic")` resizes it (not
-    `F.interpolate(mode="bicubic")`: see `cubic_weights`). Each axis is a
-    float32 contraction with its weight matrix, H first, then W, with TF32
-    off; an axis whose size does not change is left alone, as JAX leaves
-    it. On the device of `x`."""
-    b, h, w, c = x.shape
-    oh, ow = out_hw
-    with no_tf32():
-        if oh != h:
-            x = torch.einsum("bhwc,hy->bywc", x, _cubic_matrix(h, oh, x.device))
-        if ow != w:
-            x = torch.einsum("bywc,wx->byxc", x, _cubic_matrix(w, ow, x.device))
-    return x
+    `F.interpolate(mode="bicubic")`: see `resize_weights`): `resize_nhwc`
+    with "cubic"."""
+    return resize_nhwc(x, out_hw, "cubic")
 
 
 def yuv420_to_rgb(yuv_u8: torch.Tensor) -> torch.Tensor:

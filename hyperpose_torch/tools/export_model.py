@@ -9,11 +9,18 @@ layout both packages load, and with `--format stablehlo` (the default) the
 serialized program `<model_name>.pt2` (`torch.export`, the port's
 counterpart of the JAX package's StableHLO): the forward on uint8 images,
 or with `--with_decode` the engine's whole step, forward and decoder with
-their kernels (`PoseEngine.save`). `pb`, `tflite` and `tflite_uint8` raise:
-PyTorch's route to those runtimes is ONNX, which is not installed.
+their kernels (`PoseEngine.save`). `--format pb` writes the frozen TensorFlow
+graph `frozen_<model_name>.pb`, `tflite` and `tflite_uint8` the flatbuffer
+`<model_name>.tflite` (float, or fully uint8-quantized on 8 representative
+inputs from `default_rng(0)`), as the JAX script does: the float32 forward of
+a float32 copy of the engine's model, captured on `--device` and lowered to
+TF ops (`utils/tf_lower.py`). These need TensorFlow, which the GPU machine
+lacks: without it the tool raises ImportError before it writes anything.
 
     python -m hyperpose_torch.tools.export_model --model_backbone Vggtiny \\
         --weights weights/flagship_tinyvgg.npz --with_decode --device cpu
+    python -m hyperpose_torch.tools.export_model --model_backbone Vggtiny \\
+        --weights weights/flagship_tinyvgg.npz --format pb tflite --device cpu
 """
 from __future__ import annotations
 
@@ -24,7 +31,7 @@ import os
 from .. import config as Config
 from .eval import check_device
 
-FOREIGN = ("pb", "tflite", "tflite_uint8")
+TF_FORMATS = ("pb", "tflite", "tflite_uint8")
 
 
 def parse_args(argv=None):
@@ -103,19 +110,18 @@ def _forward_module(engine):
 
 def run(argv=None) -> dict:
     """Parse `argv` and export; returns {"weights": npz path, "executable":
-    pt2 path or None, "flops": per batch, "loaded": checkpoint or None}."""
+    pt2 path or None, "pb": path or None, "tflite": path or None, "flops":
+    per batch, "loaded": checkpoint or None, "engine"}."""
     import torch
 
     from ..runtime.engine import _EngineStep
-    from ..utils.export import export_npz, export_serialized, measure_flops
+    from ..utils.export import (
+        export_npz, export_serialized, import_tensorflow, measure_flops,
+    )
 
     args = parse_args(argv)
-    foreign = [f for f in args.format if f in FOREIGN]
-    if foreign:
-        raise NotImplementedError(
-            f"--format {' '.join(foreign)}: the port has no pb / tflite export. PyTorch's "
-            "route to those runtimes is ONNX, and neither onnx nor onnxscript is "
-            "installed (ROADMAP 'Not queueable': export_pb / export_tflite counterparts)")
+    if set(TF_FORMATS) & set(args.format):
+        import_tensorflow()     # raises before anything is written
     device = check_device(args.device)
     Config.reset()
     Config.set_model_name(args.model_name)
@@ -137,11 +143,48 @@ def run(argv=None) -> dict:
     if "stablehlo" in args.format:
         exe = export_serialized(fn, (example,), prefix + ".pt2")
         print(f"serialized executable -> {exe}")
+    pb, tfl = export_tf(args, engine)
     stats = measure_flops(fn, example)
     print(f"analytical cost: {stats['flops'] / 1e9:.2f} GFLOP / batch "
           "(convolutions and matmuls; bytes accessed are not counted)")
-    return {"weights": npz, "executable": exe, "flops": stats["flops"], "loaded": loaded,
-            "engine": engine}
+    return {"weights": npz, "executable": exe, "pb": pb, "tflite": tfl,
+            "flops": stats["flops"], "loaded": loaded, "engine": engine}
+
+
+def export_tf(args, engine) -> tuple:
+    """The `--format pb / tflite / tflite_uint8` artifacts of the engine's
+    model at (batch_size, H, W, 3): a float32 copy of it holding the
+    engine's float32 weights (not their bf16 rounding). Returns (pb path or
+    None, tflite path or None)."""
+    import numpy as np
+
+    from ..utils.export import export_pb, export_tflite
+    from ..utils.tf_lower import float32_copy
+    from ..utils.weights import load_flax_weights
+
+    formats = set(args.format)
+    if not set(TF_FORMATS) & formats:
+        return None, None
+    model = float32_copy(engine.model)
+    if model is not engine.model and engine.variables is not None:
+        load_flax_weights(model, engine.variables)
+    shape = (args.batch_size, *engine.input_hw, 3)
+    pb = tfl = None
+    if "pb" in formats:
+        pb = export_pb(model, shape, os.path.join(args.output_dir,
+                                                  f"frozen_{args.model_name}.pb"))
+        print(f"frozen graph -> {pb}")
+    if {"tflite", "tflite_uint8"} & formats:
+        rep = None
+        if "tflite_uint8" in formats:
+            rng = np.random.default_rng(0)
+            rep = [rng.random(shape, np.float32) for _ in range(8)]
+        tfl = export_tflite(model, np.zeros(shape, np.float32),
+                            os.path.join(args.output_dir, f"{args.model_name}.tflite"),
+                            representative_inputs=rep,
+                            quantize_uint8="tflite_uint8" in formats)
+        print(f"tflite -> {tfl}")
+    return pb, tfl
 
 
 def main(argv=None) -> None:

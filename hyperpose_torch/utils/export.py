@@ -10,9 +10,15 @@ measure_flops.py:13-23):
     operators (`ops/kernels/library.py`), so a loaded program launches the
     same kernels as the eager step.
 
-The JAX package's `export_pb` and `export_tflite` (TensorFlow artifacts for
-foreign runtimes) have no counterpart here: PyTorch's route to foreign
-runtimes is ONNX, which is not installed.
+  * a frozen TensorFlow GraphDef `.pb` (`export_pb`) and a `.tflite`
+    flatbuffer, float or fully uint8-quantized (`export_tflite`), with the
+    JAX package's signatures (`hyperpose_tpu/utils/export.py:62, 95`),
+    for foreign runtimes. The float32 forward is lowered to TensorFlow ops
+    from the port's own graph (`tf_lower.py`: `torch.export`, then one TF
+    op per ATen op, the weights as constants), so the artifacts hold plain
+    TF ops, never a kernel of this package, and no ONNX is involved.
+    TensorFlow is a host tool here: these two import it when called, and
+    the GPU machine has none.
 """
 from __future__ import annotations
 
@@ -97,3 +103,74 @@ def measure_flops(fn, *example_args) -> dict:
     with FlopCounterMode(display=False) as counter, torch.no_grad():
         fn(*example_args)
     return {"flops": float(counter.get_total_flops()), "bytes_accessed": float("nan")}
+
+
+def import_tensorflow():
+    """`tensorflow`, or an ImportError that says where it is missing."""
+    try:
+        import tensorflow as tf
+    except ImportError as e:
+        raise ImportError(
+            "export_pb / export_tflite need tensorflow, which this machine does not "
+            "have (the GPU machine has none): they are host tools, run them where "
+            "tensorflow is installed (`--device cpu`)") from e
+    return tf
+
+
+def export_pb(fn, input_shape, path: str, input_name: str = "input") -> str:
+    """Freeze `fn` (a port network, or a callable on NHWC float32 images
+    returning a dict of tensors; a float32 copy of a bf16 one) into a
+    TensorFlow GraphDef `.pb` (reference: export_pb.py:87-104,
+    convert_variables_to_constants_v2 on the forward's concrete function).
+    The graph is `tf_lower`'s lowering of the float32 forward at
+    `input_shape` (B, H, W, 3): one Placeholder `input_name`, TF ops and
+    constants, outputs `Identity`, `Identity_1`, ... for the forward's
+    tensor outputs in sorted key order, as the JAX package's `.pb`. Raises
+    ImportError, writing nothing, without TensorFlow."""
+    tf = import_tensorflow()
+    from tensorflow.python.framework.convert_to_constants import (
+        convert_variables_to_constants_v2,
+    )
+
+    from .tf_lower import plan_forward, tf_function
+
+    tf_fn = tf_function(plan_forward(fn, tuple(input_shape)), input_name)
+    frozen = convert_variables_to_constants_v2(tf_fn.get_concrete_function())
+    out_dir = os.path.dirname(path) or "."
+    os.makedirs(out_dir, exist_ok=True)
+    tf.io.write_graph(graph_or_graph_def=frozen.graph.as_graph_def(), logdir=out_dir,
+                      name=os.path.basename(path), as_text=False)
+    return path
+
+
+def export_tflite(fn, example_input, path: str, representative_inputs=None,
+                  quantize_uint8: bool = False) -> str:
+    """Convert `fn` (as `export_pb` takes it) at the shape of
+    `example_input` to a `.tflite` flatbuffer (reference:
+    export_tflite.py:29-41). With `quantize_uint8=True` and
+    `representative_inputs` (float32 arrays of that shape), full-integer
+    quantization with uint8 input and output, the JAX package's settings.
+    Raises ImportError, writing nothing, without TensorFlow."""
+    tf = import_tensorflow()
+    from .tf_lower import plan_forward, tf_function
+
+    if quantize_uint8 and representative_inputs is None:
+        raise ValueError("uint8 quantization needs representative_inputs")
+    tf_fn = tf_function(plan_forward(fn, tuple(np.shape(example_input))))
+    converter = tf.lite.TFLiteConverter.from_concrete_functions(
+        [tf_fn.get_concrete_function()], tf_fn)
+    if quantize_uint8:
+        def rep():
+            for arr in representative_inputs:
+                yield [np.asarray(arr, np.float32)]
+
+        converter.optimizations = [tf.lite.Optimize.DEFAULT]
+        converter.representative_dataset = rep
+        converter.target_spec.supported_ops = [tf.lite.OpsSet.TFLITE_BUILTINS_INT8]
+        converter.inference_input_type = tf.uint8
+        converter.inference_output_type = tf.uint8
+    blob = converter.convert()
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    with open(path, "wb") as f:
+        f.write(blob)
+    return path

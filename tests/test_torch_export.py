@@ -266,3 +266,30 @@ def test_example_parses(name, capsys):
     assert e.value.code == 0
     assert "--device" in capsys.readouterr().out
 
+
+
+@pytest.mark.parametrize("tool", ["export_pb", "export_tflite", "export_model"])
+def test_tf_exports_without_tensorflow_raise_and_write_nothing(tool, tmp_path, monkeypatch):
+    """Where `import tensorflow` fails (the GPU machine has none), the TF
+    exports and `export_model --format pb` raise an ImportError naming
+    tensorflow before they write anything, and the model is never traced."""
+    from hyperpose_torch.tools import export_model
+    from hyperpose_torch.utils import export, tf_lower
+
+    monkeypatch.setitem(sys.modules, "tensorflow", None)
+    monkeypatch.setattr(tf_lower, "plan_forward", None)     # reached: a TypeError
+    model = LightWeightOpenPose(backbone=VggTiny).eval()
+    calls = {
+        "export_pb": lambda: export.export_pb(model, (1, 64, 64, 3),
+                                              str(tmp_path / "frozen.pb")),
+        "export_tflite": lambda: export.export_tflite(
+            model, np.zeros((1, 64, 64, 3), np.float32), str(tmp_path / "m.tflite"),
+            representative_inputs=[np.zeros((1, 64, 64, 3), np.float32)],
+            quantize_uint8=True),
+        "export_model": lambda: export_model.run([
+            "--format", "stablehlo", "pb", "--output_dir", str(tmp_path / "out"),
+            "--device", "cpu"]),
+    }
+    with pytest.raises(ImportError, match="tensorflow"):
+        calls[tool]()
+    assert not os.listdir(tmp_path)

@@ -228,17 +228,35 @@ def test_config_matches_jax():
 
 
 def test_package_loads_the_facade_lazily():
-    """`import hyperpose_torch` loads no submodule; `Config` and `Model` load
-    on first use."""
+    """`import hyperpose_torch` loads no submodule; `Config`, `Model` and
+    `Dataset` load on first use, as the JAX package's `from hyperpose_tpu
+    import Config, Model, Dataset` names them; other names raise."""
     code = ("import sys, hyperpose_torch\n"
             "assert not [m for m in sys.modules if m.startswith('hyperpose_torch.')]\n"
-            "from hyperpose_torch import Config, Model\n"
+            "from hyperpose_torch import Config, Model, Dataset\n"
             "assert Config.__name__ == 'hyperpose_torch.config'\n"
             "assert Model.__name__ == 'hyperpose_torch.models'\n"
+            "assert Dataset.__name__ == 'hyperpose_torch.data.base'\n"
             "assert 'hyperpose_tpu' not in sys.modules\n")
     subprocess.run([sys.executable, "-c", code], cwd=REPO, check=True)
     with pytest.raises(AttributeError):
-        __import__("hyperpose_torch").Dataset
+        __import__("hyperpose_torch").NoSuchModule
+
+
+def test_dataset_facade_is_the_ports_data_module():
+    """`Dataset.get_dataset` is the port's, with the JAX facade's public
+    names (`hyperpose_tpu/__init__.py:13`)."""
+    import hyperpose_tpu
+    from hyperpose_torch import Dataset
+    from hyperpose_torch.data import base
+
+    assert Dataset is base
+    assert Dataset.get_dataset.__module__ == "hyperpose_torch.data.base"
+    public = {n for n in dir(hyperpose_tpu.Dataset) if not n.startswith("_")
+              and callable(getattr(hyperpose_tpu.Dataset, n))
+              and getattr(getattr(hyperpose_tpu.Dataset, n), "__module__", "").startswith(
+                  "hyperpose_tpu")}
+    assert public <= set(dir(Dataset)), public - set(dir(Dataset))
 
 
 # -- decoders -----------------------------------------------------------------------

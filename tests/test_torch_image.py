@@ -105,3 +105,30 @@ def test_letterbox_matches_jax_ratios():
     got, rx, ry = timg.letterbox_resize(img, (368, 432))
     assert (rx, ry) == (wrx, wry)
     assert np.abs(got.astype(int) - want.astype(int)).max() <= 1
+
+
+@pytest.mark.parametrize("method", ["nearest", "bilinear", "cubic"])
+@pytest.mark.parametrize("in_hw,out_hw", [((7, 9), (20, 13)), ((23, 31), (8, 10)),
+                                          ((12, 16), (12, 5)), ((46, 54), (368, 432))])
+def test_resize_nhwc_matches_jax_image_resize(method, in_hw, out_hw):
+    """Up and down (JAX antialiases on downscale), one axis alone, and the
+    decoder's 8x map upsample: within 1e-5 of the input's range."""
+    x = np.random.default_rng(sum(in_hw)).uniform(-1, 3, (2, *in_hw, 3)).astype(np.float32)
+    want = np.asarray(jimg.resize_nhwc(jnp.asarray(x), out_hw, method))
+    got = timg.resize_nhwc(torch.from_numpy(x), out_hw, method).numpy()
+    assert got.shape == want.shape == (2, *out_hw, 3)
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-5 * float(np.ptp(x)))
+    if method == "nearest":
+        np.testing.assert_array_equal(got, want)
+
+
+def test_resize_nhwc_default_is_bilinear_and_antialiased():
+    """The default method is bilinear, and its downscale is not
+    `F.interpolate`'s (which does not antialias)."""
+    x = torch.from_numpy(np.random.default_rng(0).random((1, 32, 32, 2), np.float32))
+    got = timg.resize_nhwc(x, (8, 8))
+    torch.testing.assert_close(got, timg.resize_nhwc(x, (8, 8), "bilinear"), rtol=0, atol=0)
+    plain = torch.nn.functional.interpolate(x.permute(0, 3, 1, 2), (8, 8), mode="bilinear")
+    assert not torch.allclose(got, plain.permute(0, 2, 3, 1), atol=1e-3)
+    with pytest.raises(ValueError, match="unknown method"):
+        timg.resize_nhwc(x, (8, 8), "area")

@@ -45,7 +45,7 @@ def test_port_has_sources():
                 "models/pifpaf.py", "ops/pifpaf_decode.py", "ops/kernels/grow.py",
                 "quant.py", "ops/kernels/int8_gemm.py", "models/openpose.py",
                 "models/backbones.py", "config/__init__.py", "models/__init__.py",
-                "cli.py", "utils/export.py", "ops/kernels/library.py",
+                "cli.py", "utils/export.py", "utils/tf_lower.py", "ops/kernels/library.py",
                 "examples/__init__.py", "examples/python_demo.py",
                 "examples/gen_serialized_engine.py", "examples/tutorial_minimum.py",
                 "data/__init__.py", "data/augment.py", "data/base.py", "data/mscoco.py",

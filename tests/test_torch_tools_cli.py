@@ -7,7 +7,8 @@ against the JAX package's scripts (`export_model.py`, `measure_flops.py`,
   plus `--device` (default cuda; without a GPU it raises).
 - `export_model`: the npz it writes is read back by JAX's `load_weights_npz`
   bit for bit; its `.pt2` (`--with_decode`) loads and equals the eager
-  engine step bit for bit; `pb` / `tflite` raise naming the ONNX item.
+  engine step bit for bit; `--format pb / tflite / tflite_uint8` write the
+  JAX script's files, which reload in TensorFlow.
 - `measure_flops`: the parameter count equals the flax module's for every
   model type (counted on the meta device, from the shapes).
 - `convert_reference_npz` on a TensorLayer npz written by
@@ -131,11 +132,49 @@ def test_export_model_npz_reads_back_in_jax_and_program_equals_the_step(tmp_path
 
 
 @pytest.mark.parametrize("fmt", ["pb", "tflite", "tflite_uint8"])
-def test_export_model_foreign_formats_raise(fmt, tmp_path):
-    with pytest.raises(NotImplementedError, match="Not queueable"):
-        export_model.run(["--format", "stablehlo", fmt, "--output_dir", str(tmp_path),
-                          "--device", "cpu"])
-    assert not os.listdir(tmp_path)
+def test_export_model_tf_formats_write_files_that_reload(fmt, tmp_path):
+    """`--format pb / tflite / tflite_uint8` write the JAX script's files
+    (`frozen_<name>.pb`, `<name>.tflite`) from a float32 copy of the
+    config's (bf16) model holding the trained flagship weights at 368x432;
+    each reloads in TensorFlow, and the float ones give the float32
+    network's maps on those weights (2e-5 and 1e-4 x max(1, max |ref|), as
+    tests/test_torch_export_tf{,lite}.py), the uint8 one takes and gives
+    uint8."""
+    tf = pytest.importorskip("tensorflow")
+    from test_torch_export_tf import assert_close, port_forward, read_graph, run_graph
+    from hyperpose_torch.models.backbones import VggTiny
+    from hyperpose_torch.models.openpose import LightWeightOpenPose
+    from hyperpose_torch.utils.weights import load_flax_weights
+
+    res, _ = _run_quiet(export_model.run, [
+        "--model_backbone", "Vggtiny", "--weights", FLAGSHIP_NPZ, "--model_name", "tiny",
+        "--format", fmt, "--output_dir", str(tmp_path), "--device", "cpu"])
+    name = "frozen_tiny.pb" if fmt == "pb" else "tiny.tflite"
+    assert sorted(os.listdir(tmp_path)) == sorted([name, "tiny.npz"])
+    assert res["pb" if fmt == "pb" else "tflite"] == os.path.join(tmp_path, name)
+    x = np.random.default_rng(11).random((1, 368, 432, 3), dtype=np.float32)
+    want = port_forward(load_flax_weights(LightWeightOpenPose(backbone=VggTiny),
+                                          FLAGSHIP_NPZ).eval(), x)
+    if fmt == "pb":
+        got = dict(zip(sorted(want), run_graph(read_graph(res["pb"]), x, len(want))))
+        for k, v in want.items():
+            assert_close(got[k], v, 2e-5, k)
+        return
+    interp = tf.lite.Interpreter(model_path=res["tflite"])
+    interp.allocate_tensors()
+    (inp,) = interp.get_input_details()
+    outs = interp.get_output_details()
+    assert len(outs) == 2 and tuple(inp["shape"]) == x.shape
+    if fmt == "tflite_uint8":
+        assert inp["dtype"] == np.uint8 and all(d["dtype"] == np.uint8 for d in outs)
+        interp.set_tensor(inp["index"], (x * 255).astype(np.uint8))
+        interp.invoke()
+        return
+    interp.set_tensor(inp["index"], x)
+    interp.invoke()
+    for d in outs:
+        k = sorted(want)[0 if d["name"] == "Identity" else int(d["name"].split("_")[1])]
+        assert_close(interp.get_tensor(d["index"]), want[k], 1e-4, k)
 
 
 def test_export_model_forward_program_equals_the_forward(tmp_path):
