@@ -1,0 +1,6 @@
+"""The decoder's peak kernel's share of its roofline bound, live cameras."""
+from posebench import readers
+
+
+def read(summary):
+    return readers.peak_topk_roofline(summary)
