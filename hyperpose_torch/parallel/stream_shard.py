@@ -30,6 +30,7 @@ import torch
 import torch.distributed as dist
 
 from ..ops.paf_decode import DecodedSkeletons
+from ..utils import tracing
 from . import spatial as sp_rows
 from .mesh import all_gather_rows, dp_sp_mesh, group_size, world_size
 
@@ -118,7 +119,7 @@ class ShardedStreamEngine:
     def _row_step(self, images_u8) -> DecodedSkeletons:
         """The engine's step on this rank's rows of its frames: the network
         with its halos, the maps gathered over "sp", the whole maps
-        decoded (`PoseEngine.decode_outputs`)."""
+        decoded (`PoseEngine.decode_outputs`); spans as `PoseEngine._step`'s."""
         eng, (lo, hi) = self.engine, self.shard.rows
         x = torch.as_tensor(images_u8)
         if x.shape[1] == eng.input_hw[0]:
@@ -126,11 +127,13 @@ class ShardedStreamEngine:
         elif x.shape[1] != hi - lo:
             raise ValueError(f"frames of {x.shape[1]} rows: neither the input's "
                              f"{eng.input_hw[0]} nor this rank's {hi - lo}")
-        x = x.to(eng.device, non_blocking=True).to(eng.dtype) / 255.0
-        with sp_rows.row_sharded(self.shard):
-            out = sp_rows.gather_outputs(eng.model(x), getattr(eng.model, "output_row_dims",
-                                                               None))
-        return eng.decode_outputs(out)
+        with tracing.span("engine/step", device=eng.device, frames=int(x.shape[0])):
+            with tracing.span("engine/network", device=eng.device):
+                x = x.to(eng.device, non_blocking=True).to(eng.dtype) / 255.0
+                with sp_rows.row_sharded(self.shard):
+                    out = sp_rows.gather_outputs(eng.model(x),
+                                                 getattr(eng.model, "output_row_dims", None))
+            return eng.decode_outputs(out)
 
 
 def make_distributed_mesh(spatial: int = 1):

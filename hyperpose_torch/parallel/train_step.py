@@ -21,6 +21,7 @@ its own shard: that is another step.
 """
 from __future__ import annotations
 
+from ..utils import tracing
 from .mesh import all_reduce_mean_, mean_metrics
 
 
@@ -38,8 +39,9 @@ def sync_sgd_loss_and_grads(trainer, batch: dict):
 
 def sync_sgd_step(trainer, batch: dict) -> dict:
     """One Sync_sgd step of `trainer` on this rank's rows of the global
-    batch; returns the global batch's metrics."""
+    batch; returns the global batch's metrics. The update is the device
+    span `trainer/optimizer` (`utils/tracing.py`)."""
     metrics, grads = sync_sgd_loss_and_grads(trainer, batch)
-    with trainer._precision():
+    with trainer._precision(), tracing.span("trainer/optimizer", device=trainer.device):
         trainer.optimizer.step(grads)
     return metrics

@@ -135,8 +135,11 @@ class PoseEngine:
 
     @torch.inference_mode()
     def _step(self, images_u8: torch.Tensor) -> DecodedSkeletons:
-        """uint8 batch on the device -> DecodedSkeletons on the device."""
-        return self._step_body(images_u8)
+        """uint8 batch on the device -> DecodedSkeletons on the device.
+        Span `engine/step` (`utils/tracing.py`), holding `engine/network`
+        and `engine/decode`; a `fused_decode`'s body runs in it alone."""
+        with tracing.span("engine/step", device=self.device, frames=int(images_u8.shape[0])):
+            return self._step_body(images_u8)
 
     def _step_body(self, images_u8: torch.Tensor) -> DecodedSkeletons:
         """The step outside inference mode, which `torch.export` traces
@@ -146,22 +149,26 @@ class PoseEngine:
             if self.input_format == "yuv420":
                 images_u8 = (yuv420_to_rgb(images_u8) + 0.5).to(torch.uint8)
             return getattr(self.fused_decode, "body", self.fused_decode)(images_u8)
-        if self.input_format == "yuv420":
-            x = (yuv420_to_rgb(images_u8) / 255.0).to(self.dtype)
-        else:
-            x = images_u8.to(self.dtype) / 255.0
-        return self.decode_outputs(self.model(x))
+        with tracing.span("engine/network", device=self.device):
+            if self.input_format == "yuv420":
+                x = (yuv420_to_rgb(images_u8) / 255.0).to(self.dtype)
+            else:
+                x = images_u8.to(self.dtype) / 255.0
+            out = self.model(x)
+        return self.decode_outputs(out)
 
     def decode_outputs(self, out: dict) -> DecodedSkeletons:
         """The step's part after the network: its outputs `out`, of images
         of `input_hw`, decoded (the PAF decoder, or the `fused_decode`'s
-        `decode`, which a row-sharded step needs: `parallel/stream_shard.py`)."""
-        if self.fused_decode is not None:
-            return self.fused_decode.decode(out, self.input_hw)
-        conf = out["conf_map"].to(torch.float32)
-        paf = out["paf_map"].to(torch.float32)
-        feat_hw = (conf.shape[1], conf.shape[2])
-        return paf_decode_batch(conf, paf, self.decoder, feat_hw, self.topology)
+        `decode`, which a row-sharded step needs: `parallel/stream_shard.py`).
+        Span `engine/decode`."""
+        with tracing.span("engine/decode", device=self.device):
+            if self.fused_decode is not None:
+                return self.fused_decode.decode(out, self.input_hw)
+            conf = out["conf_map"].to(torch.float32)
+            paf = out["paf_map"].to(torch.float32)
+            feat_hw = (conf.shape[1], conf.shape[2])
+            return paf_decode_batch(conf, paf, self.decoder, feat_hw, self.topology)
 
     @torch.inference_mode()
     def _step_packed(self, images_u8: torch.Tensor) -> torch.Tensor:
@@ -236,7 +243,7 @@ class PoseEngine:
             )
         batch = np.zeros((self.max_batch_size, h, w, 3), np.uint8)
         ratios: list[tuple[float, float]] = []
-        with tracing.scope("engine/preprocess"):
+        with tracing.span("engine/preprocess"):
             for i, img in enumerate(images):
                 if self.keep_ratio:
                     batch[i], rx, ry = letterbox_resize(img, (h, w))
@@ -250,7 +257,7 @@ class PoseEngine:
                     enc[i] = self.encode_input(batch[i])
                 batch = enc
         t0 = time.perf_counter()
-        with tracing.scope("engine/device_step"):
+        with tracing.span("engine/device_step"):
             decoded = self.infer_batch_device(batch)
             sk = SkeletonBatch(*(
                 t.cpu().numpy() for t in (

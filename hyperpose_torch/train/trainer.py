@@ -46,6 +46,7 @@ from ..ops.image import no_tf32
 from ..parallel import mesh, spatial
 from ..parallel.sync_modes import local_step
 from ..parallel.train_step import sync_sgd_step
+from ..utils import tracing
 from .checkpoint import CheckpointManager, save_weights_npz
 from .init import flax_init_, flax_init_on_cpu_
 from .metrics import MetricManager
@@ -406,22 +407,34 @@ class Trainer:
         `grads=False`). Returns (metrics, grads): the family's loss parts,
         `loss_re`, `pd_loss` and `total_loss` as 0-d tensors on the device;
         with `l2=False` (the Sync_avg / Pair_avg step) the parts and
-        `total_loss`, the family loss alone."""
+        `total_loss`, the family loss alone.
+
+        Device spans (`utils/tracing.py`): `trainer/forward` (the batch's
+        copy to the device and the autocast forward), `trainer/loss` (the
+        targets, the family loss and the L2 term) and, with `grads`,
+        `trainer/backward` (`torch.autograd.grad`)."""
+        dev = self.device
         with self._precision(), torch.set_grad_enabled(grads), self._batchnorm_group():
-            x, kpts, valid, mask, bbxs = self._batch(batch)
-            self.model.train()
-            with self._autocast():
-                predict = self._forward(x)
-            pd_loss, parts = self.targets_loss(predict, kpts, valid, mask, bbxs)
-            if l2:
-                re_loss = l2_regularization(self.model, self.config.train.weight_decay_factor)
-                total = pd_loss + re_loss
-                out = dict(parts, loss_re=re_loss, pd_loss=pd_loss, total_loss=total)
-                objective = total if self._l2_here else pd_loss
+            with tracing.span("trainer/forward", device=dev):
+                x, kpts, valid, mask, bbxs = self._batch(batch)
+                self.model.train()
+                with self._autocast():
+                    predict = self._forward(x)
+            with tracing.span("trainer/loss", device=dev):
+                pd_loss, parts = self.targets_loss(predict, kpts, valid, mask, bbxs)
+                if l2:
+                    re_loss = l2_regularization(self.model, self.config.train.weight_decay_factor)
+                    total = pd_loss + re_loss
+                    out = dict(parts, loss_re=re_loss, pd_loss=pd_loss, total_loss=total)
+                    objective = total if self._l2_here else pd_loss
+                else:
+                    objective = total = pd_loss
+                    out = dict(parts, total_loss=total)
+            if grads:
+                with tracing.span("trainer/backward", device=dev):
+                    grads = torch.autograd.grad(objective, self.params)
             else:
-                objective = total = pd_loss
-                out = dict(parts, total_loss=total)
-            grads = torch.autograd.grad(objective, self.params) if grads else []
+                grads = []
         return {k: v.detach() for k, v in out.items()}, list(grads)
 
     def step(self, batch: dict, unlabeled=None, step_idx: int = 0) -> dict[str, torch.Tensor]:
@@ -432,12 +445,19 @@ class Trainer:
         (`loss_and_grads`'s, and `g_loss`, `d_loss` with domain
         adaptation). Sync_avg and Pair_avg skip domain adaptation across
         ranks, as the JAX trainer's sync branch comes before its dmadapt
-        branch."""
-        if self.sync_mode is not None:
-            return local_step(self, batch, step_idx, self.sync_mode)
-        if self.domainadapt:
-            return self.dmadapt_step(batch, unlabeled)[0]
-        return sync_sgd_step(self, batch)
+        branch.
+
+        Span `trainer/step` (host only; count `images`, this rank's rows).
+        The Sync_sgd step holds `loss_and_grads`' spans and
+        `trainer/optimizer`; the domain-adaptation step records
+        `trainer/step` only, and Sync_avg / Pair_avg record `loss_and_grads`'
+        spans in it but no `trainer/optimizer`."""
+        with tracing.span("trainer/step", images=len(batch["images"])):
+            if self.sync_mode is not None:
+                return local_step(self, batch, step_idx, self.sync_mode)
+            if self.domainadapt:
+                return self.dmadapt_step(batch, unlabeled)[0]
+            return sync_sgd_step(self, batch)
 
     def dmadapt_step(self, batch: dict, unlabeled) -> tuple[dict, list, list]:
         """One step of domain adaptation: pose loss + L2 + lambda_adapt x the

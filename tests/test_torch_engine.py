@@ -140,7 +140,8 @@ def test_tracing_scopes_the_host_path():
     finally:
         tracing.enable(False)
     rep = tracing.report()
-    assert set(rep) == {"engine/preprocess", "engine/device_step"}
+    assert set(rep) == {"engine/preprocess", "engine/device_step", "engine/step",
+                        "engine/network", "engine/decode"}
     assert all(r["count"] == 1 and r["total_s"] > 0 for r in rep.values())
     tracing.reset()
     eng.inference([np.zeros((64, 72, 3), np.uint8)])
