@@ -12,7 +12,9 @@ Conventions shared by all generators:
   kpts  [B, M, P, 2] float32 — (x, y) in input-image pixels; missing
         keypoints hold a large negative sentinel (augment.MISSING).
   valid [B, M, P] bool — per-keypoint visibility.
-  limbs [L, 2] int — part-index pairs in channel order (numpy or a tensor).
+  limbs [L, 2] int — part-index pairs in channel order (numpy or a tensor;
+        a tensor on the keypoints' device is used as it is, with no copy
+        from the host, as a CUDA graph of the step needs).
 
 The OpenPose maps are dense and equal JAX's up to the last place of `exp`.
 The PoseProposal and PifPaf generators sum each person's contribution into
@@ -32,6 +34,8 @@ _CONF_ARG_CUTOFF = 4.6052
 
 
 def _limbs(limbs, device) -> torch.Tensor:
+    if isinstance(limbs, torch.Tensor):
+        return limbs.to(device=device, dtype=torch.long)
     return torch.as_tensor(np.asarray(limbs), dtype=torch.long, device=device)
 
 
@@ -79,7 +83,10 @@ def openpose_paf_map(kpts: torch.Tensor, valid: torch.Tensor, limbs,
     limbs = _limbs(limbs, dev)
     hin, win = in_hw
     hout, wout = out_hw
-    scale = torch.tensor([win / wout, hin / hout], dtype=torch.float32, device=dev)
+    # Filled on the device, not copied from the host: a CUDA graph of the
+    # training step holds the targets (`train/graphs.py`).
+    scale = torch.full((2,), win / wout, dtype=torch.float32, device=dev)
+    scale[1:].fill_(hin / hout)
 
     src = kpts[:, :, limbs[:, 0]] / scale  # [B, M, L, 2] grid coords
     dst = kpts[:, :, limbs[:, 1]] / scale
@@ -224,7 +231,7 @@ def ppn_targets(kpts: torch.Tensor, valid: torch.Tensor, bbxs: torch.Tensor, lim
 # ---------------------------------------------------------------------------
 
 def _person_scales(kpts: torch.Tensor, valid: torch.Tensor, stride: float,
-                   sigmas: np.ndarray | None, n_parts: int) -> torch.Tensor:
+                   sigmas, n_parts: int) -> torch.Tensor:
     """Per-keypoint scale targets in feature-grid units from the visible
     bounding-box area heuristic (reference: pifpaf/utils.py:49-78 get_scale)."""
     big = 1e6
@@ -236,7 +243,9 @@ def _person_scales(kpts: torch.Tensor, valid: torch.Tensor, stride: float,
     if sigmas is None:
         sig = torch.full((n_parts,), 0.05, dtype=torch.float32, device=kpts.device)
     else:
-        sig = torch.as_tensor(np.asarray(sigmas, np.float32)[:n_parts], device=kpts.device)
+        if not isinstance(sigmas, torch.Tensor):
+            sigmas = np.asarray(sigmas, np.float32)
+        sig = torch.as_tensor(sigmas, dtype=torch.float32, device=kpts.device)[:n_parts]
     scale_px = torch.clamp_min(extent[..., None] * sig * 4.0, 4.0)  # [B, M, P]
     return scale_px / stride
 
@@ -244,7 +253,7 @@ def _person_scales(kpts: torch.Tensor, valid: torch.Tensor, stride: float,
 def pifpaf_targets(kpts: torch.Tensor, valid: torch.Tensor, limbs,
                    in_hw: tuple[int, int], out_hw: tuple[int, int],
                    mask: torch.Tensor | None = None, side: int = 1, n_samples: int = 9,
-                   bmin: float = 0.1, sigmas: np.ndarray | None = None) -> dict:
+                   bmin: float = 0.1, sigmas=None) -> dict:
     """CIF/CAF composite-field targets with NaN don't-care semantics.
 
     Keys (all [B, hout, wout, ...]): pif_conf/pif_bmin/pif_scale [.., P],
@@ -257,7 +266,9 @@ def pifpaf_targets(kpts: torch.Tensor, valid: torch.Tensor, limbs,
     for regression channels (the losses mask NaN, models/pifpaf.py) and 0 for
     confidence; `mask` == 0 regions become NaN everywhere
     (reference: pifpaf/utils.py:117-240 put_pifmap/put_pafmap — NaN padding,
-    nearest-cell patch writes, line-sampled CAF fields)."""
+    nearest-cell patch writes, line-sampled CAF fields). `sigmas`: the parts'
+    keypoint sigmas (numpy, or a float32 tensor on the keypoints' device, used
+    as it is, as `limbs` is); COCO's by default."""
     if sigmas is None:
         from ..utils.topology import COCO_SIGMAS
 

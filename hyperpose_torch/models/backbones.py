@@ -82,6 +82,26 @@ def cross_rank_batchnorm(group):
         _BN_GROUP.reset(token)
 
 
+# Whether a train-mode FlaxBatchNorm2d writes its running statistics into the
+# buffers it has (`batchnorm_stats_in_place`) rather than binding new ones.
+_BN_IN_PLACE: contextvars.ContextVar = contextvars.ContextVar("hyperpose_bn_in_place",
+                                                             default=False)
+
+
+@contextlib.contextmanager
+def batchnorm_stats_in_place():
+    """Inside the block, every train-mode `FlaxBatchNorm2d` updates its
+    running statistics in place, with the same arithmetic: the trainer's
+    step captured as a CUDA graph sets it, so that each replay writes the
+    buffers the module holds (new tensors would leave the replays reading
+    the buffers of the capture)."""
+    token = _BN_IN_PLACE.set(True)
+    try:
+        yield
+    finally:
+        _BN_IN_PLACE.reset(token)
+
+
 def _group_sum(t: torch.Tensor, group) -> torch.Tensor:
     """The sum of `t` over the ranks of `group`, differentiable: its
     backward sums the ranks' gradients, since every rank's loss depends on
@@ -110,7 +130,9 @@ class FlaxBatchNorm2d(nn.BatchNorm2d):
     is the all-reduced sum over every rank's N, H and W over the all-reduced
     count, and the variance the all-reduced sum of (x - mean)^2 over it: the
     statistics of the global batch, with gradients that cross the ranks.
-    Outside it, or in a group of one, the computation above, bit for bit."""
+    Outside it, or in a group of one, the computation above, bit for bit.
+    Under `batchnorm_stats_in_place` the running statistics are written into
+    the buffers rather than bound anew."""
 
     def __init__(self, num_features: int, momentum: float = 0.99, eps: float = 1e-5,
                  dtype: torch.dtype = torch.float32):
@@ -136,12 +158,16 @@ class FlaxBatchNorm2d(nn.BatchNorm2d):
             mean = xf.mean(dim=(0, 2, 3))
             var = (xf - mean.view(1, -1, 1, 1)).square().mean(dim=(0, 2, 3))
         with torch.no_grad():
-            # New tensors, not in-place updates: a forward in eval mode
-            # earlier in the same step (domain adaptation's features) saved
-            # the old ones for its backward.
             m = self.decay
-            self.running_mean = m * self.running_mean + (1 - m) * mean
-            self.running_var = m * self.running_var + (1 - m) * var
+            if _BN_IN_PLACE.get():
+                torch.add(m * self.running_mean, (1 - m) * mean, out=self.running_mean)
+                torch.add(m * self.running_var, (1 - m) * var, out=self.running_var)
+            else:
+                # New tensors, not in-place updates: a forward in eval mode
+                # earlier in the same step (domain adaptation's features)
+                # saved the old ones for its backward.
+                self.running_mean = m * self.running_mean + (1 - m) * mean
+                self.running_var = m * self.running_var + (1 - m) * var
         mul = torch.rsqrt(var + self.eps) * self.weight.to(dt)
         y = (xf - mean.view(1, -1, 1, 1)) * mul.view(1, -1, 1, 1)
         y = y + self.bias.to(dt).view(1, -1, 1, 1)

@@ -31,7 +31,12 @@ differ from `torch.optim`:
 
 Every state is float32 tensors beside the parameters (on their device) and
 Python integers; `state_dict` / `load_state_dict` carry it through a
-checkpoint.
+checkpoint. The scalars that change from one update to the next (the
+learning rate and Adam's two bias corrections) reach the device as 0-d
+tensors beside the parameters, filled from the host's numbers before each
+update (`set_scalars`), so that a CUDA graph of the update (`update`,
+`train/graphs.py`) reads each step's own: the foreach ops then take a
+tensor scalar, with the same arithmetic as a Python number.
 """
 from __future__ import annotations
 
@@ -88,6 +93,11 @@ class Optimizer:
         self.nu = zeros() if kind in ("adam", "rmsprop") else []
         self.mini_step = 0      # MultiSteps
         self.acc = zeros() if self.accum_steps > 1 else []
+        dev = self.params[0].device if self.params else None
+        dtype = self.params[0].dtype if self.params else torch.float32
+        scalar = lambda: torch.zeros((), dtype=dtype, device=dev)  # noqa: E731
+        self.neg_lr = scalar()  # -learning_rate
+        self.bias_corrections = (scalar(), scalar()) if kind == "adam" else ()
 
     @property
     def learning_rate(self) -> float:
@@ -121,16 +131,33 @@ class Optimizer:
             for a in self.acc:
                 a.zero_()
             self.mini_step = 0
+        self.set_scalars()
+        self.update(grads)
+        self.count += 1
+        return True
+
+    def set_scalars(self) -> None:
+        """Fill the update's 0-d tensors from the host: minus the learning
+        rate at `count`, and Adam's bias corrections at count + 1."""
+        self.neg_lr.fill_(-self.learning_rate)
+        t = self.count + 1
+        for c, decay in zip(self.bias_corrections, (ADAM_B1, ADAM_B2)):
+            c.fill_(_bias_correction(decay, t, c.dtype))
+
+    @torch.no_grad()
+    def update(self, grads: Sequence[torch.Tensor]) -> None:
+        """The update's device work on one call's gradients, with the
+        scalars `set_scalars` left: the moments advanced and the parameters
+        moved, `count` left to the caller. No host sync, so a CUDA graph
+        can hold it."""
+        grads = list(grads)
         if self.weight_decay:
             grads = torch._foreach_add(grads, self.params, alpha=self.weight_decay)
         if self.clip_norm:
             grads = clip_by_global_norm(grads, self.clip_norm)
         updates = self._direction(grads)
-        lr = -self.learning_rate
-        torch._foreach_mul_(updates, lr)
+        torch._foreach_mul_(updates, self.neg_lr)
         torch._foreach_add_(self.params, updates)
-        self.count += 1
-        return True
 
     def _direction(self, grads: list[torch.Tensor]) -> list[torch.Tensor]:
         """The update before the learning rate, with the moments advanced."""
@@ -146,10 +173,9 @@ class Optimizer:
         torch._foreach_add_(self.mu, torch._foreach_mul(grads, 1 - b1))
         torch._foreach_mul_(self.nu, b2)
         torch._foreach_add_(self.nu, torch._foreach_mul(sq, 1 - b2))
-        t = self.count + 1
-        dt = self.mu[0].dtype if self.mu else torch.float32
-        mu_hat = torch._foreach_div(self.mu, _bias_correction(b1, t, dt))
-        nu_hat = torch._foreach_div(self.nu, _bias_correction(b2, t, dt))
+        c1, c2 = self.bias_corrections
+        mu_hat = torch._foreach_div(self.mu, c1)
+        nu_hat = torch._foreach_div(self.nu, c2)
         denom = torch._foreach_sqrt(nu_hat)
         torch._foreach_add_(denom, EPS)
         return torch._foreach_div(mu_hat, denom)

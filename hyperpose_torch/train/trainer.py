@@ -48,6 +48,7 @@ from ..parallel.sync_modes import local_step
 from ..parallel.train_step import sync_sgd_step
 from ..utils import tracing
 from .checkpoint import CheckpointManager, save_weights_npz
+from .graphs import CAPTURE, EAGER, REPLAY, StepGraphs
 from .init import flax_init_, flax_init_on_cpu_
 from .metrics import MetricManager
 from .optim import Optimizer
@@ -147,7 +148,14 @@ class Trainer:
     dp > 1 run each dp shard's whole local step on every one of its sp
     ranks, as the JAX sync step shards images on "dp" alone, and exchange
     the weights among the ranks of one sp index (`group`, the "dp"
-    group)."""
+    group).
+
+    On one CUDA device the Sync_sgd step (no domain adaptation, no
+    MultiSteps) replays as CUDA graphs from its second step at a set of
+    input shapes on (`train/graphs.py`)."""
+
+    # The dtypes of a batch's "kpts", "valid", "mask" and "bbxs" on the device.
+    BATCH_DTYPES = (torch.float32, torch.bool, torch.float32, torch.float32)
 
     def __init__(self, config: Config, model: nn.Module, limbs, device="cuda",
                  master_dtype: torch.dtype = torch.float32):
@@ -192,7 +200,7 @@ class Trainer:
         self.optimizer: Optimizer | None = None
         self.targets_loss = self._family_targets_loss(
             config, self.model, self.limbs, (config.model.hin, config.model.win),
-            (config.model.hout, config.model.wout))
+            (config.model.hout, config.model.wout), self.device)
         self.domainadapt = bool(config.data.domainadapt_flag)
         self.discriminator: nn.Module | None = None
         self.d_optimizer: Optimizer | None = None
@@ -200,6 +208,7 @@ class Trainer:
         if self.sp > 1 and self.sync_mode is None:
             self.row_shard = spatial.make_shard(self.model, config.model.hin, self.sp_group,
                                                 master_dtype, self.device)
+        self._graphs: StepGraphs | None = StepGraphs()   # None: every step eager
 
     # -- precision -------------------------------------------------------------
 
@@ -207,9 +216,9 @@ class Trainer:
         """TF32 off around a float32 step; nothing for bfloat16."""
         return no_tf32() if self.compute_dtype == torch.float32 else contextlib.nullcontext()
 
-    def _autocast(self):
+    def _autocast(self, cache: bool = True):
         return torch.autocast(self.device.type, dtype=torch.bfloat16,
-                              enabled=self.compute_dtype == torch.bfloat16)
+                              enabled=self.compute_dtype == torch.bfloat16, cache_enabled=cache)
 
     def _batchnorm_group(self):
         """The train-mode forward's BatchNorm scope: across the ranks under
@@ -256,12 +265,14 @@ class Trainer:
     # -- targets and losses ----------------------------------------------------
 
     @staticmethod
-    def _family_targets_loss(cfg, model, limbs, in_hw, out_hw):
+    def _family_targets_loss(cfg, model, limbs, in_hw, out_hw, device):
         """(predict, kpts, valid, mask, bbxs) -> (loss, parts): the family's
         targets, built on the device, and its loss (replaces the reference's
         per-algorithm PreProcessor + cal_loss pairing,
-        Model/__init__.py:312-333)."""
+        Model/__init__.py:312-333). The limbs (and PifPaf's sigmas) are put
+        on `device` once here: the step copies nothing from the host."""
         mt = cfg.model.model_type
+        limbs = torch.as_tensor(np.asarray(limbs), dtype=torch.long, device=device)
         if mt == MODEL.PoseProposal:
             from ..data.targets import ppn_targets
             from ..models import get_topology
@@ -279,10 +290,13 @@ class Trainer:
         if mt == MODEL.Pifpaf:
             from ..data.targets import pifpaf_targets
             from ..models.pifpaf import pifpaf_loss
+            from ..utils.topology import COCO_SIGMAS
+
+            sigmas = torch.as_tensor(np.asarray(COCO_SIGMAS, np.float32), device=device)
 
             def pifpaf_fn(predict, kpts, valid, mask, bbxs):
                 return pifpaf_loss(predict, pifpaf_targets(kpts, valid, limbs, in_hw, out_hw,
-                                                           mask=mask))
+                                                           mask=mask, sigmas=sigmas))
 
             return pifpaf_fn
         # OpenPose family. Model confidence channels = parts + background;
@@ -389,14 +403,25 @@ class Trainer:
     # -- steps -----------------------------------------------------------------
 
     def _batch(self, batch: dict) -> tuple:
-        dev = self.device
+        def put(key, dtype):
+            return torch.as_tensor(np.asarray(batch[key])).to(self.device,
+                                                              non_blocking=True).to(dtype)
 
-        def put(key, dtype=None):
-            t = torch.as_tensor(np.asarray(batch[key])).to(dev, non_blocking=True)
-            return t if dtype is None else t.to(dtype)
+        return (self._inputs(batch["images"]),
+                *(put(k, dt) for k, dt in zip(("kpts", "valid", "mask", "bbxs"),
+                                              self.BATCH_DTYPES)))
 
-        return (self._inputs(batch["images"]), put("kpts", torch.float32),
-                put("valid", torch.bool), put("mask", torch.float32), put("bbxs", torch.float32))
+    def _objective(self, predict: dict, kpts, valid, mask, bbxs,
+                   l2: bool = True) -> tuple[dict, torch.Tensor]:
+        """(metrics, objective) of the forward's outputs: the targets, the
+        family loss and, with `l2`, the L2 term (see `loss_and_grads`)."""
+        pd_loss, parts = self.targets_loss(predict, kpts, valid, mask, bbxs)
+        if not l2:
+            return dict(parts, total_loss=pd_loss), pd_loss
+        re_loss = l2_regularization(self.model, self.config.train.weight_decay_factor)
+        total = pd_loss + re_loss
+        out = dict(parts, loss_re=re_loss, pd_loss=pd_loss, total_loss=total)
+        return out, total if self._l2_here else pd_loss
 
     def loss_and_grads(self, batch: dict, grads: bool = True,
                        l2: bool = True) -> tuple[dict, list[torch.Tensor]]:
@@ -421,15 +446,7 @@ class Trainer:
                 with self._autocast():
                     predict = self._forward(x)
             with tracing.span("trainer/loss", device=dev):
-                pd_loss, parts = self.targets_loss(predict, kpts, valid, mask, bbxs)
-                if l2:
-                    re_loss = l2_regularization(self.model, self.config.train.weight_decay_factor)
-                    total = pd_loss + re_loss
-                    out = dict(parts, loss_re=re_loss, pd_loss=pd_loss, total_loss=total)
-                    objective = total if self._l2_here else pd_loss
-                else:
-                    objective = total = pd_loss
-                    out = dict(parts, total_loss=total)
+                out, objective = self._objective(predict, kpts, valid, mask, bbxs, l2)
             if grads:
                 with tracing.span("trainer/backward", device=dev):
                     grads = torch.autograd.grad(objective, self.params)
@@ -447,12 +464,23 @@ class Trainer:
         ranks, as the JAX trainer's sync branch comes before its dmadapt
         branch.
 
-        Span `trainer/step` (host only; count `images`, this rank's rows).
-        The Sync_sgd step holds `loss_and_grads`' spans and
-        `trainer/optimizer`; the domain-adaptation step records
-        `trainer/step` only, and Sync_avg / Pair_avg record `loss_and_grads`'
-        spans in it but no `trainer/optimizer`."""
-        with tracing.span("trainer/step", images=len(batch["images"])):
+        On one CUDA device the Sync_sgd step replays as CUDA graphs
+        (`train/graphs.py`; `StepGraphs.mode` decides each step).
+
+        Span `trainer/step` (host only; counts `images`, this rank's rows,
+        `graphed`, 1 where the step replayed its graphs, else 0, and
+        `captures`, 1, on a step that captured them). The Sync_sgd step holds
+        `loss_and_grads`' spans and `trainer/optimizer` (a replayed step the
+        same four spans around its replays); the domain-adaptation step
+        records `trainer/step` only, and Sync_avg / Pair_avg record
+        `loss_and_grads`' spans in it but no `trainer/optimizer`."""
+        mode = EAGER if self._graphs is None else self._graphs.mode(self, batch)
+        counts = {"images": len(batch["images"]), "graphed": int(mode in (CAPTURE, REPLAY))}
+        if mode == CAPTURE:
+            counts["captures"] = 1
+        with tracing.span("trainer/step", **counts):
+            if mode != EAGER:
+                return self._graphs.step(self, batch, mode)
             if self.sync_mode is not None:
                 return local_step(self, batch, step_idx, self.sync_mode)
             if self.domainadapt:
