@@ -21,6 +21,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..utils import tracing
 from .backbones import (
     ConvBN, DepthwiseConv, FlaxBatchNorm2d, MobilenetDilated, MobilenetSmall, MobilenetThin,
     Vgg19,
@@ -222,7 +223,9 @@ class OpenPose(nn.Module):
     openpose/model/openpose.py:13-117). `num_channels` is kept as the flax
     module keeps it: its layers are 128 wide whatever it says.
     `ret_backbone` adds the cpm features (the flax module's
-    `backbone_features`)."""
+    `backbone_features`). Device spans (`utils/tracing.py`):
+    `openpose/backbone` (the backbone, `cpm1` and `cpm2`) and
+    `openpose/stages` (every stage; counts `stages` and `frames`)."""
 
     def __init__(self, n_confmaps: int = N_CONFMAPS, n_pafmaps: int = N_PAFMAPS,
                  num_channels: int = N_CHANNELS,
@@ -244,13 +247,16 @@ class OpenPose(nn.Module):
             self.add_module(f"ref{i}_paf", _CmuStage(cin, n_pafmaps, _CMU_REFINE, dtype))
 
     def forward(self, x: torch.Tensor) -> dict:
-        feats = self.backbone(x.permute(0, 3, 1, 2).to(self.dtype))
-        feats = torch.relu(self.cpm2(torch.relu(self.cpm1(feats))))
-        confs, pafs = [self.init_conf(feats)], [self.init_paf(feats)]
-        for i in range(self.n_refinements):
-            z = torch.cat([feats, confs[-1], pafs[-1]], dim=1)
-            confs.append(getattr(self, f"ref{i}_conf")(z))
-            pafs.append(getattr(self, f"ref{i}_paf")(z))
+        with tracing.span("openpose/backbone", device=x.device):
+            feats = self.backbone(x.permute(0, 3, 1, 2).to(self.dtype))
+            feats = torch.relu(self.cpm2(torch.relu(self.cpm1(feats))))
+        with tracing.span("openpose/stages", device=x.device, stages=1 + self.n_refinements,
+                          frames=int(x.shape[0])):
+            confs, pafs = [self.init_conf(feats)], [self.init_paf(feats)]
+            for i in range(self.n_refinements):
+                z = torch.cat([feats, confs[-1], pafs[-1]], dim=1)
+                confs.append(getattr(self, f"ref{i}_conf")(z))
+                pafs.append(getattr(self, f"ref{i}_paf")(z))
         return _outputs(confs, pafs, feats if self.ret_backbone else None)
 
 

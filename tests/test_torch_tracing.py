@@ -264,6 +264,9 @@ def test_two_traced_rehearsal_runs_each_read_their_own_metrics_slice(tmp_path):
     from posebench import harness
 
     c = cell("lwopenpose-tinyvgg.offline-b32", tiny_tree(tmp_path))
+    # The run's two threads, as `run.py` sets them; restored after, since the
+    # tests that share this process compare single-threaded results bit for bit.
+    threads = torch.get_num_threads()
     torch.set_num_threads(2)
     seen, readings = [], []
     try:
@@ -278,6 +281,7 @@ def test_two_traced_rehearsal_runs_each_read_their_own_metrics_slice(tmp_path):
             readings.append(line["metrics"])
     finally:
         gc.unfreeze()
+        torch.set_num_threads(threads)
     assert seen[0] != seen[1]
     for period, metrics in zip(seen, readings):
         for name, span, wall in (("engine_host_ms.offline", "engine/step", "host"),
